@@ -1,0 +1,169 @@
+"""Command-line interface, flag-compatible with the JAX package's
+(`python -m sibeliaz_tpu_torch [-k -b -m -a -t -f -o -n] <fasta...>`), plus
+`--device {cuda,cpu}`.
+
+The port runs the `-n` path with the native LCB engine.  It refuses, and
+never falls back, for: no CUDA card under the default `--device cuda`; a
+run without `-n`; an `--lcb-engine` other than native; k > 31; an input
+whose graph stage does not fit the card (or the `-f` budget).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+from typing import List, Optional
+
+from sibeliaz_tpu_torch.config import Config
+
+
+def _add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("-k", type=int, default=25, help="k-mer (vertex) size, odd, at most 31")
+    p.add_argument("-b", type=int, default=200, help="maximum bubble branch size")
+    p.add_argument("-m", type=int, default=50, help="minimum LCB size")
+    p.add_argument("-a", type=int, default=150, help="maximum junction abundance")
+    p.add_argument("-t", type=int, default=0, help="worker threads (0 = all cores)")
+    p.add_argument(
+        "-f", type=int, default=0,
+        help="device-memory budget in GB for the graph stage (default: the "
+        "card's free memory)",
+    )
+    p.add_argument("-o", dest="outdir", default="./sibeliaz_out", help="output directory")
+    p.add_argument("-n", dest="noalign", action="store_true",
+                   help="skip the alignment stage (required: alignment is not ported yet)")
+    p.add_argument("--graph", default=None, help="load junctions from a .dbg file instead of running graph construction")
+    p.add_argument("--dump-graph", default=None, help="write the junction stream to this .dbg file (checkpoint)")
+    p.add_argument(
+        "--legacy-chunks", type=int, default=0, metavar="N",
+        help="also emit reference-format <i>.tmp chunk files (N chunks) for "
+        "external alignment tooling",
+    )
+    p.add_argument(
+        "--align-engine", choices=("native", "tpu"), default="native",
+        help="POA engine for the alignment stage (not ported yet)",
+    )
+    p.add_argument(
+        "--poa-ties", choices=("first", "last"), default="first",
+        help="POA tie-break policy (not ported yet)",
+    )
+    p.add_argument(
+        "--lcb-engine", choices=("native", "oracle", "tpu", "tpu-fused"),
+        default="native",
+        help="LCB exploration engine (the port runs native only)",
+    )
+    p.add_argument(
+        "--device", choices=("cuda", "cpu"), default="cuda",
+        help="device of the graph stage; cpu runs the kernels' plain "
+        "PyTorch versions",
+    )
+    p.add_argument("fastas", nargs="+", help="FASTA files with genomes")
+
+
+def make_config(args) -> Config:
+    threads = args.t if args.t > 0 else min(os.cpu_count() or 1, 32)
+    return Config(
+        k=args.k,
+        max_branch_size=args.b,
+        min_block_size=args.m,
+        abundance_threshold=args.a,
+        threads=threads,
+        no_align=args.noalign,
+        out_dir=args.outdir,
+        memory_budget_bytes=(args.f << 30) if args.f > 0 else None,
+    )
+
+
+def run(argv: Optional[List[str]] = None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="sibeliaz-tpu-torch",
+        description="Whole-genome LCB construction on a CUDA card",
+    )
+    _add_common(ap)
+    args = ap.parse_args(argv)
+    cfg = make_config(args)
+
+    import numpy as np
+    import torch
+
+    from sibeliaz_tpu_torch import pipeline
+    from sibeliaz_tpu_torch.io import dbg as dbg_io
+    from sibeliaz_tpu_torch.io import fasta as fasta_io
+    from sibeliaz_tpu_torch.utils.metrics import GLOBAL as metrics
+
+    if not cfg.no_align:
+        raise SystemExit(
+            "sibeliaz-tpu-torch: the alignment stage is not ported yet "
+            "(ROADMAP.md queue A item 2); run with -n"
+        )
+    try:
+        pipeline.check_engine(args.lcb_engine)
+    except NotImplementedError as e:
+        raise SystemExit(f"sibeliaz-tpu-torch: {e}") from None
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(
+            "sibeliaz-tpu-torch: --device cuda, but no CUDA device is "
+            "visible; pass --device cpu to run the plain PyTorch path"
+        )
+
+    os.makedirs(cfg.out_dir, exist_ok=True)
+    records_in = fasta_io.read_many(args.fastas)
+    seqs = [r.seq for r in records_in]
+    names = [r.name for r in records_in]
+
+    t0 = time.time()
+    if args.graph:
+        print("Loading the graph...")
+        records = dbg_io.read_dbg(args.graph)
+        while len(records) < len(seqs):
+            records.append(
+                dbg_io.JunctionChr(
+                    pos=np.zeros(0, np.uint32), ids=np.zeros(0, np.int64)
+                )
+            )
+    else:
+        print("Constructing the graph...")
+        from sibeliaz_tpu_torch.graph import construct
+
+        records = construct.build_junctions(
+            seqs, cfg.k, args.device, cfg.memory_budget_bytes
+        )
+    t_graph = time.time()
+    if args.dump_graph:
+        dbg_io.write_dbg(args.dump_graph, records)
+
+    print("Analyzing the graph...")
+    res = pipeline.find_blocks(
+        seqs, names, cfg, records=records, engine=args.lcb_engine,
+        device=args.device,
+    )
+    t_lcb = time.time()
+
+    print("Generating the output...")
+    with open(os.path.join(cfg.out_dir, "blocks_coords.gff"), "w") as f:
+        f.write(res.gff)
+    print(f"Blocks found: {res.blocks_found}")
+    print(f"Coverage: {res.coverage:.2f}")
+
+    if args.legacy_chunks:
+        from sibeliaz_tpu_torch.output import chunks as chunks_mod
+
+        chunks_mod.write_chunks(
+            res.blocks, seqs, names, cfg.out_dir, chunks=args.legacy_chunks
+        )
+    t_end = time.time()
+    print(
+        f"Timings: graph {t_graph - t0:.2f}s, lcb {t_lcb - t_graph:.2f}s, "
+        f"total {t_end - t0:.2f}s"
+    )
+    metrics.dump(os.path.join(cfg.out_dir, "metrics.json"))
+    return 0
+
+
+def main() -> None:
+    sys.exit(run())
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,152 @@
+"""Compacted-dBG junction enumeration on a CUDA card (the TwoPaCo stage).
+
+The same exact sort-based formulation as sibeliaz_tpu/graph/construct.py,
+in PyTorch around two hand-written kernels (graph/kernels.py):
+
+  1. all chromosomes are joined with one 'N' separator and packed on the
+     host into 2-bit codes plus a validity bitmap (0.375 B/position),
+  2. K1 `front_half` computes, per position, the canonical k-mer key and the
+     packed extension/boundary/orientation word,
+  3. one stable torch.sort by key groups each vertex class, keeping genome
+     order inside a class,
+  4. K2 `class_analysis` gives each sorted row its junction verdict and the
+     position of its class's first occurrence,
+  5. torch ops scatter both back to genome order, rank the class-first
+     positions into dense signed ids and compact the junction rows.
+
+Semantics contract: identical output to graph/oracle.py and to the JAX
+package's build_junctions (tested).  k <= 31 only; wider k and inputs whose
+graph stage does not fit the card are refused (see ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from sibeliaz_tpu_torch.core import alphabet
+from sibeliaz_tpu_torch.graph import kernels
+from sibeliaz_tpu_torch.graph.assemble import split_chromosomes
+from sibeliaz_tpu_torch.io.dbg import JunctionChr
+from sibeliaz_tpu_torch.utils.metrics import GLOBAL as metrics
+
+# Device bytes per position the graph stage may hold at its peak (the sort:
+# the key and packed word, torch.sort's values and int64 indices and its
+# scratch).  chip_smoke.py measures the peak with
+# torch.cuda.max_memory_allocated: 52.2 B/position at 12 and 16 Mbp on an
+# NVIDIA H100 80GB HBM3 with a 700 W power limit (PERF.md); the bound keeps
+# ~20% headroom over that.
+PEAK_BYTES_PER_POS = 64
+
+
+def pack_codes_host(codes: np.ndarray):
+    """Pack a BAD_CODE-carrying uint8 code stream into (2-bit codes,
+    1-bit validity bitmap) for upload: 0.375 B/position instead of 1.  The
+    tail is padded to a multiple of 8 with BAD_CODE, which the kernels never
+    read past len(codes)."""
+    pad = -len(codes) % 8
+    if pad:
+        codes = np.concatenate([codes, np.full(pad, alphabet.BAD_CODE, np.uint8)])
+    valid = codes != alphabet.BAD_CODE
+    c = np.where(valid, codes, 0).astype(np.uint8).reshape(-1, 4)
+    packed = c[:, 0] | (c[:, 1] << 2) | (c[:, 2] << 4) | (c[:, 3] << 6)
+    nmask = np.packbits(
+        valid.reshape(-1, 8), axis=1, bitorder="little"
+    ).ravel()
+    return packed, nmask
+
+
+def check_fits(n: int, k: int, device: torch.device, budget: int | None) -> None:
+    """Refuse what the monolithic graph stage cannot run: k > 31, positions
+    past int32, or an input whose peak would not fit `budget` bytes (or the
+    card's free memory when no budget is given)."""
+    if k > kernels.MAX_K:
+        raise NotImplementedError(
+            f"k={k}: the port's graph stage handles k <= {kernels.MAX_K}; "
+            "two-limb codes for 33 <= k <= 61 are ROADMAP.md queue A item 1"
+        )
+    if budget is None and device.type == "cuda":
+        budget = torch.cuda.mem_get_info(device)[0]
+    need = n * PEAK_BYTES_PER_POS
+    if n >= 1 << 31 or (budget is not None and need > budget):
+        raise NotImplementedError(
+            f"{n} positions need ~{need} B of device memory for the "
+            f"monolithic graph stage (budget {budget} B); the streamed graph "
+            "stage is ROADMAP.md queue A item 3"
+        )
+
+
+@contextlib.contextmanager
+def _step(name: str, device: torch.device):
+    """A metrics stage that ends when the device has finished its work."""
+    with metrics.stage(name):
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+
+def build_junctions(
+    seqs: Sequence[np.ndarray],
+    k: int,
+    device: str | torch.device = "cuda",
+    memory_budget_bytes: int | None = None,
+) -> List[JunctionChr]:
+    """Run junction enumeration on `device`; return per-chromosome records.
+
+    Each step is a metrics stage (graph_upload, graph_front_half,
+    graph_sort, graph_class_analysis, graph_ids_fetch) that waits for the
+    device before it ends."""
+    device = torch.device(device)
+    if not seqs:
+        return []
+    lengths = [len(s) for s in seqs]
+    sep = np.array([ord("N")], dtype=np.uint8)  # separator (never definite)
+    joined = np.concatenate(
+        [x for s in seqs for x in (s, sep)][:-1] if len(seqs) > 1 else [seqs[0]]
+    )
+    n = len(joined)
+    check_fits(n, k, device, memory_budget_bytes)
+    if n < k:
+        return [
+            JunctionChr(pos=np.zeros(0, np.uint32), ids=np.zeros(0, np.int64))
+            for _ in seqs
+        ]
+
+    with _step("graph_upload", device):
+        pk_host, nm_host = pack_codes_host(alphabet.encode(joined))
+        codes2 = torch.from_numpy(pk_host).to(device)
+        nmask = torch.from_numpy(nm_host).to(device)
+    with _step("graph_front_half", device):
+        key, packed = kernels.front_half(codes2, nmask, n, k)
+        del codes2, nmask
+    with _step("graph_sort", device):
+        key_s, order = torch.sort(key, stable=True)
+        del key
+        packed_s = packed[order]
+        pos_s = order.to(torch.int32)
+        del order
+    with _step("graph_class_analysis", device):
+        junction_s, first_s = kernels.class_analysis(key_s, packed_s, pos_s)
+        del key_s, packed_s
+    with _step("graph_ids_fetch", device):
+        # back to genome order; a class's first occurrence is itself a
+        # junction row, so ranking the rows where first == position gives
+        # the dense ids of assemble.assign_ids
+        isj = torch.empty_like(junction_s)
+        isj[pos_s] = junction_s
+        first = torch.empty_like(first_s)
+        first[pos_s] = first_s
+        del junction_s, first_s, pos_s
+        idx = torch.arange(n, dtype=torch.int32, device=device)
+        crank = torch.cumsum(isj & (first == idx), 0, dtype=torch.int32)
+        jpos = torch.nonzero(isj).squeeze(1)
+        ids = crank[first[jpos].long()].long()
+        signed = torch.where(((packed[jpos] >> 11) & 1) > 0, ids, -ids)
+        jpos_h = jpos.cpu().numpy()
+        signed_h = signed.cpu().numpy()
+    metrics.set("graph_positions", n)
+    metrics.set("graph_junctions", len(jpos_h))
+    return split_chromosomes(jpos_h, signed_h, lengths, lead_sep=0)

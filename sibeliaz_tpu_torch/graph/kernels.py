@@ -1,0 +1,208 @@
+"""The graph stage's two hand-written CUDA kernels and their plain versions.
+
+K1 `front_half` (csrc/front_half.cu) turns the packed 2-bit upload into a
+canonical k-mer key and a packed extension word per position.  K2
+`class_analysis` (csrc/class_analysis.cu) turns the key-sorted rows into a
+junction verdict and a class-first position per row.
+
+Each wrapper routes by the device of the tensors it is given: a CPU tensor
+goes to the plain PyTorch version beside it, a CUDA tensor launches the
+kernel (or raises), anything else raises.  The plain versions are the CPU
+path and the spec the kernels are tested against.  LAUNCHES counts kernel
+launches per wrapper; the plain versions do not count.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from sibeliaz_tpu_torch.utils import cudabuild
+
+# Canonical key of a window that is not all ACGT or runs past the end; it
+# sorts after every real code (4^31 - 1 < 2^62).
+INVALID_CANON = 1 << 62
+_NO_EXT = 4
+MAX_K = 31
+
+LAUNCHES = {"front_half": 0, "class_analysis": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _route(*tensors: torch.Tensor) -> str:
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+    kind = devices.pop().type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device type {kind!r}")
+    return kind
+
+
+def _require(t: torch.Tensor, dtype: torch.dtype, min_len: int, name: str):
+    if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 1-D {dtype} tensor")
+    if t.shape[0] < min_len:
+        raise ValueError(f"{name} has {t.shape[0]} entries, needs {min_len}")
+
+
+def _stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _check(status: int, what: str) -> None:
+    if status != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {status}")
+
+
+# ---- K1: front half -------------------------------------------------------
+
+
+def front_half_plain(codes2: torch.Tensor, nmask: torch.Tensor, n: int, k: int):
+    """Plain PyTorch K1: the math of construct._prepare_packed for k <= 31,
+    written with torch.roll (windows past the end wrap around, as there)."""
+    idx = torch.arange(n, device=codes2.device)
+    definite = ((nmask[idx >> 3].long() >> (idx & 7)) & 1) > 0
+    code = (codes2[idx >> 2].long() >> ((idx & 3) * 2)) & 3
+    codes = torch.where(definite, code, 0)
+    fwd = torch.zeros(n, dtype=torch.int64, device=codes2.device)
+    rc = torch.zeros_like(fwd)
+    valid = idx + k <= n
+    for i in range(k):
+        ci = torch.roll(codes, -i)
+        fwd = (fwd << 2) | ci
+        rc = rc | ((3 - ci) << (2 * i))
+        valid = valid & torch.roll(definite, -i)
+    positive = fwd < rc
+    key = torch.where(valid, torch.minimum(fwd, rc), INVALID_CANON)
+
+    nxt_ok = torch.roll(definite, -k) & (idx + k < n)
+    prv_ok = torch.roll(definite, 1) & (idx >= 1)
+    nxt_c = torch.roll(codes, -k)
+    prv_c = torch.roll(codes, 1)
+    nxt = torch.where(nxt_ok, nxt_c, _NO_EXT)
+    prv = torch.where(prv_ok, prv_c, _NO_EXT)
+    comp_nxt = torch.where(nxt_ok, 3 - nxt_c, _NO_EXT)
+    comp_prv = torch.where(prv_ok, 3 - prv_c, _NO_EXT)
+    right = torch.where(positive, nxt, comp_prv)
+    left = torch.where(positive, prv, comp_nxt)
+    false = torch.zeros(1, dtype=torch.bool, device=codes2.device)
+    prev_valid = torch.cat([false, valid[:-1]])
+    next_valid = torch.cat([valid[1:], false])
+    boundary = valid & ~(prev_valid & next_valid)
+    packed = (
+        (1 << right)
+        | (1 << (left + 5))
+        | (boundary.long() << 10)
+        | (positive.long() << 11)
+    ).to(torch.int32)
+    return key, packed
+
+
+def front_half(codes2: torch.Tensor, nmask: torch.Tensor, n: int, k: int):
+    """K1.  codes2: uint8 2-bit codes, four per byte (pack_codes_host);
+    nmask: uint8 definiteness bits, eight per byte; n positions; k <= 31.
+
+    Returns (key int64 [n], packed int32 [n]) in genome order."""
+    kind = _route(codes2, nmask)
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"front_half takes 1 <= k <= {MAX_K}, got k={k}")
+    _require(codes2, torch.uint8, -(-n // 4), "codes2")
+    _require(nmask, torch.uint8, -(-n // 8), "nmask")
+    if kind == "cpu":
+        return front_half_plain(codes2, nmask, n, k)
+    key = torch.empty(n, dtype=torch.int64, device=codes2.device)
+    packed = torch.empty(n, dtype=torch.int32, device=codes2.device)
+    lib = cudabuild.load()
+    _check(
+        lib.sz_front_half(
+            _ptr(codes2), _ptr(nmask), n, k, _ptr(key), _ptr(packed),
+            _stream(codes2.device),
+        ),
+        "front_half",
+    )
+    LAUNCHES["front_half"] += 1
+    return key, packed
+
+
+# ---- K2: class analysis ---------------------------------------------------
+
+# packed-word bits the verdict reads: right extensions A,C,G,T; left
+# extensions A,C,G,T; run boundary
+_VERDICT_BITS = (0, 1, 2, 3, 5, 6, 7, 8, 10)
+
+
+def class_analysis_plain(key_s: torch.Tensor, packed_s: torch.Tensor, pos_s: torch.Tensor):
+    """Plain PyTorch K2: per-class "contains bit b" as a scatter amax over
+    the nine bit planes the verdict reads."""
+    n = key_s.shape[0]
+    dev = key_s.device
+    start = torch.ones(n, dtype=torch.bool, device=dev)
+    start[1:] = key_s[1:] != key_s[:-1]
+    cls = torch.cumsum(start, 0) - 1
+    valid = key_s != INVALID_CANON
+    shifts = torch.tensor(_VERDICT_BITS, dtype=torch.int32, device=dev)
+    bits = ((packed_s[None, :] >> shifts[:, None]) & 1) * valid
+    has = torch.zeros(len(_VERDICT_BITS), n, dtype=torch.int32, device=dev)
+    has.scatter_reduce_(1, cls.expand(len(_VERDICT_BITS), n), bits, "amax")
+    verdict = (
+        (has[0:4].sum(0) > 1) | (has[4:8].sum(0) > 1) | (has[8] > 0)
+    )
+    junction_s = verdict[cls] & valid
+    cls_first = torch.zeros(n, dtype=torch.int32, device=dev)
+    cls_first[cls[start]] = pos_s[start]
+    return junction_s, cls_first[cls]
+
+
+def class_analysis(key_s: torch.Tensor, packed_s: torch.Tensor, pos_s: torch.Tensor):
+    """K2.  key_s: int64 keys sorted ascending (stably); packed_s, pos_s:
+    int32 packed words and genome positions in the same row order.
+
+    Returns (junction_s bool [n], first_s int32 [n]) in sorted order."""
+    kind = _route(key_s, packed_s, pos_s)
+    n = key_s.shape[0]
+    _require(key_s, torch.int64, n, "key_s")
+    _require(packed_s, torch.int32, n, "packed_s")
+    _require(pos_s, torch.int32, n, "pos_s")
+    if packed_s.shape[0] != n or pos_s.shape[0] != n:
+        raise ValueError("key_s, packed_s and pos_s differ in length")
+    if kind == "cpu":
+        return class_analysis_plain(key_s, packed_s, pos_s)
+    dev = key_s.device
+    lib = cudabuild.load()
+    stream = _stream(dev)
+    start = torch.empty(n, dtype=torch.int32, device=dev)
+    _check(
+        lib.sz_class_mark_starts(_ptr(key_s), n, _ptr(start), stream),
+        "class_analysis mark_starts",
+    )
+    cls_incl = torch.cumsum(start, 0, dtype=torch.int32)
+    cls_or = start.zero_()  # the flags are spent; reuse their memory
+    cls_first = torch.empty(n, dtype=torch.int32, device=dev)
+    _check(
+        lib.sz_class_or(
+            _ptr(key_s), _ptr(packed_s), _ptr(pos_s), _ptr(cls_incl), n,
+            _ptr(cls_or), _ptr(cls_first), stream,
+        ),
+        "class_analysis class_or",
+    )
+    junction_s = torch.empty(n, dtype=torch.bool, device=dev)
+    first_s = torch.empty(n, dtype=torch.int32, device=dev)
+    _check(
+        lib.sz_class_verdict(
+            _ptr(key_s), _ptr(cls_incl), _ptr(cls_or), _ptr(cls_first), n,
+            _ptr(junction_s), _ptr(first_s), stream,
+        ),
+        "class_analysis verdict",
+    )
+    LAUNCHES["class_analysis"] += 1
+    return junction_s, first_s

@@ -1,0 +1,96 @@
+"""Build and load the port's CUDA kernels (csrc/*.cu) for Hopper.
+
+The sources compile with nvcc into one shared library with a plain C
+interface, which ctypes loads; nothing includes PyTorch's headers, so a
+build takes seconds.  The library lands in the package's gitignored
+`_build/` directory, named by a hash of the sources and flags, so an edited
+source rebuilds and an unchanged one is reused.  The first kernel launch
+triggers the build; `build()` can also be called up front.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found on PATH or under CUDA_HOME; the CUDA kernels "
+            "need the CUDA toolkit"
+        )
+    return path
+
+
+def build() -> tuple[str, str]:
+    """Compile csrc/*.cu if no library for these sources exists yet.
+
+    Returns (library path, nvcc's `-Xptxas -v` report)."""
+    sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        with open(src, "rb") as f:
+            digest.update(f.read())
+    stem = os.path.join(BUILD_DIR, f"libsz_kernels_{digest.hexdigest()[:16]}")
+    lib, log = stem + ".so", stem + ".log"
+    if os.path.exists(lib):
+        with open(log) as f:
+            return lib, f.read()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.NamedTemporaryFile(
+        suffix=".so", dir=BUILD_DIR, delete=False
+    ) as tmp:
+        tmp_path = tmp.name
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp_path, *sources]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp_path)
+        raise RuntimeError(
+            f"CUDA build failed ({' '.join(cmd)}):\n{proc.stderr}"
+        )
+    with open(log, "w") as f:
+        f.write(proc.stderr)
+    os.replace(tmp_path, lib)
+    return lib, proc.stderr
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(build()[0])
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    signatures = {
+        "sz_front_half": [vp, vp, i64, i32, vp, vp, vp],
+        "sz_class_mark_starts": [vp, i64, vp, vp],
+        "sz_class_or": [vp, vp, vp, vp, i64, vp, vp, vp],
+        "sz_class_verdict": [vp, vp, vp, vp, i64, vp, vp, vp],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _lib = lib
+    return lib

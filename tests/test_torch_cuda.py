@@ -1,0 +1,72 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+Marked `gpu`: on a machine without a CUDA card every test skips (decided in
+the fixture, not at import).  On the card: `python -m pytest -m gpu
+tests/test_torch_cuda.py`."""
+
+import numpy as np
+import pytest
+import torch
+
+from sibeliaz_tpu_torch.graph import construct, kernels
+
+from torch_cases import class_case, codes_with_n_runs
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def upload(codes, device):
+    pk_host, nm_host = construct.pack_codes_host(codes)
+    return (torch.from_numpy(pk_host).to(device),
+            torch.from_numpy(nm_host).to(device))
+
+
+@pytest.mark.parametrize("k", [3, 15, 25, 31])
+@pytest.mark.parametrize("n", [1000, 200_003])
+def test_front_half_matches_plain(cuda, k, n):
+    codes = codes_with_n_runs(k, n, n // 500, n_at_ends=True)
+    codes2, nmask = upload(codes, cuda)
+    before = kernels.LAUNCHES["front_half"]
+    key, packed = kernels.front_half(codes2, nmask, n, k)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["front_half"] == before + 1
+    want_key, want_packed = kernels.front_half_plain(codes2, nmask, n, k)
+    assert torch.equal(key, want_key)
+    assert torch.equal(packed, want_packed)
+
+
+@pytest.mark.parametrize("case", ["repeat_heavy", "poly_a", "n_separated"])
+def test_class_analysis_matches_plain(cuda, case):
+    codes = class_case(case)
+    codes2, nmask = upload(codes, cuda)
+    key, packed = kernels.front_half(codes2, nmask, len(codes), 15)
+    key_s, order = torch.sort(key, stable=True)
+    packed_s, pos_s = packed[order], order.to(torch.int32)
+    before = kernels.LAUNCHES["class_analysis"]
+    got = kernels.class_analysis(key_s, packed_s, pos_s)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["class_analysis"] == before + 1
+    want = kernels.class_analysis_plain(key_s, packed_s, pos_s)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+
+
+def test_build_junctions_cuda_matches_cpu(cuda):
+    rng = np.random.default_rng(5)
+    seqs = [
+        np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=5000)]
+        for _ in range(3)
+    ]
+    seqs[1][1000:1200] = seqs[0][3000:3200]
+    seqs[2][100:140] = ord("N")
+    got = construct.build_junctions(seqs, 15, cuda)
+    want = construct.build_junctions(seqs, 15, "cpu")
+    for a, b in zip(got, want):
+        assert np.array_equal(a.pos, b.pos) and np.array_equal(a.ids, b.ids)

@@ -1,0 +1,78 @@
+"""The port's graph stage (build_junctions on the CPU path) against the JAX
+package's build_junctions and the brute-force oracle, on the cases of
+tests/test_graph.py::TestConstructParity."""
+
+import numpy as np
+import pytest
+
+from sibeliaz_tpu.graph import construct as jax_construct
+from sibeliaz_tpu.graph import oracle as jax_oracle
+from sibeliaz_tpu_torch.core import alphabet
+from sibeliaz_tpu_torch.graph import construct, oracle
+
+from test_graph import mutate, random_genomes
+
+
+def assert_same(a, b):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert x.pos.dtype == y.pos.dtype and x.ids.dtype == y.ids.dtype
+        assert np.array_equal(x.pos, y.pos)
+        assert np.array_equal(x.ids, y.ids)
+
+
+def check_all(seqs, k):
+    got = construct.build_junctions(seqs, k, "cpu")
+    assert_same(jax_construct.build_junctions(seqs, k), got)
+    assert_same(oracle.enumerate_junctions(seqs, k), got)
+    assert_same(jax_oracle.enumerate_junctions(seqs, k), got)
+
+
+@pytest.mark.parametrize("seed,k,n_prob", [(0, 5, 0.0), (1, 7, 0.02),
+                                           (2, 9, 0.0), (3, 15, 0.01),
+                                           (4, 25, 0.0), (5, 3, 0.05),
+                                           (6, 31, 0.01)])
+def test_random_parity(seed, k, n_prob):
+    rng = np.random.default_rng(seed)
+    check_all(random_genomes(rng, 3, 50, 400, n_prob), k)
+
+
+def test_related_genomes_parity():
+    rng = np.random.default_rng(7)
+    base = random_genomes(rng, 2, 500, 800)[0]
+    g2 = mutate(rng, base, 0.01)
+    g3 = alphabet.reverse_complement(mutate(rng, base, 0.005))
+    check_all([base, g2, g3], 11)
+
+
+def test_repeat_heavy_parity():
+    rng = np.random.default_rng(11)
+    unit = alphabet.decode(rng.integers(0, 4, size=40).astype(np.uint8))
+    seq = np.concatenate([unit] * 6 + [alphabet.reverse_complement(unit)] * 2)
+    check_all([seq], 9)
+
+
+def test_short_input():
+    recs = construct.build_junctions([alphabet.str_to_seq("ACG")], 5, "cpu")
+    assert len(recs) == 1 and len(recs[0].pos) == 0
+    assert construct.build_junctions([], 5, "cpu") == []
+
+
+def test_wide_k_is_refused():
+    seq = alphabet.str_to_seq("ACGT" * 30)
+    with pytest.raises(NotImplementedError, match="queue A item 1"):
+        construct.build_junctions([seq], 33, "cpu")
+
+
+def test_memory_guard_refuses():
+    seq = alphabet.str_to_seq("ACGT" * 300)
+    with pytest.raises(NotImplementedError, match="queue A item 3"):
+        construct.build_junctions(
+            [seq], 15, "cpu",
+            memory_budget_bytes=len(seq) * construct.PEAK_BYTES_PER_POS - 1,
+        )
+    recs = construct.build_junctions(
+        [seq], 15, "cpu",
+        memory_budget_bytes=len(seq) * construct.PEAK_BYTES_PER_POS,
+    )
+    assert len(recs[0].pos) > 0
