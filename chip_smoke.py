@@ -5,22 +5,34 @@
 Phases, in order; any failure raises and the exit code is non-zero:
   1. device: the card's name and power limit;
   2. build: compile the CUDA kernels from csrc/ (printing nvcc's register,
-     shared-memory and spill report) and the native LCB engine;
+     shared-memory and spill report) and the native LCB and POA engines;
   3. kernels: K1 front_half and K2 class_analysis against their plain
      PyTorch versions on the card, exact, with CUDA-event times beside the
      plain versions' and the sort's;
-  4. small graphs: build_junctions on the card against the brute-force
+  4. POA kernel: K3 poa_dp_tb against its plain version on three seeded
+     buckets (unbanded, banded, tie-heavy; tests/torch_cases.py's
+     generators), exact, with times and shapes;
+  5. small graphs: build_junctions on the card against the brute-force
      oracle on the graph tests' fixture shapes;
-  5. goldens: the CLI on examples/ (k=15) and on the regenerated
+  6. goldens: the CLI with -n on examples/ (k=15) and on the regenerated
      reference-scale examples/large pair (k=25), byte-equal to the committed
-     GFFs; the large run is the main-path run whose kernel launches count;
-  6. timed pass: the CLI on the 16 x 1 Mbp strain workload (k=15), with the
+     GFFs; the large run is the main-path run whose K1 and K2 launches
+     count;
+  7. golden MAFs: the CLI without -n on examples/ with the native and the
+     device POA engine, both byte-equal to the committed MAF; the device run
+     is the main-path run whose K3 launches count, and K3 is then held
+     against its plain version on that run's own dispatch;
+  8. examples/large alignment at the CLI's budget: the device engine's MSAs
+     against the native engine's on every block of the large pair, and K3
+     against its plain version on the run's largest dispatch;
+  9. timed pass: the CLI on the 16 x 1 Mbp strain workload (k=15), with the
      graph stage's steps, LCB and total seconds, input Mbp/s and the peak
      device bytes per position.
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.  It imports neither jax nor sibeliaz_tpu.
 """
 
+import functools
 import hashlib
 import json
 import os
@@ -197,6 +209,165 @@ def compare_kernels(torch, dev, alphabet, construct, kernels):
     return k1_err, k2_err, times
 
 
+def poa_blocks(cases, kind, rng):
+    """Seeded POA blocks of one K3 bucket: (blocks, planner keywords)."""
+    if kind == "unbanded":  # L = 1024, full-width windows
+        return [cases.rand_block(rng, int(rng.integers(700, 1000)), 3, mut=0.05)
+                for _ in range(16)], {"band": False}
+    if kind == "banded":  # L = 4096, banded windows
+        return [cases.rand_block(rng, int(rng.integers(3000, 4000)), 3, mut=0.03)
+                for _ in range(8)], {"band_min": 64}
+    # low complexity, L = 4096: ties everywhere
+    return [cases.tie_heavy_block(rng, 300) for _ in range(8)], {"band_min": 64}
+
+
+def k3_vs_plain(torch, align_kernels, args, label):
+    """K3 against its plain version on one dispatch's arguments, exact;
+    returns (max abs error, kernel ms, plain ms)."""
+    check(args is not None, f"no K3 dispatch to check ({label})")
+    seq0p, n_max, W, pred_ok = args[0], args[6], args[7], args[4]
+    got = align_kernels.poa_dp_tb(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = align_kernels.poa_dp_tb_plain(*args)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
+    check(err == 0, f"poa_dp_tb differs from its plain version ({label})")
+    ms = cuda_ms(torch, lambda: align_kernels.poa_dp_tb(*args), 3)
+    cols = -(-W // 1024)  # columns per thread: K3 runs at most 1024 threads
+    ranks = int(align_kernels._ranks_used(pred_ok).max())
+    print(f"poa_dp_tb {label}: equal | B {seq0p.shape[0]} L {seq0p.shape[1] - 1 - W} "
+          f"n_max {n_max} W {W} cols {cols} ranks used {ranks} | "
+          f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms")
+    return err, ms, plain_ms
+
+
+def compare_poa(torch, dev, cases, device_poa, poa_ref, align_kernels):
+    """Phase 4: K3 against its plain version on three seeded buckets, each
+    block's last copy aligned to the graph of the others, assembled by the
+    engine's own device_poa.assemble_round; returns the max abs error."""
+    rng = np.random.default_rng(21)
+    err = 0
+    for kind in ("unbanded", "banded", "tie_heavy"):
+        blocks, plan_kw = poa_blocks(cases, kind, rng)
+        plan = functools.partial(device_poa._plan_windows, **plan_kw)
+        arrays, n_max, W, P, s0s = cases.poa_round(
+            blocks, poa_ref.PoaGraph, device_poa._extract_arrays, plan)
+        banded = sum(s is not None for s in s0s)
+        if kind != "tie_heavy":
+            check(banded == (0 if kind == "unbanded" else len(blocks)),
+                  f"{kind}: {banded} of {len(blocks)} blocks banded")
+        t = [torch.from_numpy(a).to(dev) for a in arrays]
+        err = max(err, k3_vs_plain(torch, align_kernels, (*t[:6], n_max, W, P, t[6]),
+                                   kind)[0])
+    return err
+
+
+class LargestDispatch:
+    """While active, wraps the K3 wrapper that the device engine calls and
+    keeps the arguments of the run's largest dispatch (by n_max, then W),
+    so that K3 can be held against its plain version at the main path's own
+    shapes afterwards.  The wrapper it calls still counts each launch."""
+
+    def __init__(self, align_kernels):
+        self.mod, self.args = align_kernels, None
+
+    def __enter__(self):
+        real = self.real = self.mod.poa_dp_tb
+
+        def record(*args):
+            out = real(*args)
+            if self.args is None or args[6:8] > self.args[6:8]:
+                self.args = args
+            return out
+
+        self.mod.poa_dp_tb = record
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.poa_dp_tb = self.real
+
+
+def maf_body(path):
+    with open(path) as f:
+        return [l for l in f.read().splitlines() if not l.startswith("# cmd=")]
+
+
+def align_counts(metrics):
+    """The alignment stage's counters: dispatches, blocks, re-runs, native
+    routing, and the device engine's seconds per phase (poa_*_s)."""
+    keys = ("poa_dispatches", "poa_blocks_dispatched", "poa_band_pass2",
+            "poa_band_full", "poa_native_routed", "poa_native_redo")
+    counts = {k: int(metrics.counters.get(k, 0)) for k in keys}
+    counts.update(sorted((k, v) for k, v in metrics.counters.items()
+                         if k.startswith("poa_") and k.endswith("_s")))
+    return counts
+
+
+def golden_mafs(torch, cli, metrics, align_kernels, out_dir):
+    """Phase 7: returns K3's launches in the device-engine run and
+    k3_vs_plain's result on that run's dispatch."""
+    golden = maf_body(os.path.join(EXAMPLES, "sibeliaz_out", "alignment.maf"))
+    fas = [os.path.join(EXAMPLES, "genome1.fa"), os.path.join(EXAMPLES, "genome2.fa")]
+    launches = 0
+    for engine in ("native", "tpu"):
+        out = os.path.join(out_dir, engine)
+        metrics.timings.clear()
+        metrics.counters.clear()
+        align_kernels.reset_launches()
+        with LargestDispatch(align_kernels) as rec:
+            wall = run_cli(cli, ["-k", "15", "--align-engine", engine, "-o", out, *fas])
+        launches = align_kernels.LAUNCHES["poa_dp_tb"]
+        align_s = {t["stage"]: t["seconds"] for t in metrics.timings}["align"]
+        counts = align_counts(metrics)
+        check(maf_body(os.path.join(out, "alignment.maf")) == golden,
+              f"examples/ MAF ({engine} engine) differs from the golden")
+        if engine == "tpu":
+            check(launches > 0, "poa_dp_tb was not launched on the CLI path")
+            check(counts["poa_blocks_dispatched"] == 11 and counts["poa_native_redo"] == 0
+                  and counts["poa_native_routed"] == 0,
+                  f"not every examples/ block went through the card: {counts}")
+        print(f"examples/ --align-engine {engine}: MAF byte-equal to the golden | align "
+              f"{align_s:.4f} s | CLI wall {wall:.4f} s | poa_dp_tb launches {launches} | {counts}")
+    return launches, k3_vs_plain(torch, align_kernels, rec.args, "examples/ dispatch")
+
+
+def large_alignment(torch, large_fa, fasta, pipeline, Config, msa, metrics, align_kernels,
+                    out_dir):
+    """Phase 8: both POA engines on every block of examples/large (k=25) at
+    the CLI's budget (no -f), MSAs compared through the MAF they write;
+    returns k3_vs_plain's result on the device run's largest dispatch."""
+    recs = fasta.read_many(large_fa)
+    seqs, names = [r.seq for r in recs], [r.name for r in recs]
+    threads = os.cpu_count() or 1
+    res = pipeline.find_blocks(seqs, names, Config(k=25, threads=4), device="cuda")
+    os.makedirs(out_dir, exist_ok=True)
+    bodies = {}
+    for engine in ("native", "tpu"):
+        metrics.counters.clear()
+        align_kernels.reset_launches()
+        path = os.path.join(out_dir, f"{engine}.maf")
+        t0 = time.time()
+        with LargestDispatch(align_kernels) as rec:
+            overflow = msa.align_blocks_to_maf(res.blocks, seqs, names, path, threads=threads,
+                                               engine=engine, device="cuda")
+        secs = time.time() - t0
+        check(not overflow, f"{engine} engine overflowed blocks {overflow[:10]}")
+        bodies[engine] = maf_body(path)
+        print(f"examples/large --align-engine {engine}: {res.blocks_found} blocks | align "
+              f"{secs:.4f} s | poa_dp_tb launches {align_kernels.LAUNCHES['poa_dp_tb']} | "
+              f"{align_counts(metrics)}")
+    check(bodies["native"] == bodies["tpu"],
+          "examples/large: device-engine MSAs differ from the native engine's")
+    print(f"examples/large: the device engine's MSAs equal the native engine's on all "
+          f"{res.blocks_found} blocks")
+    return k3_vs_plain(torch, align_kernels, rec.args, "examples/large largest dispatch")
+
+
 def run_cli(cli, argv):
     t0 = time.time()
     rc = cli.run(argv)
@@ -211,7 +382,12 @@ def main():
         print("chip_smoke: no CUDA card is visible", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from sibeliaz_tpu_torch import cli
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_cases
+    from sibeliaz_tpu_torch import cli, pipeline
+    from sibeliaz_tpu_torch.align import device_poa, msa, poa_ref
+    from sibeliaz_tpu_torch.align import kernels as align_kernels
+    from sibeliaz_tpu_torch.config import Config
     from sibeliaz_tpu_torch.core import alphabet
     from sibeliaz_tpu_torch.graph import construct, kernels, oracle
     from sibeliaz_tpu_torch.io import fasta
@@ -241,11 +417,17 @@ def main():
     t0 = time.time()
     engine.ensure_built()
     print(f"native LCB engine built in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    msa.ensure_built()
+    print(f"native POA engine built in {time.time() - t0:.1f} s")
 
     phase(f"3 kernels vs plain versions, n = 2^24 {label}")
     k1_err, k2_err, times = compare_kernels(torch, dev, alphabet, construct, kernels)
 
-    phase("4 small graphs vs the oracle")
+    phase(f"4 POA kernel vs its plain version {label}")
+    k3_err = compare_poa(torch, dev, torch_cases, device_poa, poa_ref, align_kernels)
+
+    phase("5 small graphs vs the oracle")
     cases = 0
     for seed, n_prob in ((0, 0.0), (1, 0.02), (2, 0.0), (3, 0.01), (4, 0.0), (5, 0.05)):
         for k in (3, 9, 15, 25, 31):
@@ -271,7 +453,7 @@ def main():
         cases += 1
     print(f"{cases} graphs equal to the oracle")
 
-    phase(f"5 golden GFFs through the CLI {label}")
+    phase(f"6 golden GFFs through the CLI {label}")
     ex_out = os.path.join(tmp.name, "examples")
     run_cli(cli, ["-k", "15", "-n", "-o", ex_out,
                   os.path.join(EXAMPLES, "genome1.fa"), os.path.join(EXAMPLES, "genome2.fa")])
@@ -305,7 +487,15 @@ def main():
     print(f"examples/large k=25: GFF byte-equal to the golden (1256 blocks) in "
           f"{secs:.2f} s | launches {launches} | peak {large_peak:.1f} B/position {label}")
 
-    phase(f"6 timed pass: 16 x 1 Mbp strains, k=15 {label}")
+    phase(f"7 golden MAFs through the CLI, both POA engines {label}")
+    k3_launches, k3_main = golden_mafs(torch, cli, metrics, align_kernels,
+                                       os.path.join(tmp.name, "maf"))
+
+    phase(f"8 examples/large alignment: device engine vs native {label}")
+    k3_large = large_alignment(torch, large_fa, fasta, pipeline, Config, msa, metrics,
+                               align_kernels, os.path.join(tmp.name, "large_maf"))
+
+    phase(f"9 timed pass: 16 x 1 Mbp strains, k=15 {label}")
     strains = bench_strains(alphabet, fasta)
     bench_fa = os.path.join(tmp.name, "strains.fa")
     fasta.write_fasta(bench_fa, strains)
@@ -341,6 +531,10 @@ def main():
          "replaces": "sibeliaz_tpu/graph/construct.py:450",
          "launches": launches["class_analysis"], "max_abs_err": k2_err,
          "ms": times["class_analysis"][0], "plain_ms": times["class_analysis"][1]},
+        {"name": "poa_dp_tb", "route": "cuda", "source": src + "poa_dp_tb.cu",
+         "replaces": "sibeliaz_tpu/align/tpu_poa.py:206",
+         "launches": k3_launches, "max_abs_err": max(k3_err, k3_main[0], k3_large[0]),
+         "ms": k3_main[1], "plain_ms": k3_main[2]},
     ]}
     print()
     print(smi)

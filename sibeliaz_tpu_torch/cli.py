@@ -2,10 +2,14 @@
 (`python -m sibeliaz_tpu_torch [-k -b -m -a -t -f -o -n] <fasta...>`), plus
 `--device {cuda,cpu}`.
 
-The port runs the `-n` path with the native LCB engine.  It refuses, and
-never falls back, for: no CUDA card under the default `--device cuda`; a
-run without `-n`; an `--lcb-engine` other than native; k > 31; an input
-whose graph stage does not fit the card (or the `-f` budget).
+The port runs FASTA -> GFF with the native LCB engine, and then, unless
+`-n` is given, the alignment stage -> MAF with either POA engine:
+`--align-engine native` (host C++) or `--align-engine tpu` (the batched
+device DP on the card; the name is the JAX package's, so that the same
+command lines run on both).  It refuses, and never falls back, for: no
+CUDA card under the default `--device cuda`; an `--lcb-engine` other than
+native; k > 31; an input whose graph stage does not fit the card (or the
+`-f` budget).
 """
 
 from __future__ import annotations
@@ -27,12 +31,12 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("-t", type=int, default=0, help="worker threads (0 = all cores)")
     p.add_argument(
         "-f", type=int, default=0,
-        help="device-memory budget in GB for the graph stage (default: the "
-        "card's free memory)",
+        help="device-memory budget in GB for the graph stage and for the "
+        "device POA engine's scratch (default: the card's free memory; "
+        "half of it for the POA)",
     )
     p.add_argument("-o", dest="outdir", default="./sibeliaz_out", help="output directory")
-    p.add_argument("-n", dest="noalign", action="store_true",
-                   help="skip the alignment stage (required: alignment is not ported yet)")
+    p.add_argument("-n", dest="noalign", action="store_true", help="skip the alignment stage")
     p.add_argument("--graph", default=None, help="load junctions from a .dbg file instead of running graph construction")
     p.add_argument("--dump-graph", default=None, help="write the junction stream to this .dbg file (checkpoint)")
     p.add_argument(
@@ -42,11 +46,15 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument(
         "--align-engine", choices=("native", "tpu"), default="native",
-        help="POA engine for the alignment stage (not ported yet)",
+        help="POA engine for the alignment stage (tpu = the batched "
+        "device DP on the card, or its plain version under --device cpu, "
+        "with native fallback; identical output)",
     )
     p.add_argument(
         "--poa-ties", choices=("first", "last"), default="first",
-        help="POA tie-break policy (not ported yet)",
+        help="POA tie-break policy: 'last' is the spoa-envelope analysis "
+        "mode (opposite still-optimal tie preferences via the executable "
+        "spec; spec-speed)",
     )
     p.add_argument(
         "--lcb-engine", choices=("native", "oracle", "tpu", "tpu-fused"),
@@ -55,8 +63,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
-        help="device of the graph stage; cpu runs the kernels' plain "
-        "PyTorch versions",
+        help="device of the graph stage and the device POA engine; cpu "
+        "runs the kernels' plain PyTorch versions",
     )
     p.add_argument("fastas", nargs="+", help="FASTA files with genomes")
 
@@ -78,7 +86,7 @@ def make_config(args) -> Config:
 def run(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="sibeliaz-tpu-torch",
-        description="Whole-genome LCB construction on a CUDA card",
+        description="Whole-genome LCB construction and alignment on a CUDA card",
     )
     _add_common(ap)
     args = ap.parse_args(argv)
@@ -92,11 +100,6 @@ def run(argv: Optional[List[str]] = None) -> int:
     from sibeliaz_tpu_torch.io import fasta as fasta_io
     from sibeliaz_tpu_torch.utils.metrics import GLOBAL as metrics
 
-    if not cfg.no_align:
-        raise SystemExit(
-            "sibeliaz-tpu-torch: the alignment stage is not ported yet "
-            "(ROADMAP.md queue A item 2); run with -n"
-        )
     try:
         pipeline.check_engine(args.lcb_engine)
     except NotImplementedError as e:
@@ -152,10 +155,26 @@ def run(argv: Optional[List[str]] = None) -> int:
         chunks_mod.write_chunks(
             res.blocks, seqs, names, cfg.out_dir, chunks=args.legacy_chunks
         )
+    t_out = time.time()
+
+    if not cfg.no_align:
+        print("Performing global alignment..")
+        from sibeliaz_tpu_torch.align import msa as msa_mod
+
+        with metrics.stage("align", engine=args.align_engine):
+            msa_mod.align_blocks_to_maf(
+                res.blocks, seqs, names, os.path.join(cfg.out_dir, "alignment.maf"),
+                cmd=" ".join(argv if argv is not None else sys.argv[1:]),
+                chunks=cfg.chunks, threads=cfg.threads,
+                engine=args.align_engine,
+                budget_bytes=cfg.memory_budget_bytes,
+                tie_policy=args.poa_ties,
+                device=args.device,
+            )
     t_end = time.time()
     print(
         f"Timings: graph {t_graph - t0:.2f}s, lcb {t_lcb - t_graph:.2f}s, "
-        f"total {t_end - t0:.2f}s"
+        f"align {t_end - t_out:.2f}s, total {t_end - t0:.2f}s"
     )
     metrics.dump(os.path.join(cfg.out_dir, "metrics.json"))
     return 0

@@ -2,8 +2,9 @@
 library; SibeliaZ-LCB/sibeliaz:138-152).
 
 Stages: graph construction (device) -> junction table -> native LCB engine
--> trim/renumber -> GFF.  The alignment stage and the device LCB engines
-are not ported yet (ROADMAP.md queue A)."""
+-> trim/renumber -> GFF; the CLI then runs the alignment stage
+(align/msa.py: POA per block -> MAF).  The device LCB engines are not
+ported yet (ROADMAP.md queue A)."""
 
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) for Hopper.
 
-The sources compile with nvcc into one shared library with a plain C
+Each source compiles with its own nvcc, all started together, and one
+more nvcc links the objects into a shared library with a plain C
 interface, which ctypes loads; nothing includes PyTorch's headers, so a
 build takes seconds.  The library lands in the package's gitignored
 `_build/` directory, named by a hash of the sources and flags, so an edited
@@ -23,7 +24,7 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lib = None
@@ -58,21 +59,33 @@ def build() -> tuple[str, str]:
         with open(log) as f:
             return lib, f.read()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    with tempfile.NamedTemporaryFile(
-        suffix=".so", dir=BUILD_DIR, delete=False
-    ) as tmp:
-        tmp_path = tmp.name
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp_path, *sources]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp_path)
-        raise RuntimeError(
-            f"CUDA build failed ({' '.join(cmd)}):\n{proc.stderr}"
-        )
-    with open(log, "w") as f:
-        f.write(proc.stderr)
-    os.replace(tmp_path, lib)
-    return lib, proc.stderr
+    nvcc = _nvcc()
+    tmp_dir = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        jobs = []
+        for src in sources:
+            obj = os.path.join(tmp_dir, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )))
+        reports = [(cmd, proc.communicate()[1], proc.returncode)
+                   for cmd, _obj, proc in jobs]
+        for cmd, err, rc in reports:
+            if rc != 0:
+                raise RuntimeError(f"CUDA build failed ({' '.join(cmd)}):\n{err}")
+        tmp_lib = os.path.join(tmp_dir, "lib.so")
+        cmd = [nvcc, "-shared", "-o", tmp_lib, *(obj for _c, obj, _p in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"CUDA link failed ({' '.join(cmd)}):\n{proc.stderr}")
+        report = "".join(err for _cmd, err, _rc in reports)
+        with open(log, "w") as f:
+            f.write(report)
+        os.replace(tmp_lib, lib)
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+    return lib, report
 
 
 def load() -> ctypes.CDLL:
@@ -87,6 +100,7 @@ def load() -> ctypes.CDLL:
         "sz_class_mark_starts": [vp, i64, vp, vp],
         "sz_class_or": [vp, vp, vp, vp, i64, vp, vp, vp],
         "sz_class_verdict": [vp, vp, vp, vp, i64, vp, vp, vp],
+        "sz_poa_dp_tb": [vp] * 7 + [i32] * 5 + [vp] * 7,
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

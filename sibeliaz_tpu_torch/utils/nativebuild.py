@@ -1,4 +1,4 @@
-"""Build-and-cache helper for the native C++ LCB engine.
+"""Build-and-cache helper for the native C++ engines (LCB and POA).
 
 Compiles a .cpp on first use into the package's gitignored `_build/`
 directory, keyed by source mtime, with the same g++ recipe as the JAX

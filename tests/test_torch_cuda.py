@@ -8,9 +8,11 @@ import numpy as np
 import pytest
 import torch
 
+from sibeliaz_tpu_torch.align import device_poa, poa_ref
+from sibeliaz_tpu_torch.align import kernels as align_kernels
 from sibeliaz_tpu_torch.graph import construct, kernels
 
-from torch_cases import class_case, codes_with_n_runs
+from torch_cases import class_case, codes_with_n_runs, poa_case, poa_round
 
 pytestmark = pytest.mark.gpu
 
@@ -70,3 +72,20 @@ def test_build_junctions_cuda_matches_cpu(cuda):
     want = construct.build_junctions(seqs, 15, "cpu")
     for a, b in zip(got, want):
         assert np.array_equal(a.pos, b.pos) and np.array_equal(a.ids, b.ids)
+
+
+@pytest.mark.parametrize("case", ["unbanded", "banded", "tie_heavy"])
+@pytest.mark.parametrize("scale", [1, 8])
+def test_poa_dp_tb_matches_plain(cuda, case, scale):
+    blocks, band_min = poa_case(case, scale)
+    plan = lambda *a: device_poa._plan_windows(*a, band_min=band_min)  # noqa: E731
+    arrays, n_max, W, P, _ = poa_round(
+        blocks, poa_ref.PoaGraph, device_poa._extract_arrays, plan)
+    t = [torch.from_numpy(a).to(cuda) for a in arrays]
+    before = align_kernels.LAUNCHES["poa_dp_tb"]
+    got = align_kernels.poa_dp_tb(*t[:6], n_max, W, P, t[6])
+    torch.cuda.synchronize()
+    assert align_kernels.LAUNCHES["poa_dp_tb"] == before + 1
+    want = align_kernels.poa_dp_tb_plain(*t[:6], n_max, W, P, t[6])
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and torch.equal(g, w)

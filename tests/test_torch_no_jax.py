@@ -1,12 +1,14 @@
 """The port runs where JAX is absent: it imports neither jax nor the
-sibeliaz_tpu package, and its CLI reproduces the golden GFF in a process in
-which both imports fail."""
+sibeliaz_tpu package, and its CLI reproduces the golden GFF and MAF in a
+process in which both imports fail."""
 
 import ast
 import glob
 import os
 import subprocess
 import sys
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLES = os.path.join(REPO, "examples")
@@ -22,11 +24,12 @@ sys.exit(rc)
 """
 
 
-def test_cli_runs_without_jax(tmp_path):
+@pytest.mark.parametrize("flags", [["-n"], []], ids=["noalign", "maf"])
+def test_cli_runs_without_jax(tmp_path, flags):
     out = tmp_path / "out"
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
-        [sys.executable, "-c", _CHILD, "-k", "15", "-n", "--device", "cpu",
+        [sys.executable, "-c", _CHILD, "-k", "15", *flags, "--device", "cpu",
          "-o", str(out), os.path.join(EXAMPLES, "genome1.fa"),
          os.path.join(EXAMPLES, "genome2.fa")],
         cwd=str(tmp_path), env=env, capture_output=True, text=True,
@@ -35,14 +38,17 @@ def test_cli_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr
     golden = os.path.join(EXAMPLES, "sibeliaz_out", "blocks_coords.gff")
     assert (out / "blocks_coords.gff").read_bytes() == open(golden, "rb").read()
+    assert (out / "alignment.maf").exists() == (not flags)
+    if not flags:
+        golden = os.path.join(EXAMPLES, "sibeliaz_out", "alignment.maf")
+        drop = lambda t: [l for l in t.splitlines() if not l.startswith("# cmd=")]  # noqa: E731
+        assert drop((out / "alignment.maf").read_text()) == drop(open(golden).read())
 
 
 def test_chip_smoke_refuses_without_card(tmp_path):
     import torch
 
     if torch.cuda.is_available():
-        import pytest
-
         pytest.skip("a CUDA card is visible")
     proc = subprocess.run(
         [sys.executable, os.path.join(REPO, "chip_smoke.py")],

@@ -1,6 +1,6 @@
-"""The port's -n pipeline and CLI against the JAX package and the committed
-golden GFF: byte-equal output, records that cross between the packages in
-either direction, and the CLI's refusals."""
+"""The port's pipeline and CLI against the JAX package and the committed
+golden GFF: byte-equal output (and MAF bodies without -n), records that
+cross between the packages in either direction, and the CLI's refusals."""
 
 import os
 
@@ -79,15 +79,25 @@ def test_cross_feed_records_and_dbg(tmp_path):
         assert np.array_equal(a.pos, b.pos) and np.array_equal(a.ids, b.ids)
 
 
-def test_cli_matches_jax_cli(tmp_path):
+def maf_body(path):
+    return [l for l in path.read_text().splitlines() if not l.startswith("# cmd=")]
+
+
+@pytest.mark.parametrize("align", [False, True], ids=["noalign", "maf"])
+def test_cli_matches_jax_cli(tmp_path, align):
     seqs, names = random_related_genomes(64, length=2000, mut=0.02, rearrange=True)
     fa = write_inputs(tmp_path, seqs, names)
     out_j, out_p = tmp_path / "jax", tmp_path / "port"
-    common = ["-k", "15", "-n", "--legacy-chunks", "3"]
+    common = ["-k", "15", "--legacy-chunks", "3"] + ([] if align else ["-n"])
     assert jax_run(common + ["-o", str(out_j), fa]) == 0
     assert run(common + ["--device", "cpu", "-o", str(out_p), fa]) == 0
     for name in ["blocks_coords.gff", "0.tmp", "1.tmp", "2.tmp"]:
         assert (out_p / name).read_bytes() == (out_j / name).read_bytes(), name
+    assert (out_p / "alignment.maf").exists() == align
+    if align:
+        body = maf_body(out_p / "alignment.maf")
+        assert body == maf_body(out_j / "alignment.maf")
+        assert "a" in body
 
 
 def test_cli_graph_checkpoint_roundtrip(tmp_path):
@@ -110,7 +120,6 @@ def test_cli_help(capsys):
 @pytest.mark.parametrize(
     "extra,message",
     [
-        ([], "alignment stage is not ported yet"),
         (["-n", "--lcb-engine", "oracle"], "queue A item 6"),
         (["-n", "--lcb-engine", "tpu-fused"], "queue A item 6"),
     ],
