@@ -1,41 +1,49 @@
 """On-card smoke run of the PyTorch/CUDA port (sibeliaz_tpu_torch).
 
     python3 chip_smoke.py        # from the repo root, on a machine with one CUDA card
+    python3 chip_smoke.py --k3-replay DIR    # K3's development loop, see k3_replay
+    python3 chip_smoke.py --k3-time KINDS    # K3's wrapper alone, see k3_time
 
 Phases, in order; any failure raises and the exit code is non-zero:
-  1. device: the card's name and power limit;
+  1. device: the card's name and power limit, and the peak rates the
+     kernels' bounds are taken against;
   2. build: compile the CUDA kernels from csrc/ (printing nvcc's register,
      shared-memory and spill report) and the native LCB and POA engines;
   3. kernels: K1 front_half and K2 class_analysis against their plain
      PyTorch versions on the card, exact, with CUDA-event times beside the
-     plain versions' and the sort's;
-  4. POA kernel: K3 poa_dp_tb against its plain version on three seeded
-     buckets (unbanded, banded, tie-heavy; tests/torch_cases.py's
-     generators), exact, with times and shapes;
+     plain versions', the sort's and each kernel's roofline bound;
+  4. POA kernel: K3 poa_dp_tb against its plain version on eight seeded
+     buckets (unbanded, banded, tie-heavy, a far predecessor, seven
+     predecessor slots, an odd window of 4097, a window of 8192, a window
+     of 16384 that runs in two chunks; tests/torch_cases.py's generators),
+     exact, with times, the split into pre-pass, DP and traceback, the
+     bound and the chain floor; three of them again cut into small chunks;
   5. small graphs: build_junctions on the card against the brute-force
      oracle on the graph tests' fixture shapes;
   6. goldens: the CLI with -n on examples/ (k=15) and on the regenerated
      reference-scale examples/large pair (k=25), byte-equal to the committed
-     GFFs; the large run is the main-path run whose K1 and K2 launches
-     count;
+     GFFs; the large run is the main-path run whose K1, K2 and K3 launches
+     count (K3: none, the run stops before the alignment);
   7. golden MAFs: the CLI without -n on examples/ with the native and the
      device POA engine, both byte-equal to the committed MAF; the device run
-     is the main-path run whose K3 launches count, and K3 is then held
-     against its plain version on that run's own dispatch;
+     is the main-path run whose K1, K2 and K3 launches count, and K3 is
+     then held against its plain version on that run's own dispatch;
   8. examples/large alignment at the CLI's budget: the device engine's MSAs
      against the native engine's on every block of the large pair, and K3
      against its plain version on the run's largest dispatch;
   9. timed pass: the CLI on the 16 x 1 Mbp strain workload (k=15), with the
      graph stage's steps, LCB and total seconds, input Mbp/s and the peak
      device bytes per position.
-The last two lines are a JSON summary of the kernels and
-{"ok": true, "device": {...}}.  It imports neither jax nor sibeliaz_tpu.
+The last two lines are a JSON summary of the kernels (time, plain time,
+bound, launches per main path) and {"ok": true, "device": {...}}.  It
+imports neither jax nor sibeliaz_tpu.
 """
 
 import functools
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -49,6 +57,8 @@ LARGE_SHA = {  # tests/test_examples_dir.py LARGE_SHA
     "genome1.fa": "f44bc27bba29089c1f142796f0a4631131a8668908d83fb149aac67868e0c6cc",
     "genome2.fa": "ea148275a6a76583ddd7eff23a66fb1d48c33a4d8110d51aa770de11f2d52a89",
 }
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+SMS, INT32_LANES_PER_SM = 132, 64  # H100 SXM: 64 int32 lanes on each of 132 SMs
 
 
 def check(cond, msg):
@@ -148,9 +158,33 @@ def bench_strains(alphabet, fasta):
     return recs
 
 
-def compare_kernels(torch, dev, alphabet, construct, kernels):
+# What K1's function needs per position, whatever k: a window's 2k bits lie
+# side by side in the packed stream, so the forward code is a funnel shift
+# of two 64-bit words and a mask (8 32-bit operations), the reverse
+# complement its complement with the bit pairs reversed (two bit reversals,
+# a pair swap and a shift, 10), the canonical choice a 64-bit compare and
+# select (4), validity a funnel shift and a population count of the validity
+# map (4), the extension and boundary bits 4.  front_half.cu instead builds
+# both codes in a loop of k steps; that is its cost, not the function's.
+K1_OPS_PER_POSITION = 30
+
+
+def bound_ms(nbytes, ops, peak_ops):
+    """The roofline bound: the larger of bytes over the card's memory rate
+    and operations over its peak rate; (ms, which)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare_kernels(torch, dev, alphabet, construct, kernels, peak_ops):
     """Phase 3 at 2^24 positions: each kernel equal to its plain version;
-    returns (K1 max abs error, K2 max abs error, {name: ms})."""
+    returns (K1 max abs error, K2 max abs error, {name: (ms, plain ms, bound
+    ms, bound by)}).  K1's bound: the packed codes and the validity map in,
+    an int64 key and an int32 packed word out per position, against the
+    K1_OPS_PER_POSITION 32-bit operations the function needs at any k.
+    K2's bound: each sorted row in (key
+    8 B, packed word 4 B, position 4 B) and out (junction flag 1 B, first
+    position 4 B) once, 21 B per row."""
     n = 1 << 24
     rng = np.random.default_rng(1)
     k1_err, k2_err, times = 0, 0, {}
@@ -170,9 +204,12 @@ def compare_kernels(torch, dev, alphabet, construct, kernels):
         check(err == 0, f"front_half differs from its plain version at k={k}")
         ms = cuda_ms(torch, lambda: kernels.front_half(codes2, nmask, n, k), 20)
         plain_ms = cuda_ms(torch, lambda: kernels.front_half_plain(codes2, nmask, n, k), 3)
-        print(f"front_half k={k}: equal | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms")
+        bound, by = bound_ms(codes2.numel() + nmask.numel() + 12 * n,
+                             K1_OPS_PER_POSITION * n, peak_ops)
+        print(f"front_half k={k}: equal | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
+              f"bound {bound:.4f} ms by {by} = {100 * bound / ms:.4f}% of the kernel's time")
         if k == 25:
-            times["front_half"] = (ms, plain_ms)
+            times["front_half"] = (ms, plain_ms, bound, by)
             k25 = (key, packed)
 
     def sorted_rows(key, packed):
@@ -202,10 +239,12 @@ def compare_kernels(torch, dev, alphabet, construct, kernels):
         check(err == 0, f"class_analysis differs from its plain version ({label_k2})")
         ms = cuda_ms(torch, lambda: kernels.class_analysis(*rows), 20)
         plain_ms = cuda_ms(torch, lambda: kernels.class_analysis_plain(*rows), 3)
+        bound, by = bound_ms(21 * n, 0, peak_ops)
         print(f"class_analysis {label_k2}: equal, {int(got[0].sum())} junction rows | "
-              f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms")
+              f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | bound {bound:.4f} ms by {by} "
+              f"= {100 * bound / ms:.4f}% of the kernel's time")
         if label_k2 == "k=25 random":
-            times["class_analysis"] = (ms, plain_ms)
+            times["class_analysis"] = (ms, plain_ms, bound, by)
     return k1_err, k2_err, times
 
 
@@ -217,54 +256,185 @@ def poa_blocks(cases, kind, rng):
     if kind == "banded":  # L = 4096, banded windows
         return [cases.rand_block(rng, int(rng.integers(3000, 4000)), 3, mut=0.03)
                 for _ in range(8)], {"band_min": 64}
-    # low complexity, L = 4096: ties everywhere
-    return [cases.tie_heavy_block(rng, 300) for _ in range(8)], {"band_min": 64}
+    if kind == "tie_heavy":  # low complexity, L = 4096: ties everywhere
+        return [cases.tie_heavy_block(rng, 300) for _ in range(8)], {"band_min": 64}
+    if kind in ("wide", "wider"):
+        # B 1, unbanded, each from its own seed: L = W = 8192, eight columns
+        # per thread; L = W = 16384, two chunks of 8192 columns
+        n = 8100 if kind == "wide" else 8300
+        return [cases.rand_block(np.random.default_rng(n), n, 2, mut=0.03)], {"band": False}
+    # far_pred (a predecessor 2,400 ranks back), many_preds (seven slots),
+    # odd_w (B 1, W = L + 1 = 4097, few ranks): tests/torch_cases.py's cases
+    blocks, band_min = cases.poa_case(kind, 16 if kind == "odd_w" else 8)
+    return blocks, {"band_min": band_min}
 
 
-def k3_vs_plain(torch, align_kernels, args, label):
-    """K3 against its plain version on one dispatch's arguments, exact;
-    returns (max abs error, kernel ms, plain ms)."""
+K3_BUCKETS = ("unbanded", "banded", "tie_heavy", "far_pred", "many_preds", "odd_w", "wide",
+              "wider")
+
+
+def k3_work(torch, align_kernels, args):
+    """What one K3 dispatch has to do: (ranks in use per block, cells,
+    32-bit integer operations, bytes).  Cells are ranks in use x W; a cell
+    costs 4 operations per valid predecessor slot (two window compares, two
+    steps of the running first arg-max) and 12 more (substitution compare
+    and select, diagonal add, gap add, match compare and select, three scan
+    steps, insertion compare, two direction-byte selects); bytes are the
+    seven inputs and the four outputs once each (H and dirs are scratch)."""
+    seq0p, seq_len, node_char, pred_idx, pred_ok, sink_mask, n_max, W, P, off = args
+    B = seq0p.shape[0]
+    used = align_kernels._ranks_used(pred_ok)
+    in_use = torch.arange(n_max, device=used.device)[None, :] < used[:, None]
+    slots = int((pred_ok.sum(dim=2) * in_use).sum())
+    ranks = int(used.sum())
+    ops = W * (4 * slots + 12 * ranks)
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 (seq0p, seq_len, node_char, pred_idx, pred_ok, sink_mask, off))
+    nbytes += 2 * B * P * 4 + 2 * B * 4
+    return used, ranks * W, ops, nbytes
+
+
+def ring_hit_share(torch, align_kernels, args, depth):
+    """Share of the dispatch's predecessor-row reads (ranks in use, real
+    predecessors) that lie at most `depth` ranks back: what K3's
+    shared-memory ring of that depth serves."""
+    pred_idx, pred_ok, n_max = args[3], args[4], args[6]
+    used = align_kernels._ranks_used(pred_ok)
+    ranks = torch.arange(n_max, device=used.device)
+    real = pred_ok & (pred_idx < n_max) & (ranks[None, :] < used[:, None])[:, :, None]
+    back = ranks[None, :, None] - pred_idx
+    return float((real & (back <= depth)).sum()) / max(1, int(real.sum()))
+
+
+def k3_sweep(torch, align_kernels, args, want):
+    """K3 at every number of columns per thread that fits the dispatch's
+    window, and at the chosen one with the ring off and at 1 and 4 rows,
+    each exact against `want`: one line per launch shape."""
+    W = args[7]
+    chosen = align_kernels.launch_config(W)
+    shapes = [align_kernels.launch_config(W, cols) for cols in (1, 2, 4, 8)
+              if W <= cols * align_kernels.MAX_THREADS]
+    if chosen["depth"] > 0:  # the ring off, and at other depths
+        shapes += [{**chosen, "depth": depth} for depth in (0, 1, 4)]
+    for cfg in shapes:
+        for _warm_then_timed in range(2):
+            parts = []
+            got = align_kernels.poa_dp_tb(*args, split_ms=parts, config=cfg)
+        same = all(bool((a == b).all()) for a, b in zip(got, want))
+        check(same, f"poa_dp_tb differs from its plain version at {cfg}")
+        print(f"  sweep {cfg}: equal | pre-pass {parts[0]:.4f} | DP {parts[1]:.4f} | "
+              f"traceback {parts[2]:.4f} ms")
+
+
+def k3_vs_plain(torch, align_kernels, args, label, peak_ops, want=None, reps=3):
+    """K3 against its plain version on one dispatch's arguments, exact
+    (`want`: the plain version's outputs where they were kept from an
+    earlier run), with its time, its parts, its bound and its chain floor;
+    returns a dict with the max abs error, the kernel's ms, the plain ms
+    (None with `want`) and the bound."""
     check(args is not None, f"no K3 dispatch to check ({label})")
-    seq0p, n_max, W, pred_ok = args[0], args[6], args[7], args[4]
+    seq0p, n_max, W = args[0], args[6], args[7]
     got = align_kernels.poa_dp_tb(*args)
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    want = align_kernels.poa_dp_tb_plain(*args)
-    end.record()
-    end.synchronize()
-    plain_ms = start.elapsed_time(end)
+    plain_ms = None
+    if want is None:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = align_kernels.poa_dp_tb_plain(*args)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
     err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
     check(err == 0, f"poa_dp_tb differs from its plain version ({label})")
-    ms = cuda_ms(torch, lambda: align_kernels.poa_dp_tb(*args), 3)
-    cols = -(-W // 1024)  # columns per thread: K3 runs at most 1024 threads
-    ranks = int(align_kernels._ranks_used(pred_ok).max())
+    ms = cuda_ms(torch, lambda: align_kernels.poa_dp_tb(*args), reps)
+    parts = []
+    align_kernels.poa_dp_tb(*args, split_ms=parts)
+    used, cells, ops, nbytes = k3_work(torch, align_kernels, args)
+    bound, by = bound_ms(nbytes, ops, peak_ops)
+    cfg = align_kernels.launch_config(W)
+    ranks, steps = int(used.max()), int(want[2].max())
+    share = ring_hit_share(torch, align_kernels, args, cfg["depth"])
+    plain = "kept from the recording" if plain_ms is None else f"{plain_ms:.4f} ms"
     print(f"poa_dp_tb {label}: equal | B {seq0p.shape[0]} L {seq0p.shape[1] - 1 - W} "
-          f"n_max {n_max} W {W} cols {cols} ranks used {ranks} | "
-          f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms")
-    return err, ms, plain_ms
+          f"n_max {n_max} W {W} {cfg} ranks used {ranks} | kernel {ms:.4f} ms | plain {plain}")
+    print(f"  parts: pre-pass {parts[0]:.4f} ms | DP {parts[1]:.4f} ms = "
+          f"{parts[1] * 1e3 / ranks:.4f} us per rank in use | traceback {parts[2]:.4f} ms = "
+          f"{parts[2] * 1e3 / max(1, steps):.4f} us per step ({steps} steps) | whole "
+          f"{ms * 1e3 / ranks:.4f} us per rank | ring depth {cfg['depth']} serves "
+          f"{100 * share:.4f}% of predecessor reads")
+    print(f"  bound {bound:.4f} ms by {by} ({cells} cells, {ops} int32 operations, "
+          f"{nbytes} bytes) = {100 * bound / ms:.4f}% of the kernel's time")
+    step_us = cuda_ms(torch, lambda: align_kernels.chain_probe(cfg["threads"], 20000), 3) / 20
+    print(f"  chain floor {ranks * step_us / 1e3:.4f} ms = {ranks} ranks x {step_us:.4f} us (one "
+          f"shared-memory round trip and one barrier of {cfg['threads']} threads) = "
+          f"{100 * ranks * step_us / 1e3 / ms:.4f}% of the kernel's time")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
 
 
-def compare_poa(torch, dev, cases, device_poa, poa_ref, align_kernels):
-    """Phase 4: K3 against its plain version on three seeded buckets, each
-    block's last copy aligned to the graph of the others, assembled by the
-    engine's own device_poa.assemble_round; returns the max abs error."""
+def bucket_args(torch, dev, cases, device_poa, poa_ref, kind, rng):
+    """K3's arguments on the card for one seeded bucket: each block's last
+    copy aligned to the graph of the others, assembled by the engine's own
+    device_poa.assemble_round."""
+    blocks, plan_kw = poa_blocks(cases, kind, rng)
+    plan = functools.partial(device_poa._plan_windows, **plan_kw)
+    arrays, n_max, W, P, s0s = cases.poa_round(
+        blocks, poa_ref.PoaGraph, device_poa._extract_arrays, plan)
+    banded = sum(s is not None for s in s0s)
+    if kind in ("unbanded", "banded", "odd_w", "wide", "wider"):
+        check(banded == (len(blocks) if kind == "banded" else 0),
+              f"{kind}: {banded} of {len(blocks)} blocks banded")
+    if kind in ("wide", "wider"):
+        check(W == (8192 if kind == "wide" else 16384), f"{kind}: W {W}")
+    if kind == "odd_w":
+        check(W % 2 == 1 and len(blocks) == 1, f"odd_w: W {W}, B {len(blocks)}")
+    t = [torch.from_numpy(a).to(dev) for a in arrays]
+    return (*t[:6], n_max, W, P, t[6])
+
+
+def compare_poa(torch, dev, cases, device_poa, poa_ref, align_kernels, peak_ops,
+                kinds=K3_BUCKETS, sweep=False):
+    """Phase 4: K3 against its plain version on the seeded buckets; returns
+    the max abs error.  With `sweep`, each bucket also runs at the other
+    launch shapes."""
     rng = np.random.default_rng(21)
     err = 0
-    for kind in ("unbanded", "banded", "tie_heavy"):
-        blocks, plan_kw = poa_blocks(cases, kind, rng)
-        plan = functools.partial(device_poa._plan_windows, **plan_kw)
-        arrays, n_max, W, P, s0s = cases.poa_round(
-            blocks, poa_ref.PoaGraph, device_poa._extract_arrays, plan)
-        banded = sum(s is not None for s in s0s)
-        if kind != "tie_heavy":
-            check(banded == (0 if kind == "unbanded" else len(blocks)),
-                  f"{kind}: {banded} of {len(blocks)} blocks banded")
-        t = [torch.from_numpy(a).to(dev) for a in arrays]
-        err = max(err, k3_vs_plain(torch, align_kernels, (*t[:6], n_max, W, P, t[6]),
-                                   kind)[0])
+    for kind in kinds:
+        args = bucket_args(torch, dev, cases, device_poa, poa_ref, kind, rng)
+        if kind == "wider":
+            check(align_kernels.launch_config(args[7])["depth"] == 0,
+                  "wider: the window does not run in chunks")
+        err = max(err, k3_vs_plain(torch, align_kernels, args, kind, peak_ops)["err"])
+        if kind in ("tie_heavy", "many_preds", "odd_w"):
+            # the same bucket with the window cut into chunks of 96 columns
+            chunked = {"cols": 1, "threads": 96, "depth": 0}
+            want = align_kernels.poa_dp_tb(*args)
+            got = align_kernels.poa_dp_tb(*args, config=chunked)
+            check(all(bool((a == b).all()) for a, b in zip(got, want)),
+                  f"poa_dp_tb in chunks differs ({kind})")
+            print(f"  in chunks {chunked}: equal")
+        if sweep:
+            k3_sweep(torch, align_kernels, args, align_kernels.poa_dp_tb(*args))
     return err
+
+
+def k3_time(torch, dev, cases, device_poa, poa_ref, align_kernels, kinds):
+    """--k3-time KIND[,KIND...]: K3's wrapper alone on seeded buckets that
+    have a seed of their own (K3_BUCKETS[3:]), exact against the plain
+    version, with its ms and us per rank in use.  It passes the wrapper
+    its positional arguments and nothing else, so a copy of this script put
+    into an older checkout times that checkout's kernel on the same inputs."""
+    for kind in kinds:
+        check(kind in K3_BUCKETS[3:], f"--k3-time takes {K3_BUCKETS[3:]}, not {kind!r}")
+        args = bucket_args(torch, dev, cases, device_poa, poa_ref, kind, None)
+        got = align_kernels.poa_dp_tb(*args)
+        want = align_kernels.poa_dp_tb_plain(*args)
+        check(all(bool((a == b).all()) for a, b in zip(got, want)),
+              f"poa_dp_tb differs from its plain version ({kind})")
+        ms = cuda_ms(torch, lambda: align_kernels.poa_dp_tb(*args), 3)
+        ranks = int(align_kernels._ranks_used(args[4]).max())
+        print(f"poa_dp_tb {kind}: equal | B {args[0].shape[0]} n_max {args[6]} W {args[7]} "
+              f"ranks used {ranks} | kernel {ms:.4f} ms = {ms * 1e3 / ranks:.4f} us per rank")
 
 
 class LargestDispatch:
@@ -308,9 +478,9 @@ def align_counts(metrics):
     return counts
 
 
-def golden_mafs(torch, cli, metrics, align_kernels, out_dir):
-    """Phase 7: returns K3's launches in the device-engine run and
-    k3_vs_plain's result on that run's dispatch."""
+def golden_mafs(torch, cli, metrics, kernels, align_kernels, out_dir):
+    """Phase 7: returns the launches of K1, K2 and K3 in the device-engine
+    run and the arguments of that run's K3 dispatch."""
     golden = maf_body(os.path.join(EXAMPLES, "sibeliaz_out", "alignment.maf"))
     fas = [os.path.join(EXAMPLES, "genome1.fa"), os.path.join(EXAMPLES, "genome2.fa")]
     launches = 0
@@ -318,36 +488,41 @@ def golden_mafs(torch, cli, metrics, align_kernels, out_dir):
         out = os.path.join(out_dir, engine)
         metrics.timings.clear()
         metrics.counters.clear()
+        kernels.reset_launches()
         align_kernels.reset_launches()
         with LargestDispatch(align_kernels) as rec:
             wall = run_cli(cli, ["-k", "15", "--align-engine", engine, "-o", out, *fas])
-        launches = align_kernels.LAUNCHES["poa_dp_tb"]
+        launches = {**kernels.LAUNCHES, **align_kernels.LAUNCHES}
         align_s = {t["stage"]: t["seconds"] for t in metrics.timings}["align"]
         counts = align_counts(metrics)
         check(maf_body(os.path.join(out, "alignment.maf")) == golden,
               f"examples/ MAF ({engine} engine) differs from the golden")
         if engine == "tpu":
-            check(launches > 0, "poa_dp_tb was not launched on the CLI path")
+            check(all(v > 0 for v in launches.values()),
+                  f"a kernel was not launched on the CLI path: {launches}")
             check(counts["poa_blocks_dispatched"] == 11 and counts["poa_native_redo"] == 0
                   and counts["poa_native_routed"] == 0,
                   f"not every examples/ block went through the card: {counts}")
         print(f"examples/ --align-engine {engine}: MAF byte-equal to the golden | align "
-              f"{align_s:.4f} s | CLI wall {wall:.4f} s | poa_dp_tb launches {launches} | {counts}")
-    return launches, k3_vs_plain(torch, align_kernels, rec.args, "examples/ dispatch")
+              f"{align_s:.4f} s | CLI wall {wall:.4f} s | launches {launches} | {counts}")
+    return launches, rec.args
 
 
-def large_alignment(torch, large_fa, fasta, pipeline, Config, msa, metrics, align_kernels,
-                    out_dir):
-    """Phase 8: both POA engines on every block of examples/large (k=25) at
+def large_alignment(torch, large_fa, fasta, pipeline, Config, msa, metrics, kernels,
+                    align_kernels, out_dir, engines=("native", "tpu")):
+    """Phase 8: the POA engines on every block of examples/large (k=25) at
     the CLI's budget (no -f), MSAs compared through the MAF they write;
-    returns k3_vs_plain's result on the device run's largest dispatch."""
+    returns the launches of K1 and K2 (finding the blocks) and K3 (the
+    device engine's run) and the arguments of K3's largest dispatch."""
     recs = fasta.read_many(large_fa)
     seqs, names = [r.seq for r in recs], [r.name for r in recs]
     threads = os.cpu_count() or 1
+    kernels.reset_launches()
     res = pipeline.find_blocks(seqs, names, Config(k=25, threads=4), device="cuda")
+    graph_launches = dict(kernels.LAUNCHES)
     os.makedirs(out_dir, exist_ok=True)
     bodies = {}
-    for engine in ("native", "tpu"):
+    for engine in engines:
         metrics.counters.clear()
         align_kernels.reset_launches()
         path = os.path.join(out_dir, f"{engine}.maf")
@@ -361,11 +536,12 @@ def large_alignment(torch, large_fa, fasta, pipeline, Config, msa, metrics, alig
         print(f"examples/large --align-engine {engine}: {res.blocks_found} blocks | align "
               f"{secs:.4f} s | poa_dp_tb launches {align_kernels.LAUNCHES['poa_dp_tb']} | "
               f"{align_counts(metrics)}")
-    check(bodies["native"] == bodies["tpu"],
-          "examples/large: device-engine MSAs differ from the native engine's")
-    print(f"examples/large: the device engine's MSAs equal the native engine's on all "
-          f"{res.blocks_found} blocks")
-    return k3_vs_plain(torch, align_kernels, rec.args, "examples/large largest dispatch")
+    if len(engines) == 2:
+        check(bodies["native"] == bodies["tpu"],
+              "examples/large: device-engine MSAs differ from the native engine's")
+        print(f"examples/large: the device engine's MSAs equal the native engine's on all "
+              f"{res.blocks_found} blocks")
+    return {**graph_launches, **align_kernels.LAUNCHES}, rec.args
 
 
 def run_cli(cli, argv):
@@ -375,9 +551,113 @@ def run_cli(cli, argv):
     return time.time() - t0
 
 
-def main():
+def print_ptxas(report):
+    """One line per kernel of nvcc's -Xptxas -v report: registers, shared
+    memory, stack and spills."""
+    kernel = None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            m = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d)ELb(\d)ELb(\d)E)?", mangled)
+            shape = {"10": "chunked", "01": "whole", "00": "ragged"}
+            kernel = mangled if m is None else m.group(1) + (
+                f"<{m.group(2)}, {shape[m.group(3) + m.group(4)]}>" if m.group(2) else "")
+            spill = ""
+        elif "bytes stack frame" in line:
+            spill = line.strip()
+        elif "Used" in line and kernel:
+            print(f"  {kernel}: {line.split(':', 1)[1].strip()} | {spill}")
+            kernel = None
+
+
+def regenerate_large(alphabet, fasta, out_dir):
+    """examples/large's two FASTA files, rebuilt from the seed and checked."""
+    large_fa = []
+    for g, recs in enumerate(build_large(alphabet, fasta), start=1):
+        path = os.path.join(out_dir, f"genome{g}.fa")
+        fasta.write_fasta(path, recs)
+        with open(path, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+        check(digest == LARGE_SHA[f"genome{g}.fa"], f"genome{g}.fa digest {digest}")
+        large_fa.append(path)
+    print("examples/large inputs regenerated; SHA-256 digests match")
+    return large_fa
+
+
+def int32_peak():
+    """The card's peak 32-bit integer rate, operations per second: 132 SMs x
+    64 int32 lanes x the highest SM clock nvidia-smi reports."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0])
+    print(f"int32 peak: {SMS} SMs x {INT32_LANES_PER_SM} lanes x {mhz:.0f} MHz = "
+          f"{SMS * INT32_LANES_PER_SM * mhz * 1e6 / 1e12:.4f} T operations/s; "
+          f"device memory {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    return SMS * INT32_LANES_PER_SM * mhz * 1e6
+
+
+K3_ARG_NAMES = ("seq0p", "seq_len", "node_char", "pred_idx", "pred_ok", "sink_mask", "off")
+K3_OUT_NAMES = ("out_r", "out_i", "tcount", "best_sc")
+
+
+def k3_replay(torch, dev, mods, directory, peak_ops, tmp_dir):
+    """The development loop of K3 (--k3-replay DIR): hold the kernel against
+    the plain version's outputs on the two main-path dispatches and time it,
+    without the minutes of host Python and plain DP that produce them.  The
+    first run records both dispatches and the plain outputs into DIR as
+    .npz files; later runs load them.  Both, and the smaller seeded
+    buckets, also run at every other launch shape (columns per thread, ring
+    depth), which is how launch_config's choices were made."""
+    (cases, cli, pipeline, device_poa, msa, poa_ref, kernels, align_kernels, Config,
+     alphabet, fasta, metrics) = mods
+    os.makedirs(directory, exist_ok=True)
+    paths = {n: os.path.join(directory, n + ".npz") for n in ("examples", "large")}
+    if not all(os.path.exists(q) for q in paths.values()):
+        phase("recording the main path's K3 dispatches")
+        _n, ex_args = golden_mafs(torch, cli, metrics, kernels, align_kernels,
+                                  os.path.join(tmp_dir, "maf"))
+        large_fa = regenerate_large(alphabet, fasta, tmp_dir)
+        _n, large_args = large_alignment(
+            torch, large_fa, fasta, pipeline, Config, msa, metrics, kernels,
+            align_kernels, os.path.join(tmp_dir, "large_maf"), engines=("tpu",))
+        for name, args in (("examples", ex_args), ("large", large_args)):
+            want = align_kernels.poa_dp_tb_plain(*args)
+            arrays = dict(zip(K3_ARG_NAMES, (*args[:6], args[9])))
+            arrays.update(zip(K3_OUT_NAMES, want))
+            np.savez_compressed(paths[name], dims=np.asarray(args[6:9]),
+                                **{k: v.cpu().numpy() for k, v in arrays.items()})
+            print(f"recorded {paths[name]}: {os.path.getsize(paths[name])} bytes")
+    phase("K3 on the recorded main-path dispatches")
+    for name, path in paths.items():
+        z = np.load(path)
+        t = {k: torch.from_numpy(z[k]).to(dev) for k in K3_ARG_NAMES + K3_OUT_NAMES}
+        n_max, W, P = (int(x) for x in z["dims"])
+        args = (*(t[k] for k in K3_ARG_NAMES[:6]), n_max, W, P, t["off"])
+        want = [t[k] for k in K3_OUT_NAMES]
+        k3_vs_plain(torch, align_kernels, args, f"recorded {name} dispatch", peak_ops,
+                    want=want, reps=5)
+        for depth in (1, 2, 4, 8, 16):
+            print(f"  a ring of depth {depth} would serve "
+                  f"{100 * ring_hit_share(torch, align_kernels, args, depth):.4f}%")
+        k3_sweep(torch, align_kernels, args, want)
+    phase("K3 on the seeded buckets")
+    compare_poa(torch, dev, cases, device_poa, poa_ref, align_kernels, peak_ops,
+                kinds=K3_BUCKETS[:6], sweep=True)
+
+
+def main(argv):
     import torch
 
+    replay_dir = time_kinds = None
+    if argv[:1] == ["--k3-replay"] and len(argv) == 2:
+        replay_dir = argv[1]
+    elif argv[:1] == ["--k3-time"] and len(argv) == 2:
+        time_kinds = argv[1].split(",")
+    elif argv:
+        print("usage: python3 chip_smoke.py [--k3-replay DIR | --k3-time KIND[,KIND...]]",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is visible", file=sys.stderr)
         return 1
@@ -406,14 +686,18 @@ def main():
     ).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} cuda {torch.version.cuda} | {name} | {smi}")
     label = f"({smi})"
+    peak_ops = int32_peak()
+
+    if time_kinds is not None:
+        k3_time(torch, dev, torch_cases, device_poa, poa_ref, align_kernels, time_kinds)
+        print(smi)
+        return 0
 
     phase("2 build")
     t0 = time.time()
     lib_path, ptxas = cudabuild.build()
     print(f"kernels built in {time.time() - t0:.1f} s: {os.path.relpath(lib_path, REPO)}")
-    for line in ptxas.splitlines():
-        if "ptxas info" in line or "spill" in line:
-            print("  " + line.strip())
+    print_ptxas(ptxas)
     t0 = time.time()
     engine.ensure_built()
     print(f"native LCB engine built in {time.time() - t0:.1f} s")
@@ -421,12 +705,21 @@ def main():
     msa.ensure_built()
     print(f"native POA engine built in {time.time() - t0:.1f} s")
 
+    if replay_dir is not None:
+        k3_replay(torch, dev, (torch_cases, cli, pipeline, device_poa, msa, poa_ref,
+                               kernels, align_kernels, Config, alphabet, fasta, metrics),
+                  replay_dir, peak_ops, tmp.name)
+        tmp.cleanup()
+        print(smi)
+        return 0
+
     phase(f"3 kernels vs plain versions, n = 2^24 {label}")
-    k1_err, k2_err, times = compare_kernels(torch, dev, alphabet, construct, kernels)
+    k1_err, k2_err, times = compare_kernels(torch, dev, alphabet, construct, kernels,
+                                            peak_ops)
 
     phase(f"4 POA kernel vs its plain version {label}")
-    k3_err = compare_poa(torch, dev, torch_cases, device_poa, poa_ref, align_kernels)
-
+    k3_err = compare_poa(torch, dev, torch_cases, device_poa, poa_ref, align_kernels,
+                         peak_ops)
     phase("5 small graphs vs the oracle")
     cases = 0
     for seed, n_prob in ((0, 0.0), (1, 0.02), (2, 0.0), (3, 0.01), (4, 0.0), (5, 0.05)):
@@ -463,37 +756,36 @@ def main():
         check(f.read() == g.read(), "examples/ GFF differs from the golden")
     print("examples/ k=15: GFF byte-equal to the golden (11 blocks)")
 
-    large_fa = []
-    for g, recs in enumerate(build_large(alphabet, fasta), start=1):
-        path = os.path.join(tmp.name, f"genome{g}.fa")
-        fasta.write_fasta(path, recs)
-        with open(path, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()
-        check(digest == LARGE_SHA[f"genome{g}.fa"], f"genome{g}.fa digest {digest}")
-        large_fa.append(path)
-    print("examples/large inputs regenerated; SHA-256 digests match")
+    large_fa = regenerate_large(alphabet, fasta, tmp.name)
     kernels.reset_launches()
+    align_kernels.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
     large_out = os.path.join(tmp.name, "large")
     secs = run_cli(cli, ["-k", "25", "-n", "-t", "4", "-o", large_out, *large_fa])
-    launches = dict(kernels.LAUNCHES)
+    launches = {**kernels.LAUNCHES, **align_kernels.LAUNCHES}
     large_peak = (torch.cuda.max_memory_allocated() - mem0) / metrics.counters["graph_positions"]
     with open(os.path.join(large_out, "blocks_coords.gff"), "rb") as f, open(
         os.path.join(EXAMPLES, "large", "sibeliaz_out", "blocks_coords.gff"), "rb"
     ) as g:
         check(f.read() == g.read(), "examples/large GFF differs from the golden")
-    check(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
+    check(launches["front_half"] > 0 and launches["class_analysis"] > 0
+          and launches["poa_dp_tb"] == 0, f"launches of the -n run: {launches}")
     print(f"examples/large k=25: GFF byte-equal to the golden (1256 blocks) in "
           f"{secs:.2f} s | launches {launches} | peak {large_peak:.1f} B/position {label}")
 
     phase(f"7 golden MAFs through the CLI, both POA engines {label}")
-    k3_launches, k3_main = golden_mafs(torch, cli, metrics, align_kernels,
-                                       os.path.join(tmp.name, "maf"))
+    maf_launches, ex_args = golden_mafs(torch, cli, metrics, kernels, align_kernels,
+                                        os.path.join(tmp.name, "maf"))
+    k3_main = k3_vs_plain(torch, align_kernels, ex_args, "examples/ dispatch", peak_ops)
 
     phase(f"8 examples/large alignment: device engine vs native {label}")
-    k3_large = large_alignment(torch, large_fa, fasta, pipeline, Config, msa, metrics,
-                               align_kernels, os.path.join(tmp.name, "large_maf"))
+    large_launches, large_args = large_alignment(
+        torch, large_fa, fasta, pipeline, Config, msa, metrics, kernels, align_kernels,
+        os.path.join(tmp.name, "large_maf"))
+    k3_large = k3_vs_plain(torch, align_kernels, large_args,
+                           "examples/large largest dispatch", peak_ops)
+    del ex_args, large_args
 
     phase(f"9 timed pass: 16 x 1 Mbp strains, k=15 {label}")
     strains = bench_strains(alphabet, fasta)
@@ -522,19 +814,39 @@ def main():
     tmp.cleanup()
 
     src = "sibeliaz_tpu_torch/csrc/"
+    # launches per main path: the -n CLI run (examples/large, phase 6), the
+    # default CLI run with the device POA engine on examples/ (phase 7), and
+    # the same two stages on examples/large through the library (phase 8)
+    paths = {"examples/large -n": launches,
+             "examples/ --align-engine tpu": maf_launches,
+             "examples/large --align-engine tpu": large_launches}
+
+    def by_path(kernel):
+        return {path: counts[kernel] for path, counts in paths.items()}
+
     summary = {"kernels": [
         {"name": "front_half", "route": "cuda", "source": src + "front_half.cu",
          "replaces": "sibeliaz_tpu/graph/pallas_kernels.py:170",
-         "launches": launches["front_half"], "max_abs_err": k1_err,
-         "ms": times["front_half"][0], "plain_ms": times["front_half"][1]},
+         "launches": launches["front_half"], "launches_by_path": by_path("front_half"),
+         "max_abs_err": k1_err,
+         "ms": times["front_half"][0], "plain_ms": times["front_half"][1],
+         "bound_ms": times["front_half"][2], "bound_by": times["front_half"][3],
+         "library_ms": None},
         {"name": "class_analysis", "route": "cuda", "source": src + "class_analysis.cu",
          "replaces": "sibeliaz_tpu/graph/construct.py:450",
-         "launches": launches["class_analysis"], "max_abs_err": k2_err,
-         "ms": times["class_analysis"][0], "plain_ms": times["class_analysis"][1]},
+         "launches": launches["class_analysis"],
+         "launches_by_path": by_path("class_analysis"), "max_abs_err": k2_err,
+         "ms": times["class_analysis"][0], "plain_ms": times["class_analysis"][1],
+         "bound_ms": times["class_analysis"][2], "bound_by": times["class_analysis"][3],
+         "library_ms": None},
         {"name": "poa_dp_tb", "route": "cuda", "source": src + "poa_dp_tb.cu",
          "replaces": "sibeliaz_tpu/align/tpu_poa.py:206",
-         "launches": k3_launches, "max_abs_err": max(k3_err, k3_main[0], k3_large[0]),
-         "ms": k3_main[1], "plain_ms": k3_main[2]},
+         "launches": maf_launches["poa_dp_tb"],
+         "launches_by_path": by_path("poa_dp_tb"),
+         "max_abs_err": max(k3_err, k3_main["err"], k3_large["err"]),
+         "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"],
+         "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
+         "library_ms": None},
     ]}
     print()
     print(smi)
@@ -545,4 +857,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

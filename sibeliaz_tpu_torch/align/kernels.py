@@ -1,9 +1,11 @@
 """The alignment stage's hand-written CUDA kernel and its plain version.
 
 K3 `poa_dp_tb` (csrc/poa_dp_tb.cu) runs the device POA engine's banded
-sequence-vs-DAG DP and its traceback for a batch of blocks: one thread
-block per POA block, the topological ranks in a loop inside it.  It takes
-and returns what `_dp_tb_batch` of sibeliaz_tpu/align/tpu_poa.py does.
+sequence-vs-DAG DP and its traceback for a batch of blocks: a pre-pass
+that lays each rank's metadata out as one record, the DP with one thread
+block per POA block and the topological ranks in a loop inside it, and the
+traceback with one warp per block.  It takes and returns what
+`_dp_tb_batch` of sibeliaz_tpu/align/tpu_poa.py does.
 
 The wrapper routes by the device of the tensors it is given: a CPU tensor
 goes to the plain PyTorch version beside it, a CUDA tensor launches the
@@ -170,6 +172,48 @@ def poa_dp_tb_plain(seq0p, seq_len, node_char, pred_idx, pred_ok, sink_mask,
     return out_r, out_i, t.to(i32), best_sc.to(i32)
 
 
+# K3's scratch beside H and dirs: one record of REC_WORDS int32 per rank,
+# the ranks padded to a multiple of REC_TILE (csrc/poa_dp_tb.cu: kRec, kTile)
+REC_WORDS = 20
+REC_TILE = 32
+MAX_THREADS = 1024
+# rows of the shared-memory ring of recent H rows: a chain step needs one;
+# on an H100 a second gave under 3% on graphs of three and four copies and
+# further ones nothing (64 KB at the widest unchunked window, 8192)
+RING_DEPTH = 2
+
+
+def _round_up(x: int, multiple: int) -> int:
+    return -(-x // multiple) * multiple
+
+
+def launch_config(W: int, cols: int | None = None) -> dict:
+    """K3's launch shape for window width W: columns per thread (1, 2, 4 or
+    8), threads, and the ring's depth in rows (RING_DEPTH, or 0 where the
+    window runs in several chunks of cols * threads columns).  By default 4
+    columns from W 257 to 4096: on an H100 that beat 1 and 2 columns at
+    W 512 to 2048 and 8 at W 1024 to 4096, and 1 column won at W 256
+    (chip_smoke.py --k3-replay sweeps the shapes)."""
+    if cols is None:
+        cols = 1 if W <= 256 else 4 if W <= 4096 else 8
+    threads = min(MAX_THREADS, _round_up(-(-W // cols), 32))
+    depth = RING_DEPTH if W <= cols * threads else 0
+    return {"cols": cols, "threads": threads, "depth": depth}
+
+
+def chain_probe(threads: int, iters: int, device="cuda") -> None:
+    """Launches K3's chain probe: `iters` dependent steps of one
+    shared-memory round trip and one block barrier in a block of `threads`
+    threads, the least one rank of K3's serial rank loop can cost.  The
+    caller times it (chip_smoke.py's chain floor)."""
+    out = torch.empty(threads, dtype=torch.int32, device=device)
+    status = cudabuild.load().sz_poa_chain_probe(
+        threads, iters, ctypes.c_void_p(out.data_ptr()),
+        ctypes.c_void_p(torch.cuda.current_stream(out.device).cuda_stream))
+    if status != 0:
+        raise RuntimeError(f"chain probe launch failed: CUDA error {status}")
+
+
 def _require(t: torch.Tensor, dtype: torch.dtype, shape, name: str) -> None:
     if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
         raise ValueError(
@@ -179,9 +223,14 @@ def _require(t: torch.Tensor, dtype: torch.dtype, shape, name: str) -> None:
 
 
 def poa_dp_tb(seq0p, seq_len, node_char, pred_idx, pred_ok, sink_mask,
-              n_max: int, W: int, P: int, off):
+              n_max: int, W: int, P: int, off, *, split_ms=None, config=None):
     """K3: banded POA DP + traceback for a batch of blocks (see the module
-    docstring for the layout).  Returns (out_r, out_i, tcount, best_sc)."""
+    docstring for the layout).  Returns (out_r, out_i, tcount, best_sc).
+
+    `split_ms`, a list, receives the card's milliseconds of the launch's
+    parts (pre-pass, DP, traceback) from CUDA events; asking for them
+    synchronises the stream, so the engine does not.  `config` replaces
+    launch_config(W) (the smoke run's sweep over launch shapes)."""
     devices = {x.device for x in (seq0p, seq_len, node_char, pred_idx,
                                   pred_ok, sink_mask, off)}
     if len(devices) != 1:
@@ -204,22 +253,33 @@ def poa_dp_tb(seq0p, seq_len, node_char, pred_idx, pred_ok, sink_mask,
                                sink_mask, n_max, W, P, off)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device type {dev.type!r}")
-    H = torch.empty((B, n_max + 1, W), dtype=torch.int32, device=dev)
-    dirs = torch.empty((B, n_max, W), dtype=torch.uint8, device=dev)
+    # rows of the H and dirs scratch start at a multiple of 8 columns, so
+    # that a thread's columns are one aligned vector store at any W
+    stride = _round_up(W, 8)
+    H = torch.empty((B, n_max + 1, stride), dtype=torch.int32, device=dev)
+    dirs = torch.empty((B, n_max, stride), dtype=torch.uint8, device=dev)
     out_r = torch.empty((B, P), dtype=torch.int32, device=dev)
     out_i = torch.empty((B, P), dtype=torch.int32, device=dev)
     tcount = torch.empty(B, dtype=torch.int32, device=dev)
     best_sc = torch.empty(B, dtype=torch.int32, device=dev)
+    n_pad = _round_up(n_max, REC_TILE)
+    meta = torch.empty((B, n_pad, REC_WORDS), dtype=torch.int32, device=dev)
+    aux = torch.empty(3 * B, dtype=torch.int32, device=dev)
+    cfg = launch_config(W) if config is None else config
     lib = cudabuild.load()
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())  # noqa: E731
+    parts = (ctypes.c_float * 3)() if split_ms is not None else None
     status = lib.sz_poa_dp_tb(
         ptr(seq0p), ptr(seq_len), ptr(node_char), ptr(pred_idx),
         ptr(pred_ok), ptr(sink_mask), ptr(off),
         B, n_max, W, P, seq0p.shape[1],
-        ptr(H), ptr(dirs), ptr(out_r), ptr(out_i), ptr(tcount), ptr(best_sc),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        ptr(H), ptr(dirs), stride, ptr(out_r), ptr(out_i), ptr(tcount), ptr(best_sc),
+        ptr(meta), n_pad, ptr(aux), cfg["cols"], cfg["threads"], cfg["depth"],
+        parts, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     if status != 0:
-        raise RuntimeError(f"poa_dp_tb launch failed: CUDA error {status}")
+        raise RuntimeError(f"poa_dp_tb launch failed: CUDA error {status} ({cfg})")
     LAUNCHES["poa_dp_tb"] += 1
+    if split_ms is not None:
+        split_ms[:] = list(parts)
     return out_r, out_i, tcount, best_sc

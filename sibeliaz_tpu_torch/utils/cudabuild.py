@@ -100,7 +100,10 @@ def load() -> ctypes.CDLL:
         "sz_class_mark_starts": [vp, i64, vp, vp],
         "sz_class_or": [vp, vp, vp, vp, i64, vp, vp, vp],
         "sz_class_verdict": [vp, vp, vp, vp, i64, vp, vp, vp],
-        "sz_poa_dp_tb": [vp] * 7 + [i32] * 5 + [vp] * 7,
+        "sz_poa_dp_tb": ([vp] * 7 + [i32] * 5 + [vp, vp, i32] + [vp] * 5
+                         + [i32, vp] + [i32] * 3
+                         + [ctypes.POINTER(ctypes.c_float), vp]),
+        "sz_poa_chain_probe": [i32, i32, vp, vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -4,6 +4,8 @@ Marked `gpu`: on a machine without a CUDA card every test skips (decided in
 the fixture, not at import).  On the card: `python -m pytest -m gpu
 tests/test_torch_cuda.py`."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -12,7 +14,8 @@ from sibeliaz_tpu_torch.align import device_poa, poa_ref
 from sibeliaz_tpu_torch.align import kernels as align_kernels
 from sibeliaz_tpu_torch.graph import construct, kernels
 
-from torch_cases import class_case, codes_with_n_runs, poa_case, poa_round
+from torch_cases import (class_case, codes_with_n_runs, edge_band_round,
+                         poa_case, poa_round, rand_block, spread_slots)
 
 pytestmark = pytest.mark.gpu
 
@@ -74,18 +77,96 @@ def test_build_junctions_cuda_matches_cpu(cuda):
         assert np.array_equal(a.pos, b.pos) and np.array_equal(a.ids, b.ids)
 
 
-@pytest.mark.parametrize("case", ["unbanded", "banded", "tie_heavy"])
-@pytest.mark.parametrize("scale", [1, 8])
-def test_poa_dp_tb_matches_plain(cuda, case, scale):
+def poa_args(case, scale, device, holes=False):
+    """K3's arguments for one seeded case, on `device`; with `holes`, the
+    predecessor slots spread so that unused ones lie between used ones."""
     blocks, band_min = poa_case(case, scale)
     plan = lambda *a: device_poa._plan_windows(*a, band_min=band_min)  # noqa: E731
     arrays, n_max, W, P, _ = poa_round(
         blocks, poa_ref.PoaGraph, device_poa._extract_arrays, plan)
-    t = [torch.from_numpy(a).to(cuda) for a in arrays]
+    arrays = list(arrays)
+    if holes:
+        arrays[3], arrays[4] = spread_slots(arrays[3], arrays[4], n_max)
+    t = [torch.from_numpy(a).to(device) for a in arrays]
+    return (*t[:6], n_max, W, P, t[6])
+
+
+@pytest.mark.parametrize("case", ["unbanded", "banded", "tie_heavy", "far_pred",
+                                  "many_preds", "odd_w"])
+@pytest.mark.parametrize("scale", [1, 8])
+def test_poa_dp_tb_matches_plain(cuda, case, scale):
+    args = poa_args(case, scale, cuda)
     before = align_kernels.LAUNCHES["poa_dp_tb"]
-    got = align_kernels.poa_dp_tb(*t[:6], n_max, W, P, t[6])
+    got = align_kernels.poa_dp_tb(*args)
     torch.cuda.synchronize()
     assert align_kernels.LAUNCHES["poa_dp_tb"] == before + 1
-    want = align_kernels.poa_dp_tb_plain(*t[:6], n_max, W, P, t[6])
+    want = align_kernels.poa_dp_tb_plain(*args)
     for g, w in zip(got, want):
         assert g.dtype == torch.int32 and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", ["banded", "tie_heavy", "many_preds"])
+def test_poa_dp_tb_takes_holes_in_the_slot_mask(cuda, case):
+    args = poa_args(case, 2, cuda, holes=True)
+    got = align_kernels.poa_dp_tb(*args)
+    torch.cuda.synchronize()
+    want = align_kernels.poa_dp_tb_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("config", [
+    {"cols": 1, "threads": 64, "depth": 0},  # the window in chunks of 64
+    {"cols": 2, "threads": 32, "depth": 0},
+    {"cols": 8, "threads": 32, "depth": 0},  # one chunk (two for odd_w), no ring
+    {"cols": 8, "threads": 64, "depth": 3},  # a ring shorter than the far preds
+    {"cols": 4, "threads": 1024, "depth": 8},  # most threads past the window
+], ids=lambda c: "-".join(str(v) for v in c.values()))
+@pytest.mark.parametrize("case", ["banded", "far_pred", "many_preds", "odd_w"])
+def test_poa_dp_tb_launch_shapes(cuda, case, config):
+    """Every launch shape gives the plain version's outputs, not only the
+    one launch_config picks for the window."""
+    args = poa_args(case, 1, cuda)
+    got = align_kernels.poa_dp_tb(*args, config=config)
+    torch.cuda.synchronize()
+    want = align_kernels.poa_dp_tb_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("W, config", [
+    (261, None), (263, None), (518, None),  # launch_config's 4 columns
+    (13, {"cols": 8, "threads": 32, "depth": 2}),
+    (250, {"cols": 8, "threads": 32, "depth": 1}),
+    (63, {"cols": 2, "threads": 32, "depth": 2}),
+], ids=str)
+def test_poa_dp_tb_band_rides_the_window_edge(cuda, W, config):
+    """A moving window whose width is no multiple of the columns per thread,
+    the alignment in its last column: the thread that straddles the window's
+    end keeps the right sequence byte under it from rank to rank."""
+    arrays, n_max, W, P = edge_band_round(W)
+    t = [torch.from_numpy(a).to(cuda) for a in arrays]
+    args = (*t[:6], n_max, W, P, t[6])
+    got = align_kernels.poa_dp_tb(*args, config=config)
+    torch.cuda.synchronize()
+    want = align_kernels.poa_dp_tb_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_poa_dp_tb_window_wider_than_one_chunk(cuda):
+    """An unbanded 8.3 kbp copy runs at W 16384, which launch_config cuts
+    into two chunks of 8 columns x 1,024 threads."""
+    blocks = [rand_block(np.random.default_rng(17), 8300, 2, mut=0.03)]
+    plan = functools.partial(device_poa._plan_windows, band=False)
+    arrays, n_max, W, P, _ = poa_round(
+        blocks, poa_ref.PoaGraph, device_poa._extract_arrays, plan)
+    cfg = align_kernels.launch_config(W)
+    assert W == 16384 and cfg["depth"] == 0 and cfg["cols"] * cfg["threads"] == 8192
+    t = [torch.from_numpy(a).to(cuda) for a in arrays]
+    args = (*t[:6], n_max, W, P, t[6])
+    got = align_kernels.poa_dp_tb(*args)
+    torch.cuda.synchronize()
+    want = align_kernels.poa_dp_tb_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

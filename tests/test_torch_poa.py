@@ -15,7 +15,8 @@ from sibeliaz_tpu.align import tpu_poa
 from sibeliaz_tpu_torch.align import device_poa, kernels, poa_ref
 from sibeliaz_tpu_torch.utils.metrics import GLOBAL as metrics
 
-from torch_cases import ACGT, poa_case, poa_round, rand_block, tie_heavy_block
+from torch_cases import (ACGT, POA_KINDS, edge_band_round, poa_case, poa_round,
+                         rand_block, spread_slots, tie_heavy_block)
 
 
 def port_plan(band_min):
@@ -40,7 +41,7 @@ def assert_outputs_equal(got, want):
         assert np.array_equal(g, w), name
 
 
-@pytest.mark.parametrize("case", ["unbanded", "banded", "pass2", "tie_heavy"])
+@pytest.mark.parametrize("case", POA_KINDS)
 def test_plain_matches_jax_dp_tb(case, monkeypatch):
     blocks, band_min = poa_case(case)
     monkeypatch.setenv("SZ_POA_BAND_MIN", str(band_min))
@@ -49,10 +50,19 @@ def test_plain_matches_jax_dp_tb(case, monkeypatch):
     arrays, n_max, W, P, s0s = args
     want = run_jax(arrays, n_max, W, P)
     assert_outputs_equal(run_plain(arrays, n_max, W, P), want)
-    if case == "unbanded":
+    if case in ("unbanded", "odd_w"):
         assert s0s == [None] * len(blocks)
     else:
         assert all(s is not None for s in s0s)
+    pred_idx, pred_ok = arrays[3], arrays[4]
+    if case == "far_pred":  # further back than any shared-memory ring holds
+        back = np.arange(n_max)[None, :, None] - pred_idx
+        assert int(np.where(pred_ok & (pred_idx < n_max), back, 0).max()) > 300
+    if case == "many_preds":
+        assert int(pred_ok.sum(axis=2).max()) >= 5
+    if case == "odd_w":
+        assert len(blocks) == 1 and W % 2 == 1 and W == arrays[0].shape[1] - W
+        assert int(np.flatnonzero(pred_ok[0].any(axis=1)).max()) + 1 < n_max // 4
     if case == "pass2":
         # pass 1 does not certify; pass 2 re-bands at the achieved score
         assert int(want[3][0]) < s0s[0]
@@ -62,6 +72,58 @@ def test_plain_matches_jax_dp_tb(case, monkeypatch):
         )
         assert_outputs_equal(run_plain(arrays, n_max, W, P),
                              run_jax(arrays, n_max, W, P))
+
+
+@pytest.mark.parametrize("case", ["tie_heavy", "many_preds"])
+def test_plain_matches_jax_with_holes_in_the_slot_mask(case, monkeypatch):
+    """Unused slots between used ones count as NEG at their place in slot
+    order, in the plain version as in `_dp_tb_batch`."""
+    blocks, band_min = poa_case(case)
+    monkeypatch.setenv("SZ_POA_BAND_MIN", str(band_min))
+    arrays, n_max, W, P, _ = poa_round(
+        blocks, jax_poa_ref.PoaGraph, tpu_poa._extract_arrays, tpu_poa._plan_windows)
+    arrays = list(arrays)
+    arrays[3], arrays[4] = spread_slots(arrays[3], arrays[4], n_max)
+    assert arrays[4][..., 1].any() and not arrays[4][..., 0].any()
+    assert_outputs_equal(run_plain(arrays, n_max, W, P), run_jax(arrays, n_max, W, P))
+
+
+@pytest.mark.parametrize("W", [13, 261, 263])
+def test_plain_matches_jax_on_a_band_that_rides_the_window_edge(W):
+    """A window that moves on by one row per rank at a width that is no
+    multiple of the kernel's columns per thread, with the alignment in the
+    window's last column."""
+    arrays, n_max, W, P = edge_band_round(W)
+    want = run_jax(arrays, n_max, W, P)
+    assert_outputs_equal(run_plain(arrays, n_max, W, P), want)
+    n = int(arrays[1][0])
+    assert np.all(want[2] == n)  # one step per rank: the diagonal, no gap
+    assert np.all(want[3] > 3 * n)  # and most of it matches
+    ranks, rows = want[0][0, :n], want[1][0, :n] + 1
+    cols = rows - arrays[6][0, ranks]
+    assert np.all(cols[ranks >= W] == W - 1)  # block 0: in the last column
+
+
+@pytest.mark.parametrize("W", [1, 65, 128, 512, 513, 1025, 2048, 4096, 4097,
+                               8192, 8193, 65537])
+def test_launch_config_is_a_shape_the_kernel_takes(W):
+    """What the K3 wrapper asks csrc/poa_dp_tb.cu for: 1, 2, 4 or 8 columns
+    per thread, whole warps, a ring that fits a block's shared memory and
+    only an unchunked window, every column covered."""
+    cfg = kernels.launch_config(W)
+    cols, threads, depth = cfg["cols"], cfg["threads"], cfg["depth"]
+    assert cols in (1, 2, 4, 8)
+    assert threads % 32 == 0 and 32 <= threads <= kernels.MAX_THREADS
+    chunks = -(-W // (cols * threads))
+    assert chunks == 1 or depth == 0
+    assert (cols * threads < W + 32 * cols) or chunks > 1 or threads == 32
+    staged = 2 * kernels.REC_TILE * kernels.REC_WORDS + 32
+    assert 4 * (staged + depth * cols * threads) <= 227 * 1024
+    if W <= 8192:  # the engine's usual widths run with the ring
+        assert chunks == 1 and depth >= 1
+    forced = kernels.launch_config(W, cols=1)
+    assert forced["cols"] == 1
+    assert (forced["depth"] == 0) == (W > forced["threads"])
 
 
 def test_plain_matches_on_port_arrays(monkeypatch):

@@ -78,12 +78,55 @@ def tie_heavy_block(rng, reps=30):
     return seqs
 
 
+def far_pred_block(rng, base_len, cut_len):
+    """A base with a poly-A stretch of `cut_len` between A-free flanks, a
+    copy without the stretch (under linear gaps only such a deletion stays
+    in one piece: the rank after it gets a predecessor `cut_len` ranks back)
+    and a mutated copy to align."""
+    base = ACGT[rng.integers(1, 4, size=base_len)]
+    cut = int(rng.integers(base_len // 8, base_len // 2))
+    base[cut : cut + cut_len] = ACGT[0]
+    last = base.copy()
+    for p in np.flatnonzero(rng.random(base_len) < 0.04):
+        last[p] = ACGT[rng.integers(0, 4)]
+    return [base, np.delete(base, slice(cut, cut + cut_len)), last]
+
+
+def many_preds_block(rng, base_len):
+    """Seven copies that diverge at the columns `cols`: the three other
+    letters at the column and deletions of one, two and three bases ending
+    there, so the rank after each column has seven predecessor slots, several
+    of them scoring alike; then a mutated copy to align."""
+    base = ACGT[rng.integers(0, 4, size=base_len)]
+    cols = range(base_len // 6, base_len - 8, base_len // 6)
+    seqs = [base]
+    for k in range(1, 4):
+        seq = base.copy()
+        for c in cols:
+            seq[c] = ACGT[(int(np.flatnonzero(ACGT == base[c])[0]) + k) % 4]
+        seqs.append(seq)
+    for k in range(1, 4):
+        keep = np.ones(base_len, bool)
+        for c in cols:
+            keep[c - k + 1 : c + 1] = False
+        seqs.append(base[keep])
+    last = base.copy()
+    for p in np.flatnonzero(rng.random(base_len) < 0.05):
+        last[p] = ACGT[rng.integers(0, 4)]
+    for c in cols:  # the aligned copy meets every divergence with a mismatch
+        last[c] = ACGT[rng.integers(0, 4)]
+    return seqs + [last]
+
+
+POA_KINDS = ("unbanded", "banded", "pass2", "tie_heavy", "far_pred",
+             "many_preds", "odd_w")
+
+
 def poa_case(name, scale=1):
     """(blocks, band_min) of one K3 dispatch: each block's last copy is
     aligned to the graph of the others.  `scale` stretches the sequences
     (the card's tests use longer ones)."""
-    rng = np.random.default_rng({"unbanded": 1, "banded": 2, "pass2": 3,
-                                 "tie_heavy": 4}[name])
+    rng = np.random.default_rng(POA_KINDS.index(name) + 1)
     if name == "unbanded":  # under the default band gate of 256
         return [rand_block(rng, int(rng.integers(60, 200)) * scale,
                            int(rng.integers(2, 5))) for _ in range(3)], 256
@@ -94,9 +137,64 @@ def poa_case(name, scale=1):
     if name == "pass2":  # unrelated copies: pass 1 does not certify
         return [[ACGT[rng.integers(0, 4, size=300 * scale)],
                  ACGT[rng.integers(0, 4, size=280 * scale)]]], 16
-    if name != "tie_heavy":
+    if name == "tie_heavy":
+        return [tie_heavy_block(rng) for _ in range(2)], 16
+    if name == "far_pred":  # a predecessor hundreds of ranks back
+        return [far_pred_block(rng, 900 * scale, 300 * scale),
+                far_pred_block(rng, 700 * scale, 40)], 16
+    if name == "many_preds":  # ranks with seven predecessor slots, and ties
+        return [many_preds_block(rng, 200 * scale) for _ in range(2)], 16
+    if name != "odd_w":
         raise ValueError(name)
-    return [tie_heavy_block(rng) for _ in range(2)], 16
+    # one unbanded block whose aligned copy is exactly the bucket's L long
+    # (a power of two), so W = L + 1 is odd, against a graph of few ranks
+    return [[ACGT[rng.integers(0, 4, size=60 * scale)],
+             ACGT[rng.integers(0, 4, size=256 * scale)]]], 1 << 30
+
+
+def spread_slots(pred_idx, pred_ok, n_max):
+    """The first four predecessor slots moved to slots 1, 3, 5 and 7 (the
+    others dropped): a slot mask with holes, which K3's contract takes."""
+    idx = np.full_like(pred_idx, n_max)
+    ok = np.zeros_like(pred_ok)
+    idx[..., 1::2] = pred_idx[..., :4]
+    ok[..., 1::2] = pred_ok[..., :4]
+    return idx, ok
+
+
+def edge_band_round(W):
+    """K3's inputs laid out by hand, for windows the engine's band plan never
+    cuts this close: two chain graphs of n = max(300, 2 W) ranks, each
+    aligned to a mutated copy of itself, whose windows move on by one row
+    per rank so that the alignment's diagonal stays in the window's last
+    column (block 0) and in its middle (block 1).  A wrong cell on the
+    window's edge changes the score and the traceback.
+
+    Returns (numpy arrays in K3's argument order, n_max, W, P)."""
+    rng = np.random.default_rng(W)
+    n = max(300, 2 * W)
+    n_max = -(-(n + n // 4) // 8) * 8
+    seq_b = np.zeros((2, n + 1 + W), np.uint8)
+    len_b = np.full(2, n, np.int32)
+    char_b = np.zeros((2, n_max), np.uint8)
+    pi_b = np.full((2, n_max, 8), n_max, np.int32)
+    po_b = np.zeros((2, n_max, 8), bool)
+    sink_b = np.zeros((2, n_max), bool)
+    off_b = np.zeros((2, n_max + 1), np.int32)
+    for b, col in enumerate((W - 1, W // 2)):
+        chars = ACGT[rng.integers(0, 4, size=n)]
+        seq = chars.copy()
+        for p in np.flatnonzero(rng.random(n) < 0.05):
+            seq[p] = ACGT[rng.integers(0, 4)]
+        seq_b[b, 1 : 1 + n] = seq
+        char_b[b, :n] = chars
+        pi_b[b, 1:n, 0] = np.arange(n - 1)
+        po_b[b, :n, 0] = True
+        sink_b[b, n - 1] = True
+        # rank r pairs with sequence row r + 1, which is column `col`
+        off_b[b, :n] = np.clip(np.arange(n) + 1 - col, 0, None)
+    arrays = (seq_b, len_b, char_b, pi_b, po_b, sink_b, off_b)
+    return arrays, n_max, W, n + n_max + 2
 
 
 def poa_round(blocks, graph_cls, extract, plan, band_S=None):
