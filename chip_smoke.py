@@ -3,6 +3,7 @@
     python3 chip_smoke.py        # from the repo root, on a machine with one CUDA card
     python3 chip_smoke.py --k3-replay DIR    # K3's development loop, see k3_replay
     python3 chip_smoke.py --k3-time KINDS    # K3's wrapper alone, see k3_time
+    python3 chip_smoke.py --k2-time          # K2's wrapper alone, see k2_vs_plain
 
 Phases, in order; any failure raises and the exit code is non-zero:
   1. device: the card's name and power limit, and the peak rates the
@@ -11,7 +12,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
      shared-memory and spill report) and the native LCB and POA engines;
   3. kernels: K1 front_half and K2 class_analysis against their plain
      PyTorch versions on the card, exact, with CUDA-event times beside the
-     plain versions', the sort's and each kernel's roofline bound;
+     plain versions', the sort's and each kernel's roofline bound; K2 on
+     five full-size row sets (k=25 random, poly-A stress, one class, all
+     distinct, the strains workload's own rows), launched twice in a row;
   4. POA kernel: K3 poa_dp_tb against its plain version on eight seeded
      buckets (unbanded, banded, tie-heavy, a far predecessor, seven
      predecessor slots, an odd window of 4097, a window of 8192, a window
@@ -58,6 +61,7 @@ LARGE_SHA = {  # tests/test_examples_dir.py LARGE_SHA
     "genome2.fa": "ea148275a6a76583ddd7eff23a66fb1d48c33a4d8110d51aa770de11f2d52a89",
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+PEAK_B_PER_POSITION = 52.2  # the graph stage's measured peak on examples/large; not to rise
 SMS, INT32_LANES_PER_SM = 132, 64  # H100 SXM: 64 int32 lanes on each of 132 SMs
 
 
@@ -177,17 +181,14 @@ def bound_ms(nbytes, ops, peak_ops):
 
 
 def compare_kernels(torch, dev, alphabet, construct, kernels, peak_ops):
-    """Phase 3 at 2^24 positions: each kernel equal to its plain version;
-    returns (K1 max abs error, K2 max abs error, {name: (ms, plain ms, bound
-    ms, bound by)}).  K1's bound: the packed codes and the validity map in,
-    an int64 key and an int32 packed word out per position, against the
-    K1_OPS_PER_POSITION 32-bit operations the function needs at any k.
-    K2's bound: each sorted row in (key
-    8 B, packed word 4 B, position 4 B) and out (junction flag 1 B, first
-    position 4 B) once, 21 B per row."""
+    """Phase 3's K1 part at 2^24 positions: K1 equal to its plain version;
+    returns (K1 max abs error, {name: (ms, plain ms, bound ms, bound by)}).
+    K1's bound: the packed codes and the validity map in, an int64 key and
+    an int32 packed word out per position, against the K1_OPS_PER_POSITION
+    32-bit operations the function needs at any k."""
     n = 1 << 24
     rng = np.random.default_rng(1)
-    k1_err, k2_err, times = 0, 0, {}
+    k1_err, times = 0, {}
     for k in (15, 25, 31):
         codes = rng.integers(0, 4, size=n).astype(np.uint8)
         for lo in rng.integers(0, n, size=2000):
@@ -212,40 +213,79 @@ def compare_kernels(torch, dev, alphabet, construct, kernels, peak_ops):
             times["front_half"] = (ms, plain_ms, bound, by)
             k25 = (key, packed)
 
-    def sorted_rows(key, packed):
-        key_s, order = torch.sort(key, stable=True)
-        return key_s, packed[order], order.to(torch.int32)
-
     sort_ms = cuda_ms(torch, lambda: torch.sort(k25[0], stable=True), 10)
     print(f"torch.sort(stable) of 2^24 int64 keys: {sort_ms:.4f} ms")
     times["sort"] = sort_ms
+    return k1_err, times
+
+
+def sorted_rows(torch, key, packed):
+    """K2's input: the rows sorted by key (stable), as the graph stage has them."""
+    key_s, order = torch.sort(key, stable=True)
+    return key_s, packed[order], order.to(torch.int32)
+
+
+def k2_row_sets(torch, dev, alphabet, construct, kernels, fasta):
+    """K2's row sets, each at full size: k=25 rows of 2^24 random positions
+    with N runs; the poly-A stress (one class of ~10^6 rows, spanning
+    hundreds of tiles, and a poly-C and an N stretch); the first set's words
+    and positions as one class and as 2^24 distinct keys; and the strains
+    workload's own rows (16 x 1 Mbp joined with N, k=15).  {label: rows}."""
+    n = 1 << 24
+    rng = np.random.default_rng(1)
+    codes = rng.integers(0, 4, size=n).astype(np.uint8)
+    for lo in rng.integers(0, n, size=2000):
+        codes[lo : lo + int(rng.integers(1, 500))] = alphabet.BAD_CODE
     poly = rng.integers(0, 4, size=n).astype(np.uint8)
     poly[1000 : 1000 + 1_000_000] = 0  # poly-A: one class of ~10^6 rows
     poly[5_000_000 : 5_000_000 + 100_000] = 1  # poly-C
     poly[9_000_000 : 9_000_000 + 300_000] = alphabet.BAD_CODE
-    pk_h, nm_h = construct.pack_codes_host(poly)
-    k_poly = kernels.front_half(
-        torch.from_numpy(pk_h).to(dev), torch.from_numpy(nm_h).to(dev), n, 25
-    )
-    for label_k2, (key, packed) in (("k=25 random", k25), ("poly-A stress", k_poly)):
-        rows = sorted_rows(key, packed)
-        got = kernels.class_analysis(*rows)
-        torch.cuda.synchronize()
+    strains = bench_strains(alphabet, fasta)
+    sep = np.array([ord("N")], np.uint8)
+    joined = alphabet.encode(np.concatenate(
+        [x for r in strains for x in (r.seq, sep)][:-1]))
+
+    def rows_of(c, k):
+        pk_h, nm_h = construct.pack_codes_host(c)
+        key, packed = kernels.front_half(torch.from_numpy(pk_h).to(dev),
+                                         torch.from_numpy(nm_h).to(dev), len(c), k)
+        return sorted_rows(torch, key, packed)
+
+    sets = {"k=25 random": rows_of(codes, 25), "poly-A stress": rows_of(poly, 25)}
+    _key_s, packed_s, pos_s = sets["k=25 random"]
+    sets["one class"] = (torch.zeros(n, dtype=torch.int64, device=dev), packed_s, pos_s)
+    sets["all distinct"] = (torch.arange(n, dtype=torch.int64, device=dev), packed_s, pos_s)
+    sets["strains k=15"] = rows_of(joined, 15)
+    return sets
+
+
+def k2_vs_plain(torch, kernels, sets, peak_ops):
+    """K2 against its plain version on each row set, launched twice in a row,
+    exact, with its time, the plain version's and its bound (21 B per row:
+    key 8 + word 4 + position 4 in, flag 1 + first 4 out, each once).  A
+    copy of this script put into an older checkout times that checkout's
+    kernel on the same rows.  Returns {label: dict of err, ms, plain_ms,
+    bound_ms, bound_by}."""
+    out = {}
+    for label, rows in sets.items():
+        n = rows[0].shape[0]
         want = kernels.class_analysis_plain(*rows)
-        torch.cuda.synchronize()
-        err = max(int((got[0].int() - want[0].int()).abs().max()),
-                  int((got[1] - want[1]).abs().max()))
-        k2_err = max(k2_err, err)
-        check(err == 0, f"class_analysis differs from its plain version ({label_k2})")
+        err = 0
+        for _twice in range(2):
+            got = kernels.class_analysis(*rows)
+            torch.cuda.synchronize()
+            err = max(err, int((got[0].int() - want[0].int()).abs().max()),
+                      int((got[1] - want[1]).abs().max()))
+        check(err == 0, f"class_analysis differs from its plain version ({label})")
         ms = cuda_ms(torch, lambda: kernels.class_analysis(*rows), 20)
         plain_ms = cuda_ms(torch, lambda: kernels.class_analysis_plain(*rows), 3)
         bound, by = bound_ms(21 * n, 0, peak_ops)
-        print(f"class_analysis {label_k2}: equal, {int(got[0].sum())} junction rows | "
+        print(f"class_analysis {label}: equal, {n} rows, {int(want[0].sum())} junction rows | "
               f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | bound {bound:.4f} ms by {by} "
               f"= {100 * bound / ms:.4f}% of the kernel's time")
-        if label_k2 == "k=25 random":
-            times["class_analysis"] = (ms, plain_ms, bound, by)
-    return k1_err, k2_err, times
+        out[label] = {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": by}
+    return out
 
 
 def poa_blocks(cases, kind, rng):
@@ -558,10 +598,17 @@ def print_ptxas(report):
     for line in report.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            m = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d)ELb(\d)ELb(\d)E)?", mangled)
-            shape = {"10": "chunked", "01": "whole", "00": "ragged"}
-            kernel = mangled if m is None else m.group(1) + (
-                f"<{m.group(2)}, {shape[m.group(3) + m.group(4)]}>" if m.group(2) else "")
+            m = re.search(r"\d+([a-z_]+_kernel)((?:L[ib]\d+E|I)*)", mangled)
+            args = re.findall(r"L[ib](\d+)E", m.group(2)) if m else []
+            if m is None:
+                kernel = mangled
+            elif m.group(1) == "poa_dp_kernel" and len(args) == 3:
+                shape = {"10": "chunked", "01": "whole", "00": "ragged"}
+                kernel = f"{m.group(1)}<{args[0]}, {shape[args[1] + args[2]]}>"
+            elif m.group(1) == "class_tile_kernel" and len(args) == 1:
+                kernel = f"{m.group(1)}<{'16-byte' if args[0] == '1' else 'scalar'} loads>"
+            else:
+                kernel = m.group(1) + (f"<{', '.join(args)}>" if args else "")
             spill = ""
         elif "bytes stack frame" in line:
             spill = line.strip()
@@ -650,13 +697,14 @@ def main(argv):
     import torch
 
     replay_dir = time_kinds = None
+    k2_time = argv == ["--k2-time"]
     if argv[:1] == ["--k3-replay"] and len(argv) == 2:
         replay_dir = argv[1]
     elif argv[:1] == ["--k3-time"] and len(argv) == 2:
         time_kinds = argv[1].split(",")
-    elif argv:
-        print("usage: python3 chip_smoke.py [--k3-replay DIR | --k3-time KIND[,KIND...]]",
-              file=sys.stderr)
+    elif argv and not k2_time:
+        print("usage: python3 chip_smoke.py [--k3-replay DIR | --k3-time KIND[,KIND...] | "
+              "--k2-time]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is visible", file=sys.stderr)
@@ -692,6 +740,11 @@ def main(argv):
         k3_time(torch, dev, torch_cases, device_poa, poa_ref, align_kernels, time_kinds)
         print(smi)
         return 0
+    if k2_time:
+        k2_vs_plain(torch, kernels, k2_row_sets(torch, dev, alphabet, construct, kernels, fasta),
+                    peak_ops)
+        print(smi)
+        return 0
 
     phase("2 build")
     t0 = time.time()
@@ -714,8 +767,11 @@ def main(argv):
         return 0
 
     phase(f"3 kernels vs plain versions, n = 2^24 {label}")
-    k1_err, k2_err, times = compare_kernels(torch, dev, alphabet, construct, kernels,
-                                            peak_ops)
+    k1_err, times = compare_kernels(torch, dev, alphabet, construct, kernels, peak_ops)
+    k2 = k2_vs_plain(torch, kernels, k2_row_sets(torch, dev, alphabet, construct, kernels,
+                                                 fasta), peak_ops)
+    k2_err = max(r["err"] for r in k2.values())
+    k2_main = k2["k=25 random"]
 
     phase(f"4 POA kernel vs its plain version {label}")
     k3_err = compare_poa(torch, dev, torch_cases, device_poa, poa_ref, align_kernels,
@@ -771,6 +827,8 @@ def main(argv):
         check(f.read() == g.read(), "examples/large GFF differs from the golden")
     check(launches["front_half"] > 0 and launches["class_analysis"] > 0
           and launches["poa_dp_tb"] == 0, f"launches of the -n run: {launches}")
+    check(round(large_peak, 1) <= PEAK_B_PER_POSITION,
+          f"peak {large_peak:.1f} B/position, above {PEAK_B_PER_POSITION}")
     print(f"examples/large k=25: GFF byte-equal to the golden (1256 blocks) in "
           f"{secs:.2f} s | launches {launches} | peak {large_peak:.1f} B/position {label}")
 
@@ -836,8 +894,8 @@ def main(argv):
          "replaces": "sibeliaz_tpu/graph/construct.py:450",
          "launches": launches["class_analysis"],
          "launches_by_path": by_path("class_analysis"), "max_abs_err": k2_err,
-         "ms": times["class_analysis"][0], "plain_ms": times["class_analysis"][1],
-         "bound_ms": times["class_analysis"][2], "bound_by": times["class_analysis"][3],
+         "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
+         "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
          "library_ms": None},
         {"name": "poa_dp_tb", "route": "cuda", "source": src + "poa_dp_tb.cu",
          "replaces": "sibeliaz_tpu/align/tpu_poa.py:206",

@@ -3,7 +3,8 @@
 K1 `front_half` (csrc/front_half.cu) turns the packed 2-bit upload into a
 canonical k-mer key and a packed extension word per position.  K2
 `class_analysis` (csrc/class_analysis.cu) turns the key-sorted rows into a
-junction verdict and a class-first position per row.
+junction verdict and a class-first position per row, in one pass over
+tiles of K2_TILE_ROWS rows with a decoupled look-back.
 
 Each wrapper routes by the device of the tensors it is given: a CPU tensor
 goes to the plain PyTorch version beside it, a CUDA tensor launches the
@@ -136,6 +137,10 @@ def front_half(codes2: torch.Tensor, nmask: torch.Tensor, n: int, k: int):
 
 # ---- K2: class analysis ---------------------------------------------------
 
+# Rows per tile of the kernel (csrc/class_analysis.cu, sz_class_tile_rows):
+# the tests lay their class runs out by it, and the card's check it.
+K2_TILE_ROWS = 2048
+
 # packed-word bits the verdict reads: right extensions A,C,G,T; left
 # extensions A,C,G,T; run boundary
 _VERDICT_BITS = (0, 1, 2, 3, 5, 6, 7, 8, 10)
@@ -164,10 +169,11 @@ def class_analysis_plain(key_s: torch.Tensor, packed_s: torch.Tensor, pos_s: tor
 
 
 def class_analysis(key_s: torch.Tensor, packed_s: torch.Tensor, pos_s: torch.Tensor):
-    """K2.  key_s: int64 keys sorted ascending (stably); packed_s, pos_s:
-    int32 packed words and genome positions in the same row order.
+    """K2.  key_s: int64 keys, equal keys adjacent (sorted, or any runs);
+    packed_s, pos_s: int32 packed words and genome positions in the same row
+    order.
 
-    Returns (junction_s bool [n], first_s int32 [n]) in sorted order."""
+    Returns (junction_s bool [n], first_s int32 [n]) in row order."""
     kind = _route(key_s, packed_s, pos_s)
     n = key_s.shape[0]
     _require(key_s, torch.int64, n, "key_s")
@@ -178,31 +184,18 @@ def class_analysis(key_s: torch.Tensor, packed_s: torch.Tensor, pos_s: torch.Ten
     if kind == "cpu":
         return class_analysis_plain(key_s, packed_s, pos_s)
     dev = key_s.device
-    lib = cudabuild.load()
-    stream = _stream(dev)
-    start = torch.empty(n, dtype=torch.int32, device=dev)
-    _check(
-        lib.sz_class_mark_starts(_ptr(key_s), n, _ptr(start), stream),
-        "class_analysis mark_starts",
-    )
-    cls_incl = torch.cumsum(start, 0, dtype=torch.int32)
-    cls_or = start.zero_()  # the flags are spent; reuse their memory
-    cls_first = torch.empty(n, dtype=torch.int32, device=dev)
-    _check(
-        lib.sz_class_or(
-            _ptr(key_s), _ptr(packed_s), _ptr(pos_s), _ptr(cls_incl), n,
-            _ptr(cls_or), _ptr(cls_first), stream,
-        ),
-        "class_analysis class_or",
-    )
     junction_s = torch.empty(n, dtype=torch.bool, device=dev)
     first_s = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return junction_s, first_s
+    lib = cudabuild.load()
+    scratch = torch.empty(lib.sz_class_scratch_bytes(n), dtype=torch.uint8, device=dev)
     _check(
-        lib.sz_class_verdict(
-            _ptr(key_s), _ptr(cls_incl), _ptr(cls_or), _ptr(cls_first), n,
-            _ptr(junction_s), _ptr(first_s), stream,
+        lib.sz_class_analysis(
+            _ptr(key_s), _ptr(packed_s), _ptr(pos_s), n,
+            _ptr(junction_s), _ptr(first_s), _ptr(scratch), _stream(dev),
         ),
-        "class_analysis verdict",
+        "class_analysis",
     )
     LAUNCHES["class_analysis"] += 1
     return junction_s, first_s

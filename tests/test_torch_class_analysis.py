@@ -11,7 +11,7 @@ import torch
 from sibeliaz_tpu.graph import construct as jax_construct
 from sibeliaz_tpu_torch.graph import construct, kernels
 
-from torch_cases import class_case
+from torch_cases import CLASS_RUN_KINDS, class_case, class_runs
 
 _core = jax.jit(jax_construct._v7_core_cummax2, static_argnums=(1,))
 
@@ -41,6 +41,53 @@ def test_plain_matches_cummax2(case, k):
     assert np.array_equal(got_j, want_j)
     assert np.array_equal(got_first, want_first)
     assert got_j.any()
+
+
+@pytest.mark.parametrize("rows", [-1, 0, 1])
+def test_port_matches_cummax2_when_the_hot_class_fills_a_tile(rows):
+    """The poly-A/poly-T class (key 0, rows 0..) has exactly T - 1, T and
+    T + 1 rows, T the kernel's tile."""
+    rows += kernels.K2_TILE_ROWS
+    codes = class_case("poly_a_rows", rows=rows, k=15)
+    want_j, want_first, want_idx, _, _ = (
+        np.asarray(x) for x in _core(jnp.asarray(codes), 15)
+    )
+    got_j, got_first, got_pos, _ = port_core(codes, 15)
+    assert np.array_equal(got_pos, want_idx)
+    assert np.array_equal(got_j, want_j)
+    assert np.array_equal(got_first, want_first)
+    hot = got_first == got_first[0]
+    assert hot.sum() == rows and hot[:rows].all() and got_j[:rows].all()
+
+
+def run_oracle(key, packed, pos):
+    """K2 by runs, in numpy: a class is a run of equal adjacent keys."""
+    start = np.ones(len(key), bool)
+    start[1:] = key[1:] != key[:-1]
+    starts = np.flatnonzero(start)
+    valid = key != kernels.INVALID_CANON
+    cls_or = np.bitwise_or.reduceat(np.where(valid, packed & 0x5EF, 0), starts)
+    pop = np.array([bin(v).count("1") for v in range(16)])
+    verdict = ((pop[cls_or & 0xF] > 1) | (pop[(cls_or >> 5) & 0xF] > 1)
+               | ((cls_or >> 10) & 1 > 0))
+    cls = np.cumsum(start) - 1
+    return verdict[cls] & valid, pos[starts][cls]
+
+
+@pytest.mark.parametrize("extra", [1, 2 * kernels.K2_TILE_ROWS + 5])
+@pytest.mark.parametrize("kind", CLASS_RUN_KINDS)
+def test_plain_matches_run_oracle_on_hand_laid_runs(kind, extra):
+    n = kernels.K2_TILE_ROWS + extra
+    key, packed, pos = class_runs(kind, n, kernels.K2_TILE_ROWS)
+    got_j, got_first = kernels.class_analysis(
+        torch.from_numpy(key), torch.from_numpy(packed), torch.from_numpy(pos))
+    want_j, want_first = run_oracle(key, packed, pos)
+    assert np.array_equal(got_j.numpy(), want_j)
+    assert np.array_equal(got_first.numpy(), want_first)
+    if kind in ("tile_edges", "tile_start"):
+        assert want_j.any() and not want_j.all()
+    if kind.startswith("one_run"):
+        assert want_j.all() == (kind == "one_run") and (want_first == pos[0]).all()
 
 
 def test_hot_class_is_one_junction_class():

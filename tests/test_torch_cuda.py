@@ -13,9 +13,10 @@ import torch
 from sibeliaz_tpu_torch.align import device_poa, poa_ref
 from sibeliaz_tpu_torch.align import kernels as align_kernels
 from sibeliaz_tpu_torch.graph import construct, kernels
+from sibeliaz_tpu_torch.utils import cudabuild
 
-from torch_cases import (class_case, codes_with_n_runs, edge_band_round,
-                         poa_case, poa_round, rand_block, spread_slots)
+from torch_cases import (CLASS_RUN_KINDS, class_case, class_runs, codes_with_n_runs,
+                         edge_band_round, poa_case, poa_round, rand_block, spread_slots)
 
 pytestmark = pytest.mark.gpu
 
@@ -61,6 +62,53 @@ def test_class_analysis_matches_plain(cuda, case):
     want = kernels.class_analysis_plain(key_s, packed_s, pos_s)
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[1], want[1])
+
+
+def assert_class_analysis_matches_plain(key_s, packed_s, pos_s):
+    """K2 twice in a row on the same rows (the tile counter and status words
+    are reset per call), each equal to the plain version."""
+    want = kernels.class_analysis_plain(key_s, packed_s, pos_s)
+    for _ in range(2):
+        got = kernels.class_analysis(key_s, packed_s, pos_s)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+
+
+def run_rows(kind, n, tile, device):
+    return [torch.from_numpy(a).to(device) for a in class_runs(kind, n, tile)]
+
+
+T = kernels.K2_TILE_ROWS
+
+
+@pytest.mark.parametrize("n", [1, T - 1, T, T + 1, 3 * T + 5, 1 << 22])
+@pytest.mark.parametrize("kind", CLASS_RUN_KINDS)
+def test_class_analysis_matches_plain_on_hand_laid_runs(cuda, kind, n):
+    before = kernels.LAUNCHES["class_analysis"]
+    assert_class_analysis_matches_plain(*run_rows(kind, n, T, cuda))
+    assert kernels.LAUNCHES["class_analysis"] == before + 2
+
+
+def test_class_analysis_tile_is_the_kernels(cuda):
+    """The hand-laid runs are laid out by the kernel's own tile."""
+    assert cudabuild.load().sz_class_tile_rows() == T
+
+
+@pytest.mark.parametrize("kind", ["tile_edges", "invalid_middle", "one_run"])
+def test_class_analysis_takes_rows_off_16_byte_alignment(cuda, kind):
+    key, packed, pos = run_rows(kind, 3 * T + 6, T, cuda)
+    assert_class_analysis_matches_plain(key[1:], packed[1:], pos[1:])
+
+
+@pytest.mark.parametrize("rows", [T - 1, T, T + 1])
+def test_class_analysis_when_the_hot_class_fills_a_tile(cuda, rows):
+    codes = class_case("poly_a_rows", rows=rows, k=15)
+    codes2, nmask = upload(codes, cuda)
+    key, packed = kernels.front_half(codes2, nmask, len(codes), 15)
+    key_s, order = torch.sort(key, stable=True)
+    assert int((key_s == 0).sum()) == rows
+    assert_class_analysis_matches_plain(key_s, packed[order], order.to(torch.int32))
 
 
 def test_build_junctions_cuda_matches_cpu(cuda):

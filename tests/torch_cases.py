@@ -20,10 +20,20 @@ def codes_with_n_runs(seed, n, n_runs, n_at_ends=False):
     return codes
 
 
-def class_case(name):
+def class_case(name, rows=None, k=15):
     """Code streams that stress the class analysis: tandem repeats, a
-    poly-A/poly-T class of thousands of rows, N-separated chromosomes."""
+    poly-A/poly-T class of thousands of rows, N-separated chromosomes; and
+    `poly_a_rows`: a poly-A and a poly-T run whose all-A windows of k (key 0,
+    so rows 0.. of the sorted stream) number exactly `rows`."""
     rng = np.random.default_rng(3)
+    if name == "poly_a_rows":
+        a = rows // 2 + k - 1  # a run of L gives L - k + 1 windows
+        t = rows - rows // 2 + k - 1
+        flanks = [rng.integers(0, 4, size=400).astype(np.uint8) for _ in range(3)]
+        for f in flanks:  # no flank base next to a run extends it
+            f[[0, -1]] = 1
+        return np.concatenate([flanks[0], np.zeros(a, np.uint8), flanks[1],
+                               np.full(t, 3, np.uint8), flanks[2]])
     if name == "repeat_heavy":
         unit = rng.integers(0, 4, size=40).astype(np.uint8)
         rc = (3 - unit)[::-1]
@@ -46,6 +56,77 @@ def class_case(name):
         parts += [chrom, np.full(1, BAD_CODE, np.uint8)]
     shared = parts[0][:200].copy()
     return np.concatenate(parts + [shared])
+
+
+INVALID_CANON = 1 << 62  # kernels.INVALID_CANON
+CLASS_RUN_KINDS = ("tile_edges", "tile_start", "invalid_middle", "one_run",
+                   "one_run_plain", "all_distinct", "geometric")
+
+
+def _run_lengths(kind, n, tile, rng):
+    if kind == "one_run" or kind == "one_run_plain":
+        return np.array([n])
+    if kind == "all_distinct":
+        return np.ones(n, np.int64)
+    if kind == "geometric":  # heavy-tailed: mostly short, some of many tiles
+        lengths = np.minimum(rng.zipf(1.4, size=n), 5 * tile)
+    else:
+        cycle = {
+            "tile_edges": [tile - 1, tile, tile + 1, 2 * tile + 1, 1, 2],
+            # every second boundary falls exactly on a tile start
+            "tile_start": [tile, 2 * tile, tile - 5, 5, 3 * tile + 1, tile - 1],
+            "invalid_middle": [3, tile + 7, 1, 2 * tile, 40, tile - 1],
+        }[kind]
+        lengths = np.resize(np.array(cycle), n // sum(cycle) * len(cycle) + len(cycle))
+    ends = np.cumsum(lengths)
+    cut = int(np.searchsorted(ends, n)) + 1
+    lengths = lengths[:cut].copy()
+    lengths[-1] -= int(ends[cut - 1]) - n
+    return lengths[lengths > 0]
+
+
+def class_runs(kind, n, tile, seed=0):
+    """Hand-laid rows for K2, given as runs of equal keys (its classes), laid
+    out against a tile of `tile` rows: runs of tile - 1, tile, tile + 1 and
+    2 tile + 1 rows (`tile_edges`); runs that start exactly at tile starts
+    (`tile_start`); invalid-key runs between valid ones (`invalid_middle`:
+    the keys are then no longer sorted, only adjacent); the whole input as
+    one run, a junction by its last row (`one_run`) or no junction
+    (`one_run_plain`); every row distinct; heavy-tailed lengths.  Keys grow
+    by 1, by 2^32 (equal low words) or by a random step; packed words carry
+    one right and one left extension each, the run's own or, in every
+    other run, random ones (so the first run is a junction), rare boundary
+    bits, and random bits the verdict ignores.
+
+    Returns (key int64, packed int32, pos int32) numpy arrays of n rows."""
+    rng = np.random.default_rng([seed, CLASS_RUN_KINDS.index(kind), n, tile])
+    lengths = _run_lengths(kind, n, tile, rng)
+    runs = len(lengths)
+    steps = rng.choice(np.array([1, 1 << 32, 0]), size=runs)
+    steps[steps == 0] = rng.integers(1, 1 << 30, size=int((steps == 0).sum()))
+    run_key = np.cumsum(steps).astype(np.int64)
+    if kind == "invalid_middle":
+        run_key[2::3] = INVALID_CANON
+    key = np.repeat(run_key, lengths)
+    # each run's extensions, and how often its rows take random ones
+    right = np.repeat(rng.integers(0, 5, size=runs), lengths)
+    left = np.repeat(rng.integers(0, 5, size=runs), lengths)
+    mixed = np.repeat(np.resize(np.array([0.5, 0.0, 0.01, 0.0]), runs), lengths)
+    if kind in ("one_run", "one_run_plain"):
+        mixed[:] = 0.0
+    odd = rng.random(n) < mixed
+    right[odd] = rng.integers(0, 5, size=int(odd.sum()))
+    left[odd] = rng.integers(0, 5, size=int(odd.sum()))
+    if kind == "one_run":  # the verdict turns at the class's last row
+        right[:] = right[0] % 4
+        right[-1] = (right[0] + 1) % 4
+    packed = (1 << right) | (1 << (left + 5))
+    if kind not in ("one_run", "one_run_plain"):
+        packed |= (rng.random(n) < 2e-4).astype(np.int64) << 10
+    packed |= rng.integers(0, 2, size=n) << 11  # orientation
+    packed |= (rng.random(n) < 0.1) * (rng.integers(0, 1 << 19, size=n) << 12)
+    pos = rng.integers(0, 1 << 31, size=n)
+    return key, packed.astype(np.int32), pos.astype(np.int32)
 
 
 ACGT = np.frombuffer(b"ACGT", np.uint8)
