@@ -4,6 +4,7 @@
     python3 chip_smoke.py --k3-replay DIR    # K3's development loop, see k3_replay
     python3 chip_smoke.py --k3-time KINDS    # K3's wrapper alone, see k3_time
     python3 chip_smoke.py --k2-time          # K2's wrapper alone, see k2_vs_plain
+    python3 chip_smoke.py --k1-time          # K1's wrapper alone, see k1_vs_plain
 
 Phases, in order; any failure raises and the exit code is non-zero:
   1. device: the card's name and power limit, and the peak rates the
@@ -12,8 +13,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
      shared-memory and spill report) and the native LCB and POA engines;
   3. kernels: K1 front_half and K2 class_analysis against their plain
      PyTorch versions on the card, exact, with CUDA-event times beside the
-     plain versions', the sort's and each kernel's roofline bound; K2 on
-     five full-size row sets (k=25 random, poly-A stress, one class, all
+     plain versions', the sort's and each kernel's roofline bound; K1 on
+     six full-size input sets (2^24 random positions at k=15, 25 and 31, the
+     strains workload's positions, an N every other position, random bytes
+     as codes), K2 on five full-size row sets (k=25 random, poly-A stress, one class, all
      distinct, the strains workload's own rows), launched twice in a row;
   4. POA kernel: K3 poa_dp_tb against its plain version on eight seeded
      buckets (unbanded, banded, tie-heavy, a far predecessor, seven
@@ -168,8 +171,9 @@ def bench_strains(alphabet, fasta):
 # complement its complement with the bit pairs reversed (two bit reversals,
 # a pair swap and a shift, 10), the canonical choice a 64-bit compare and
 # select (4), validity a funnel shift and a population count of the validity
-# map (4), the extension and boundary bits 4.  front_half.cu instead builds
-# both codes in a loop of k steps; that is its cost, not the function's.
+# map (4), the extension and boundary bits 4.  This is the function's need,
+# not the kernel's instruction count: front_half.cu takes each window that
+# way, with no step per base, plus the staging and masking it needs.
 K1_OPS_PER_POSITION = 30
 
 
@@ -180,43 +184,115 @@ def bound_ms(nbytes, ops, peak_ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare_kernels(torch, dev, alphabet, construct, kernels, peak_ops):
-    """Phase 3's K1 part at 2^24 positions: K1 equal to its plain version;
-    returns (K1 max abs error, {name: (ms, plain ms, bound ms, bound by)}).
-    K1's bound: the packed codes and the validity map in, an int64 key and
-    an int32 packed word out per position, against the K1_OPS_PER_POSITION
-    32-bit operations the function needs at any k."""
+@functools.lru_cache(maxsize=1)
+def strains_codes(alphabet, fasta):
+    """The strains workload's chromosomes joined with one N, encoded: the
+    positions the graph stage takes on the timed pass (16,000,015)."""
+    sep = np.array([ord("N")], np.uint8)
+    return alphabet.encode(np.concatenate(
+        [x for r in bench_strains(alphabet, fasta) for x in (r.seq, sep)][:-1]))
+
+
+def k1_sets(torch, dev, alphabet, construct, fasta):
+    """K1's input sets, each at full size: 2^24 random positions with 2,000
+    N runs at k = 15, 25 and 31; the strains workload's joined positions at
+    k=15; an N every other position (k=25); random bytes as codes2 (code
+    bits set under N) over the k=25 set's validity map.  {label: (codes2,
+    nmask, n, k)} on the card."""
     n = 1 << 24
     rng = np.random.default_rng(1)
-    k1_err, times = 0, {}
+
+    def up(codes):
+        pk_h, nm_h = construct.pack_codes_host(codes)
+        return torch.from_numpy(pk_h).to(dev), torch.from_numpy(nm_h).to(dev)
+
+    sets = {}
     for k in (15, 25, 31):
         codes = rng.integers(0, 4, size=n).astype(np.uint8)
         for lo in rng.integers(0, n, size=2000):
             codes[lo : lo + int(rng.integers(1, 500))] = alphabet.BAD_CODE
-        pk_h, nm_h = construct.pack_codes_host(codes)
-        codes2 = torch.from_numpy(pk_h).to(dev)
-        nmask = torch.from_numpy(nm_h).to(dev)
-        key, packed = kernels.front_half(codes2, nmask, n, k)
-        torch.cuda.synchronize()
-        key_p, packed_p = kernels.front_half_plain(codes2, nmask, n, k)
-        torch.cuda.synchronize()
-        err = max(int((key - key_p).abs().max()), int((packed - packed_p).abs().max()))
-        k1_err = max(k1_err, err)
-        check(err == 0, f"front_half differs from its plain version at k={k}")
+        sets[f"k={k} random"] = (*up(codes), n, k)
+    joined = strains_codes(alphabet, fasta)
+    sets["strains k=15"] = (*up(joined), len(joined), 15)
+    dense = rng.integers(0, 4, size=n).astype(np.uint8)
+    dense[1::2] = alphabet.BAD_CODE
+    sets["N every other k=25"] = (*up(dense), n, 25)
+    garbage = torch.from_numpy(rng.integers(0, 256, size=n // 4).astype(np.uint8)).to(dev)
+    sets["random bytes k=25"] = (garbage, sets["k=25 random"][1], n, 25)
+    return sets
+
+
+def k1_vs_plain(torch, kernels, sets, peak_ops):
+    """K1 against its plain version on each input set, launched twice in a
+    row, exact, with its time, the plain version's and its bound (the packed
+    codes and the validity map in, an int64 key and an int32 word out per
+    position, each once, against K1_OPS_PER_POSITION operations).  A copy of
+    this script put into an older checkout times that checkout's kernel on
+    the same inputs.  Returns {label: dict of err, ms, plain_ms, bound_ms,
+    bound_by}."""
+    out = {}
+    for label, (codes2, nmask, n, k) in sets.items():
+        want = kernels.front_half_plain(codes2, nmask, n, k)
+        err = 0
+        for _twice in range(2):
+            got = kernels.front_half(codes2, nmask, n, k)
+            torch.cuda.synchronize()
+            err = max(err, *(int((a - b).abs().max()) for a, b in zip(got, want)))
+        check(err == 0, f"front_half differs from its plain version ({label})")
         ms = cuda_ms(torch, lambda: kernels.front_half(codes2, nmask, n, k), 20)
         plain_ms = cuda_ms(torch, lambda: kernels.front_half_plain(codes2, nmask, n, k), 3)
-        bound, by = bound_ms(codes2.numel() + nmask.numel() + 12 * n,
-                             K1_OPS_PER_POSITION * n, peak_ops)
-        print(f"front_half k={k}: equal | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
-              f"bound {bound:.4f} ms by {by} = {100 * bound / ms:.4f}% of the kernel's time")
-        if k == 25:
-            times["front_half"] = (ms, plain_ms, bound, by)
-            k25 = (key, packed)
+        bound, by = bound_ms(-(-n // 4) + -(-n // 8) + 12 * n, K1_OPS_PER_POSITION * n,
+                             peak_ops)
+        print(f"front_half {label}: equal, {n} positions, "
+              f"{int((want[0] != kernels.INVALID_CANON).sum())} valid windows | "
+              f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | bound {bound:.4f} ms by {by} "
+              f"= {100 * bound / ms:.4f}% of the kernel's time")
+        out[label] = {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": by}
+        del want, got
+    return out
 
-    sort_ms = cuda_ms(torch, lambda: torch.sort(k25[0], stable=True), 10)
+
+def k1_sweep(torch, kernels, cudabuild, sets):
+    """K1 at 2, 4 and 8 positions per thread on each input set, each exact."""
+    lib = cudabuild.load()
+    if not hasattr(lib, "sz_front_half_sweep"):
+        return
+    for label, (codes2, nmask, n, k) in sets.items():
+        want = kernels.front_half_plain(codes2, nmask, n, k)
+        key = torch.empty(n, dtype=torch.int64, device=codes2.device)
+        packed = torch.empty(n, dtype=torch.int32, device=codes2.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        times = []
+        for p in (2, 4, 8):
+            def run():
+                kernels._check(lib.sz_front_half_sweep(
+                    p, codes2.data_ptr(), nmask.data_ptr(), n, k, key.data_ptr(),
+                    packed.data_ptr(), stream), "front_half sweep")
+            run()
+            torch.cuda.synchronize()
+            check(torch.equal(key, want[0]) and torch.equal(packed, want[1]),
+                  f"front_half at {p} positions per thread differs ({label})")
+            times.append(f"{p}: {cuda_ms(torch, run, 20):.4f}")
+        print(f"  sweep {label}: equal at 2 / 4 / 8 positions per thread | ms " +
+              " | ".join(times))
+
+
+def compare_kernels(torch, dev, alphabet, construct, kernels, fasta, peak_ops):
+    """Phase 3's K1 part: K1 equal to its plain version on its six input
+    sets; returns (K1 max abs error, {name: (ms, plain ms, bound ms, bound
+    by)}) with K1 at k=25 on 2^24 random positions and the stable sort of
+    that set's keys."""
+    sets = k1_sets(torch, dev, alphabet, construct, fasta)
+    k1 = k1_vs_plain(torch, kernels, sets, peak_ops)
+    main = k1["k=25 random"]
+    times = {"front_half": (main["ms"], main["plain_ms"], main["bound_ms"], main["bound_by"])}
+    codes2, nmask, n, k = sets["k=25 random"]
+    key = kernels.front_half(codes2, nmask, n, k)[0]
+    sort_ms = cuda_ms(torch, lambda: torch.sort(key, stable=True), 10)
     print(f"torch.sort(stable) of 2^24 int64 keys: {sort_ms:.4f} ms")
     times["sort"] = sort_ms
-    return k1_err, times
+    return max(r["err"] for r in k1.values()), times
 
 
 def sorted_rows(torch, key, packed):
@@ -240,10 +316,7 @@ def k2_row_sets(torch, dev, alphabet, construct, kernels, fasta):
     poly[1000 : 1000 + 1_000_000] = 0  # poly-A: one class of ~10^6 rows
     poly[5_000_000 : 5_000_000 + 100_000] = 1  # poly-C
     poly[9_000_000 : 9_000_000 + 300_000] = alphabet.BAD_CODE
-    strains = bench_strains(alphabet, fasta)
-    sep = np.array([ord("N")], np.uint8)
-    joined = alphabet.encode(np.concatenate(
-        [x for r in strains for x in (r.seq, sep)][:-1]))
+    joined = strains_codes(alphabet, fasta)
 
     def rows_of(c, k):
         pk_h, nm_h = construct.pack_codes_host(c)
@@ -698,13 +771,14 @@ def main(argv):
 
     replay_dir = time_kinds = None
     k2_time = argv == ["--k2-time"]
+    k1_time = argv == ["--k1-time"]
     if argv[:1] == ["--k3-replay"] and len(argv) == 2:
         replay_dir = argv[1]
     elif argv[:1] == ["--k3-time"] and len(argv) == 2:
         time_kinds = argv[1].split(",")
-    elif argv and not k2_time:
+    elif argv and not (k2_time or k1_time):
         print("usage: python3 chip_smoke.py [--k3-replay DIR | --k3-time KIND[,KIND...] | "
-              "--k2-time]", file=sys.stderr)
+              "--k2-time | --k1-time]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is visible", file=sys.stderr)
@@ -740,6 +814,12 @@ def main(argv):
         k3_time(torch, dev, torch_cases, device_poa, poa_ref, align_kernels, time_kinds)
         print(smi)
         return 0
+    if k1_time:
+        sets = k1_sets(torch, dev, alphabet, construct, fasta)
+        k1_vs_plain(torch, kernels, sets, peak_ops)
+        k1_sweep(torch, kernels, cudabuild, sets)
+        print(smi)
+        return 0
     if k2_time:
         k2_vs_plain(torch, kernels, k2_row_sets(torch, dev, alphabet, construct, kernels, fasta),
                     peak_ops)
@@ -767,7 +847,7 @@ def main(argv):
         return 0
 
     phase(f"3 kernels vs plain versions, n = 2^24 {label}")
-    k1_err, times = compare_kernels(torch, dev, alphabet, construct, kernels, peak_ops)
+    k1_err, times = compare_kernels(torch, dev, alphabet, construct, kernels, fasta, peak_ops)
     k2 = k2_vs_plain(torch, kernels, k2_row_sets(torch, dev, alphabet, construct, kernels,
                                                  fasta), peak_ops)
     k2_err = max(r["err"] for r in k2.values())

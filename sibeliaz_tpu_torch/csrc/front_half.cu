@@ -16,14 +16,36 @@
 // Windows past the end read the sequence cyclically, as the rolls of the XLA
 // form do, so bit 11 of an invalid window is the same in both.
 //
-// What bounds it: device memory, about 0.4 B read (2-bit codes plus a 1-bit
-// validity map) and 12 B written per position, while the arithmetic is k
-// shift-or steps on 64-bit words per position. The design: a block stages
-// its 256 positions plus a halo of k + 1 into shared memory as one byte each
-// (code | definite << 2), so each packed input byte is read once per block;
-// each thread then walks its own window out of shared memory. The TPU
-// kernel's (hi, lo) int32 split and its sign-flip compare are gone: the GPU
-// has native 64-bit integers.
+// What bounds it: device memory. The function needs 12.375 B per position,
+// each byte once: 0.25 B of 2-bit codes and 0.125 B of validity map in, an
+// int64 key and an int32 word out; about 30 32-bit operations per position
+// at any k are far below the card's rate for those bytes. The design keeps
+// every per-position step independent of k:
+//   1. A block owns a tile of kTile positions. It stages the tile's codes and
+//      validity bits, with a halo of kHalo positions on each side, into shared
+//      memory as words of 32 positions: one 8-byte load of codes and one
+//      4-byte load of validity map per word, each input byte read once per
+//      block, and code bits under positions that are not definite zeroed
+//      there (a hand-made codes2 may carry any bits under an N).
+//   2. A window is bits [2p, 2p + 2k) of that stream, the first base lowest:
+//      one funnel shift over two 64-bit words. rc is its complement; fwd is
+//      its bit-pair reversal (__brevll, then a swap inside each pair) shifted
+//      down to 2k bits. Validity of the windows at p - 1, p and p + 1 comes
+//      from one funnel shift of k + 2 validity bits and three compares; the
+//      extension codes at p - 1 and p + k are read on their own.
+//   3. A warp owns 32 x kPositions consecutive positions, each lane two
+//      neighbouring positions a step: keys go out as 16-byte stores, lane by
+//      lane; the packed words go through a per-warp buffer in shared memory
+//      and out as 16-byte stores, lane by lane.
+//   4. The first tile and the tiles at the end, whose halo or windows would
+//      reach before 0 or past n, stage position by position, reading
+//      cyclically (warp ballots assemble the words), and store with bounds
+//      checks. No load reads past ceil(n/4) bytes of codes2 or ceil(n/8) of
+//      nmask.
+//   5. Inputs whose pointers are off 8- (codes2) or 4-byte (nmask) alignment
+//      (views at a storage offset) take an instance with byte loads.
+// A second 64-bit limb (33 <= k <= 61) is one more funnel shift at bit
+// 2p + 62 and a wider halo; only k <= 31 is instantiated and accepted.
 
 #include <cstdint>
 
@@ -31,78 +53,204 @@
 
 namespace {
 
-constexpr int kBlock = 256;
+typedef unsigned long long u64;
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPositions = 4;                 // positions per thread
 constexpr int kMaxK = 31;
+constexpr int kHalo = 32;                     // staged positions on each side: >= kMaxK + 1
 constexpr int kNoExt = 4;
 constexpr long long kInvalidCanon = 1LL << 62;
+constexpr u64 kLowBits = 0x5555555555555555ull;  // the low bit of every pair
 
-__global__ void front_half_kernel(const uint8_t* __restrict__ codes2,
-                                  const uint8_t* __restrict__ nmask,
-                                  long long n, int k,
-                                  long long* __restrict__ key,
-                                  int32_t* __restrict__ packed) {
-  // s[j] describes position b0 - 1 + j: bits 0-1 code (0 where not
-  // definite), bit 2 definite.
-  __shared__ uint8_t s[kBlock + kMaxK + 1];
-  const long long b0 = static_cast<long long>(blockIdx.x) * kBlock;
-  const int span = kBlock + k + 1;
-  for (int j = threadIdx.x; j < span; j += kBlock) {
-    long long q = b0 - 1 + j;
-    if (q < 0 || q >= n) q = ((q % n) + n) % n;
-    const int c = (codes2[q >> 2] >> ((q & 3) * 2)) & 3;
-    const int d = (nmask[q >> 3] >> (q & 7)) & 1;
-    s[j] = d ? static_cast<uint8_t>(c | 4) : 0;
-  }
-  __syncthreads();
+// bit i of x to bit 2i
+__device__ __forceinline__ u64 spread(uint32_t x) {
+  u64 v = x;
+  v = (v | (v << 16)) & 0x0000FFFF0000FFFFull;
+  v = (v | (v << 8)) & 0x00FF00FF00FF00FFull;
+  v = (v | (v << 4)) & 0x0F0F0F0F0F0F0F0Full;
+  v = (v | (v << 2)) & 0x3333333333333333ull;
+  return (v | (v << 1)) & kLowBits;
+}
 
-  const long long p = b0 + threadIdx.x;
-  if (p >= n) return;
-  const uint8_t* w = s + threadIdx.x + 1;  // w[i] is position p + i
+// The 64 bits of the staged stream from bit `off` on (a funnel shift).
+__device__ __forceinline__ u64 bits_at(const u64* words, int off) {
+  const int i = off >> 6, s = off & 63;
+  return (words[i] >> s) | ((words[i + 1] << 1) << (63 - s));
+}
 
-  unsigned long long fwd = 0, rc = 0;
-  bool inner = true;  // positions p+1 .. p+k-2 are all definite
-  for (int i = 0; i < k; ++i) {
-    const unsigned long long c = w[i] & 3;
-    fwd = (fwd << 2) | c;
-    rc |= (3ull - c) << (2 * i);
-    if (i >= 1 && i <= k - 2) inner = inner && (w[i] & 4);
-  }
-  const bool d_prev = w[-1] & 4, d_first = w[0] & 4;
-  const bool d_last = w[k - 1] & 4, d_next = w[k] & 4;
-  const bool valid = d_first && inner && d_last && p + k <= n;
-  const bool prev_valid =
-      p >= 1 && d_prev && d_first && inner && p - 1 + k <= n;
-  const bool next_valid = inner && d_last && d_next && p + 1 + k <= n;
+// The 2-bit pairs of x in reverse order: pair i to pair 31 - i.
+__device__ __forceinline__ u64 pair_reverse(u64 x) {
+  const u64 r = __brevll(x);
+  return ((r >> 1) & kLowBits) | ((r & kLowBits) << 1);
+}
+
+template <bool VEC>
+__device__ __forceinline__ u64 load_u64(const uint8_t* p, long long word) {
+  if (VEC) return __ldg(reinterpret_cast<const u64*>(p) + word);
+  u64 v = 0;
+  for (int b = 0; b < 8; ++b) v |= static_cast<u64>(__ldg(p + 8 * word + b)) << (8 * b);
+  return v;
+}
+
+template <bool VEC>
+__device__ __forceinline__ uint32_t load_u32(const uint8_t* p, long long word) {
+  if (VEC) return __ldg(reinterpret_cast<const uint32_t*>(p) + word);
+  uint32_t v = 0;
+  for (int b = 0; b < 4; ++b) v |= static_cast<uint32_t>(__ldg(p + 4 * word + b)) << (8 * b);
+  return v;
+}
+
+struct Out {
+  long long key;
+  int32_t word;
+};
+
+// The key and packed word of position p, at tile-local offset lp of the
+// staged words (cw: codes of 32 positions, 0 where not definite; vw: their
+// validity bits).
+__device__ __forceinline__ Out position(const u64* cw, const uint32_t* vw, int lp,
+                                        long long p, long long n, int k) {
+  const u64 m2k = (1ull << (2 * k)) - 1;
+  const u64 win = bits_at(cw, 2 * lp) & m2k;  // sum of c_i 4^i
+  const u64 rc = ~win & m2k;
+  const u64 fwd = pair_reverse(win) >> (64 - 2 * k);
+
+  // validity of positions p - 1 .. p + k, lowest bit first
+  const int lq = lp - 1;
+  const u64 v = (vw[lq >> 5] | (static_cast<u64>(vw[(lq >> 5) + 1]) << 32)) >> (lq & 31);
+  const u64 mk = (1ull << k) - 1;
+  const bool valid = ((v >> 1) & mk) == mk && p + k <= n;
+  const bool prev_valid = (v & mk) == mk && p >= 1 && p - 1 + k <= n;
+  const bool next_valid = ((v >> 2) & mk) == mk && p + 1 + k <= n;
   const bool boundary = valid && !(prev_valid && next_valid);
 
   const bool positive = fwd < rc;
-  const bool nxt_ok = d_next && p + k < n;
-  const bool prv_ok = d_prev && p >= 1;
-  const int nxt = w[k] & 3, prv = w[-1] & 3;
-  const int right = positive ? (nxt_ok ? nxt : kNoExt)
-                             : (prv_ok ? 3 - prv : kNoExt);
-  const int left = positive ? (prv_ok ? prv : kNoExt)
-                            : (nxt_ok ? 3 - nxt : kNoExt);
+  const bool nxt_ok = ((v >> (k + 1)) & 1) && p + k < n;
+  const bool prv_ok = (v & 1) && p >= 1;
+  const int nxt = (cw[(lp + k) >> 5] >> (2 * ((lp + k) & 31))) & 3;
+  const int prv = (cw[lq >> 5] >> (2 * (lq & 31))) & 3;
+  const int right = positive ? (nxt_ok ? nxt : kNoExt) : (prv_ok ? 3 - prv : kNoExt);
+  const int left = positive ? (prv_ok ? prv : kNoExt) : (nxt_ok ? 3 - nxt : kNoExt);
+  Out o;
+  o.word = (1 << right) | (1 << (left + 5)) | (int(boundary) << 10) | (int(positive) << 11);
+  o.key = valid ? static_cast<long long>(positive ? fwd : rc) : kInvalidCanon;
+  return o;
+}
 
-  packed[p] = (1 << right) | (1 << (left + 5)) | (int(boundary) << 10) |
-              (int(positive) << 11);
-  key[p] = valid ? static_cast<long long>(fwd < rc ? fwd : rc)
-                 : kInvalidCanon;
+template <int P, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+front_half_kernel(const uint8_t* __restrict__ codes2, const uint8_t* __restrict__ nmask,
+                  long long n, int k, long long* __restrict__ key,
+                  int32_t* __restrict__ packed) {
+  constexpr int kTile = kThreads * P;
+  constexpr int kSpan = kTile + 2 * kHalo;
+  constexpr int kWords = kSpan / 32;
+  // word j: positions base + 32 j .. + 31
+  __shared__ u64 cw[kWords];
+  __shared__ uint32_t vw[kWords];
+  __shared__ __align__(16) int2 wbuf[kWarps][16 * P];  // a warp's packed words, two a lane a step
+
+  const long long b0 = static_cast<long long>(blockIdx.x) * kTile;
+  const long long base = b0 - kHalo;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (base >= 0 && b0 + kTile + kHalo <= n) {
+    if (tid < kWords) {
+      const long long w = base / 32 + tid;
+      const uint32_t d = load_u32<VEC>(nmask, w);
+      cw[tid] = load_u64<VEC>(codes2, w) & (spread(d) * 3);
+      vw[tid] = d;
+    }
+  } else {
+    // whole warps: kSpan is a multiple of 32
+    for (int j = tid; j < kSpan; j += kThreads) {
+      long long q = (base + j) % n;
+      if (q < 0) q += n;
+      const int d = (nmask[q >> 3] >> (q & 7)) & 1;
+      const int c = d ? (codes2[q >> 2] >> ((q & 3) * 2)) & 3 : 0;
+      const uint32_t bd = __ballot_sync(~0u, d);
+      const uint32_t lo = __ballot_sync(~0u, c & 1);
+      const uint32_t hi = __ballot_sync(~0u, c >> 1);
+      if (lane == 0) {
+        cw[j >> 5] = spread(lo) | (spread(hi) << 1);
+        vw[j >> 5] = bd;
+      }
+    }
+  }
+  __syncthreads();
+
+  const int region = warp * 32 * P;  // tile-local first position of this warp
+  if (b0 + kTile <= n) {
+    for (int s = 0; s < P / 2; ++s) {
+      const int lp = region + 2 * (s * 32 + lane);
+      const Out a = position(cw, vw, kHalo + lp, b0 + lp, n, k);
+      const Out b = position(cw, vw, kHalo + lp + 1, b0 + lp + 1, n, k);
+      *reinterpret_cast<longlong2*>(key + b0 + lp) = make_longlong2(a.key, b.key);
+      wbuf[warp][s * 32 + lane] = make_int2(a.word, b.word);
+    }
+    __syncwarp();
+    const int4* w4 = reinterpret_cast<const int4*>(wbuf[warp]);
+    int4* out = reinterpret_cast<int4*>(packed + b0 + region);
+    for (int c = lane; c < 8 * P; c += 32) out[c] = w4[c];
+  } else {
+    for (int s = 0; s < P / 2; ++s) {
+      for (int e = 0; e < 2; ++e) {
+        const int lp = region + 2 * (s * 32 + lane) + e;
+        const long long p = b0 + lp;
+        if (p >= n) continue;
+        const Out o = position(cw, vw, kHalo + lp, p, n, k);
+        key[p] = o.key;
+        packed[p] = o.word;
+      }
+    }
+  }
+}
+
+template <int P>
+int launch(const void* codes2, const void* nmask, long long n, int k, void* key,
+           void* packed, void* stream) {
+  if (n <= 0) return 0;
+  if (k < 1 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kTile = kThreads * P;
+  const auto grid = static_cast<unsigned>((n + kTile - 1) / kTile);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* c = static_cast<const uint8_t*>(codes2);
+  const auto* m = static_cast<const uint8_t*>(nmask);
+  auto* kk = static_cast<long long*>(key);
+  auto* pk = static_cast<int32_t*>(packed);
+  const bool vec = ((reinterpret_cast<uintptr_t>(codes2) & 7) |
+                    (reinterpret_cast<uintptr_t>(nmask) & 3)) == 0;
+  if (vec) {
+    front_half_kernel<P, true><<<grid, kThreads, 0, s>>>(c, m, n, k, kk, pk);
+  } else {
+    front_half_kernel<P, false><<<grid, kThreads, 0, s>>>(c, m, n, k, kk, pk);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Positions per tile: the card's tests lay their N runs out by it.
+extern "C" int sz_front_half_tile_positions() { return kThreads * kPositions; }
+
 // codes2: ceil(n/4) bytes of 2-bit codes, four per byte, low bits first;
-// nmask: ceil(n/8) bytes of definiteness, eight per byte, low bit first;
-// key: n int64; packed: n int32. 1 <= k <= 31. Returns cudaGetLastError().
-extern "C" int sz_front_half(const void* codes2, const void* nmask,
-                             long long n, int k, void* key, void* packed,
-                             void* stream) {
-  if (n <= 0) return 0;
-  const long long blocks = (n + kBlock - 1) / kBlock;
-  front_half_kernel<<<static_cast<unsigned>(blocks), kBlock, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(codes2), static_cast<const uint8_t*>(nmask),
-      n, k, static_cast<long long*>(key), static_cast<int32_t*>(packed));
-  return static_cast<int>(cudaGetLastError());
+// nmask: ceil(n/8) bytes of definiteness, eight per byte, low bit first (any
+// alignment); key: n int64 and packed: n int32, both 16-byte aligned.
+// 1 <= k <= 31. Returns cudaGetLastError().
+extern "C" int sz_front_half(const void* codes2, const void* nmask, long long n, int k,
+                             void* key, void* packed, void* stream) {
+  return launch<kPositions>(codes2, nmask, n, k, key, packed, stream);
+}
+
+// The same at 2, 4 or 8 positions per thread, for the sweep.
+extern "C" int sz_front_half_sweep(int positions, const void* codes2, const void* nmask,
+                                   long long n, int k, void* key, void* packed,
+                                   void* stream) {
+  switch (positions) {
+    case 2: return launch<2>(codes2, nmask, n, k, key, packed, stream);
+    case 4: return launch<4>(codes2, nmask, n, k, key, packed, stream);
+    case 8: return launch<8>(codes2, nmask, n, k, key, packed, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

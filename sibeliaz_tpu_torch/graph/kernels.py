@@ -1,7 +1,9 @@
 """The graph stage's two hand-written CUDA kernels and their plain versions.
 
 K1 `front_half` (csrc/front_half.cu) turns the packed 2-bit upload into a
-canonical k-mer key and a packed extension word per position.  K2
+canonical k-mer key and a packed extension word per position, one tile of
+K1_TILE_POSITIONS positions a thread block, each window taken whole from
+the packed stream.  K2
 `class_analysis` (csrc/class_analysis.cu) turns the key-sorted rows into a
 junction verdict and a class-first position per row, in one pass over
 tiles of K2_TILE_ROWS rows with a decoupled look-back.
@@ -66,6 +68,11 @@ def _check(status: int, what: str) -> None:
 
 
 # ---- K1: front half -------------------------------------------------------
+
+# Positions per tile of the kernel (csrc/front_half.cu,
+# sz_front_half_tile_positions): the tests lay their N runs out by it, and
+# the card's check it.
+K1_TILE_POSITIONS = 1024
 
 
 def front_half_plain(codes2: torch.Tensor, nmask: torch.Tensor, n: int, k: int):

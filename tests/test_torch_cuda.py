@@ -15,8 +15,9 @@ from sibeliaz_tpu_torch.align import kernels as align_kernels
 from sibeliaz_tpu_torch.graph import construct, kernels
 from sibeliaz_tpu_torch.utils import cudabuild
 
-from torch_cases import (CLASS_RUN_KINDS, class_case, class_runs, codes_with_n_runs,
-                         edge_band_round, poa_case, poa_round, rand_block, spread_slots)
+from torch_cases import (CLASS_RUN_KINDS, K1_KINDS, class_case, class_runs,
+                         codes_with_n_runs, edge_band_round, k1_case, poa_case, poa_round,
+                         rand_block, spread_slots)
 
 pytestmark = pytest.mark.gpu
 
@@ -46,6 +47,53 @@ def test_front_half_matches_plain(cuda, k, n):
     want_key, want_packed = kernels.front_half_plain(codes2, nmask, n, k)
     assert torch.equal(key, want_key)
     assert torch.equal(packed, want_packed)
+
+
+def assert_front_half_matches_plain(codes2, nmask, n, k):
+    """K1 twice in a row on the same inputs, each equal to the plain
+    version."""
+    want = kernels.front_half_plain(codes2, nmask, n, k)
+    before = kernels.LAUNCHES["front_half"]
+    for _ in range(2):
+        key, packed = kernels.front_half(codes2, nmask, n, k)
+        torch.cuda.synchronize()
+        assert torch.equal(key, want[0])
+        assert torch.equal(packed, want[1])
+    assert kernels.LAUNCHES["front_half"] == before + 2
+
+
+T1 = kernels.K1_TILE_POSITIONS
+
+
+@pytest.mark.parametrize("k,n", sorted({
+    (k, n) for k in (1, 2, 16, 31)
+    for n in (1, k - 1, k, k + 1, T1 - 1, T1, T1 + 1, 3 * T1 + 5, (1 << 22) + 3) if n >= 1}))
+def test_front_half_at_tile_edges_and_tiny_n(cuda, k, n):
+    codes2, nmask = upload(codes_with_n_runs(k + n, n, n // 300, n_at_ends=n > 8), cuda)
+    assert_front_half_matches_plain(codes2, nmask, n, k)
+
+
+@pytest.mark.parametrize("k", [1, 16, 31])
+@pytest.mark.parametrize("kind", K1_KINDS)
+def test_front_half_on_inputs_the_engine_never_makes(cuda, kind, k):
+    n = 5 * T1 + 3
+    codes2, nmask = (torch.from_numpy(a).to(cuda) for a in k1_case(kind, n, T1))
+    assert_front_half_matches_plain(codes2, nmask, n, k)
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("n", [3 * T1 + 5, (1 << 20) + 7])
+def test_front_half_takes_views_off_alignment(cuda, offset, n):
+    """Views at a storage offset: the kernel's byte-load instance."""
+    codes2, nmask = (torch.from_numpy(a).to(cuda) for a in k1_case("random_bytes", n + 64, T1))
+    view2, viewm = codes2[offset:], nmask[offset:]
+    assert view2.data_ptr() % 4 and viewm.data_ptr() % 4
+    assert_front_half_matches_plain(view2, viewm, n, 25)
+
+
+def test_front_half_tile_is_the_kernels(cuda):
+    """The tests lay their N runs out by the kernel's own tile."""
+    assert cudabuild.load().sz_front_half_tile_positions() == T1
 
 
 @pytest.mark.parametrize("case", ["repeat_heavy", "poly_a", "n_separated"])

@@ -14,7 +14,7 @@ from sibeliaz_tpu.graph import construct as jax_construct
 from sibeliaz_tpu.graph import pallas_kernels as pk
 from sibeliaz_tpu_torch.graph import construct, kernels
 
-from torch_cases import codes_with_n_runs
+from torch_cases import K1_KINDS, codes_with_n_runs, k1_case, k1_codes
 
 _prepare_packed = jax.jit(jax_construct._prepare_packed, static_argnums=(1,))
 
@@ -45,6 +45,54 @@ def test_plain_matches_prepare_packed_tiny(n):
     key, got_packed = port_front_half(codes, 31)
     assert np.array_equal(key, np.asarray(keys[0]))
     assert np.array_equal(got_packed, np.asarray(packed))
+
+
+def assert_plain_matches_prepare_packed(codes2, nmask, n, k):
+    (keys, packed, _) = _prepare_packed(jnp.asarray(k1_codes(codes2, nmask, n)), k)
+    key, got_packed = kernels.front_half(torch.from_numpy(codes2), torch.from_numpy(nmask), n, k)
+    assert np.array_equal(key.numpy(), np.asarray(keys[0]))
+    assert np.array_equal(got_packed.numpy(), np.asarray(packed))
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("n_at_ends", [False, True])
+def test_plain_matches_prepare_packed_at_k_1_and_2(k, n_at_ends):
+    """The inner-window test is empty at k <= 2."""
+    codes = codes_with_n_runs(k, 3001, 12, n_at_ends)
+    (keys, packed, _) = _prepare_packed(jnp.asarray(codes), k)
+    key, got_packed = port_front_half(codes, k)
+    assert np.array_equal(key, np.asarray(keys[0]))
+    assert np.array_equal(got_packed, np.asarray(packed))
+
+
+@pytest.mark.parametrize("k,n", [(k, n) for k in (1, 2, 3, 8, 16, 31)
+                                 for n in (k - 1, k, k + 1) if n >= 1])
+def test_plain_matches_prepare_packed_at_window_length(k, n):
+    """n around k: every window wraps or touches an end."""
+    codes2, nmask = k1_case("random_bytes", n, 64, seed=k)
+    assert_plain_matches_prepare_packed(codes2, nmask, n, k)
+
+
+@pytest.mark.parametrize("k", [2, 15, 31])
+@pytest.mark.parametrize("kind", K1_KINDS)
+def test_plain_matches_prepare_packed_on_k1_cases(kind, k):
+    """Inputs the engine never makes: N runs on tile edges, all N, no N,
+    an N every other position, code bits set under N, garbage past n."""
+    n = 3 * kernels.K1_TILE_POSITIONS + 5
+    assert_plain_matches_prepare_packed(*k1_case(kind, n, kernels.K1_TILE_POSITIONS), n, k)
+
+
+@pytest.mark.parametrize("k", [1, 15, 31])
+@pytest.mark.parametrize("kind", ["random_bytes", "long_tail"])
+def test_plain_ignores_code_bits_under_n(kind, k):
+    n = 2000 + k
+    codes2, nmask = k1_case(kind, n, kernels.K1_TILE_POSITIONS)
+    codes = k1_codes(codes2, nmask, n)
+    clean = construct.pack_codes_host(codes)[0]  # zero code bits under N
+    assert not np.array_equal(clean, codes2[: len(clean)])
+    got = kernels.front_half(torch.from_numpy(codes2), torch.from_numpy(nmask), n, k)
+    want = kernels.front_half(torch.from_numpy(clean), torch.from_numpy(nmask), n, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("k", [15, 31])

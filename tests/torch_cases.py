@@ -58,6 +58,64 @@ def class_case(name, rows=None, k=15):
     return np.concatenate(parts + [shared])
 
 
+K1_KINDS = ("tile_edge_runs", "all_n", "no_n", "n_every_other", "random_bytes",
+            "long_tail")
+
+
+def k1_case(kind, n, tile, seed=0):
+    """K1's raw inputs as its signature allows them, not only as
+    pack_codes_host makes them: N runs laid against a tile of `tile`
+    positions (a whole tile of N from one edge to the next, runs of 33 that
+    end or start at an edge: `tile_edge_runs`); no definite position; no N;
+    an N every other position; random bytes as codes2 with N runs, so that
+    code bits are set under indefinite positions (`random_bytes`); the same
+    with codes2 and nmask longer than needed and garbage in the tail
+    (`long_tail`).  The validity bits past n are always random.
+
+    Returns (codes2, nmask) uint8 numpy arrays: >= ceil(n/4) and ceil(n/8)
+    bytes."""
+    rng = np.random.default_rng([seed, K1_KINDS.index(kind), n, tile])
+    size = -(-n // 8) * 8
+    definite = rng.random(size) < 0.5  # the part past n is garbage
+    definite[:n] = True
+    if kind == "tile_edge_runs":
+        for m, edge in enumerate(range(tile, n, tile)):
+            if m % 3 == 0:
+                definite[edge : min(n, edge + tile)] = False
+            elif m % 3 == 1:
+                definite[edge - 33 : edge] = False
+            else:
+                definite[edge : min(n, edge + 33)] = False
+    elif kind == "all_n":
+        definite[:n] = False
+    elif kind == "n_every_other":
+        definite[1:n:2] = False
+    elif kind in ("random_bytes", "long_tail"):
+        for _ in range(max(1, n // 200)):
+            lo = int(rng.integers(0, n))
+            definite[lo : min(n, lo + int(rng.integers(1, 40)))] = False
+    codes = rng.integers(0, 4, size=-(-n // 4) * 4)
+    if kind not in ("random_bytes", "long_tail"):
+        codes[:n][~definite[:n]] = 0  # as pack_codes_host leaves them
+    quads = codes.reshape(-1, 4)
+    codes2 = (quads[:, 0] | (quads[:, 1] << 2) | (quads[:, 2] << 4)
+              | (quads[:, 3] << 6)).astype(np.uint8)
+    nmask = np.packbits(definite, bitorder="little")
+    if kind == "long_tail":
+        codes2 = np.concatenate([codes2, rng.integers(0, 256, size=37).astype(np.uint8)])
+        nmask = np.concatenate([nmask, rng.integers(0, 256, size=19).astype(np.uint8)])
+    return codes2, nmask
+
+
+def k1_codes(codes2, nmask, n):
+    """The per-position codes K1's inputs stand for, BAD_CODE where not
+    definite: the JAX package's front half takes these."""
+    q = np.arange(n)
+    definite = (nmask[q >> 3] >> (q & 7)) & 1
+    code = (codes2[q >> 2] >> ((q & 3) * 2)) & 3
+    return np.where(definite > 0, code, BAD_CODE).astype(np.uint8)
+
+
 INVALID_CANON = 1 << 62  # kernels.INVALID_CANON
 CLASS_RUN_KINDS = ("tile_edges", "tile_start", "invalid_middle", "one_run",
                    "one_run_plain", "all_distinct", "geometric")
