@@ -254,7 +254,9 @@ def k1_vs_plain(torch, kernels, sets, peak_ops):
 
 
 def k1_sweep(torch, kernels, cudabuild, sets):
-    """K1 at 2, 4 and 8 positions per thread on each input set, each exact."""
+    """K1 at 2, 4 and 8 positions per thread and each variant on each input
+    set, each exact; beside it, the outputs' write alone (torch's fill of
+    the key and packed tensors)."""
     lib = cudabuild.load()
     if not hasattr(lib, "sz_front_half_sweep"):
         return
@@ -263,19 +265,22 @@ def k1_sweep(torch, kernels, cudabuild, sets):
         key = torch.empty(n, dtype=torch.int64, device=codes2.device)
         packed = torch.empty(n, dtype=torch.int32, device=codes2.device)
         stream = torch.cuda.current_stream().cuda_stream
+        fill_ms = cuda_ms(torch, lambda: (key.fill_(1), packed.fill_(1)), 20)
         times = []
-        for p in (2, 4, 8):
-            def run():
-                kernels._check(lib.sz_front_half_sweep(
-                    p, codes2.data_ptr(), nmask.data_ptr(), n, k, key.data_ptr(),
-                    packed.data_ptr(), stream), "front_half sweep")
-            run()
-            torch.cuda.synchronize()
-            check(torch.equal(key, want[0]) and torch.equal(packed, want[1]),
-                  f"front_half at {p} positions per thread differs ({label})")
-            times.append(f"{p}: {cuda_ms(torch, run, 20):.4f}")
-        print(f"  sweep {label}: equal at 2 / 4 / 8 positions per thread | ms " +
-              " | ".join(times))
+        for p, v in ((2, 15), (4, 15), (8, 15), (16, 15), (4, 31), (8, 31), (16, 31), (4, 47),
+                     (8, 47), (16, 47)):
+            if True:
+                def run():
+                    kernels._check(lib.sz_front_half_sweep(
+                        p, v, codes2.data_ptr(), nmask.data_ptr(), n, k, key.data_ptr(),
+                        packed.data_ptr(), stream), "front_half sweep")
+                key.fill_(0)
+                run()
+                torch.cuda.synchronize()
+                check(torch.equal(key, want[0]) and torch.equal(packed, want[1]),
+                      f"front_half at {p} positions per thread, variant {v} differs ({label})")
+                times.append(f"P{p}V{v} {cuda_ms(torch, run, 20):.4f}")
+        print(f"  sweep {label}: all equal | fill {fill_ms:.4f} ms | " + " | ".join(times))
 
 
 def compare_kernels(torch, dev, alphabet, construct, kernels, fasta, peak_ops):

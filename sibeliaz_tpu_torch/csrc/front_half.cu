@@ -109,26 +109,39 @@ struct Out {
 
 // The key and packed word of position p, at tile-local offset lp of the
 // staged words (cw: codes of 32 positions, 0 where not definite; vw: their
-// validity bits).
-__device__ __forceinline__ Out position(const u64* cw, const uint32_t* vw, int lp,
-                                        long long p, long long n, int k) {
-  const u64 m2k = (1ull << (2 * k)) - 1;
-  const u64 win = bits_at(cw, 2 * lp) & m2k;  // sum of c_i 4^i
-  const u64 rc = ~win & m2k;
-  const u64 fwd = pair_reverse(win) >> (64 - 2 * k);
-
-  // validity of positions p - 1 .. p + k, lowest bit first
+// validity bits), given its window's fwd and rc codes.
+template <bool EDGE = true, bool WV = false>
+__device__ __forceinline__ Out finish(const u64* cw, const uint32_t* vw, const uint32_t* ww,
+                                      int lp, long long p, long long n, int k, u64 fwd,
+                                      u64 rc) {
   const int lq = lp - 1;
-  const u64 v = (vw[lq >> 5] | (static_cast<u64>(vw[(lq >> 5) + 1]) << 32)) >> (lq & 31);
-  const u64 mk = (1ull << k) - 1;
-  const bool valid = ((v >> 1) & mk) == mk && p + k <= n;
-  const bool prev_valid = (v & mk) == mk && p >= 1 && p - 1 + k <= n;
-  const bool next_valid = ((v >> 2) & mk) == mk && p + 1 + k <= n;
+  bool win_def, prev_def, next_def, d_prev, d_next;
+  if (WV) {
+    // ww: whether the window at each staged position is all definite
+    const uint32_t w3 = __funnelshift_r(ww[lq >> 5], ww[(lq >> 5) + 1], lq & 31);
+    prev_def = w3 & 1;
+    win_def = w3 & 2;
+    next_def = w3 & 4;
+    d_prev = (vw[lq >> 5] >> (lq & 31)) & 1;
+    d_next = (vw[(lp + k) >> 5] >> ((lp + k) & 31)) & 1;
+  } else {
+    // validity of positions p - 1 .. p + k, lowest bit first
+    const u64 v = (vw[lq >> 5] | (static_cast<u64>(vw[(lq >> 5) + 1]) << 32)) >> (lq & 31);
+    const u64 mk = (1ull << k) - 1;
+    win_def = ((v >> 1) & mk) == mk;
+    prev_def = (v & mk) == mk;
+    next_def = ((v >> 2) & mk) == mk;
+    d_prev = v & 1;
+    d_next = (v >> (k + 1)) & 1;
+  }
+  const bool valid = win_def && (!EDGE || p + k <= n);
+  const bool prev_valid = prev_def && (!EDGE || (p >= 1 && p - 1 + k <= n));
+  const bool next_valid = next_def && (!EDGE || p + 1 + k <= n);
   const bool boundary = valid && !(prev_valid && next_valid);
 
   const bool positive = fwd < rc;
-  const bool nxt_ok = ((v >> (k + 1)) & 1) && p + k < n;
-  const bool prv_ok = (v & 1) && p >= 1;
+  const bool nxt_ok = d_next && (!EDGE || p + k < n);
+  const bool prv_ok = d_prev && (!EDGE || p >= 1);
   const int nxt = (cw[(lp + k) >> 5] >> (2 * ((lp + k) & 31))) & 3;
   const int prv = (cw[lq >> 5] >> (2 * (lq & 31))) & 3;
   const int right = positive ? (nxt_ok ? nxt : kNoExt) : (prv_ok ? 3 - prv : kNoExt);
@@ -139,8 +152,83 @@ __device__ __forceinline__ Out position(const u64* cw, const uint32_t* vw, int l
   return o;
 }
 
-template <int P, bool VEC>
-__global__ void __launch_bounds__(kThreads)
+// Bit i: bits i .. i + k - 1 of x all set, for i < 32 (k <= 32).
+__device__ __forceinline__ uint32_t runs_of(u64 x, int k) {
+  u64 res = ~0ull, cur = x;
+  int sh = 0;
+  for (int b = 0; (1 << b) <= k; ++b) {
+    if ((k >> b) & 1) {
+      res &= cur >> sh;
+      sh += 1 << b;
+    }
+    cur &= cur >> (1 << b);
+  }
+  return static_cast<uint32_t>(res);
+}
+
+// The window's codes of position p at tile-local offset lp: (fwd, rc).
+__device__ __forceinline__ void window(const u64* cw, int lp, int k, u64& fwd, u64& rc) {
+  const u64 m2k = (1ull << (2 * k)) - 1;
+  const u64 win = bits_at(cw, 2 * lp) & m2k;  // sum of c_i 4^i
+  rc = ~win & m2k;
+  fwd = pair_reverse(win) >> (64 - 2 * k);
+}
+
+__device__ __forceinline__ Out position(const u64* cw, const uint32_t* vw, int lp,
+                                        long long p, long long n, int k) {
+  u64 fwd, rc;
+  window(cw, lp, k, fwd, rc);
+  return finish(cw, vw, nullptr, lp, p, n, k, fwd, rc);
+}
+
+// A warp's 32 x P positions of a tile that lies inside [0, n): keys stored
+// from registers, packed words through the warp's buffer `wbuf`. EDGE false:
+// every window of the tile and its neighbours' lie inside [0, n).
+template <int P, int V, bool EDGE>
+__device__ __forceinline__ void tile_out(const u64* cw, const uint32_t* vw, const uint32_t* ww,
+                                         long long b0, int region, int lane,
+                                         long long n, int k, long long* __restrict__ key,
+                                         int32_t* __restrict__ packed, int2* wbuf) {
+  for (int s = 0; s < P / 2; ++s) {
+    const int lp = region + 2 * (s * 32 + lane);
+    Out a, b;
+    if (V & 2) {
+      u64 fwd, rc;
+      window(cw, kHalo + lp, k, fwd, rc);
+      a = finish<EDGE, (V & 8) != 0>(cw, vw, ww, kHalo + lp, b0 + lp, n, k, fwd, rc);
+      const int q = kHalo + lp + k;
+      const u64 c = (cw[q >> 5] >> (2 * (q & 31))) & 3;
+      const u64 fwd2 = ((fwd << 2) | c) & ((1ull << (2 * k)) - 1);
+      const u64 rc2 = (rc >> 2) | ((3 - c) << (2 * k - 2));
+      b = finish<EDGE, (V & 8) != 0>(cw, vw, ww, kHalo + lp + 1, b0 + lp + 1, n, k, fwd2, rc2);
+    } else {
+      u64 fwd, rc;
+      window(cw, kHalo + lp, k, fwd, rc);
+      a = finish<EDGE, (V & 8) != 0>(cw, vw, ww, kHalo + lp, b0 + lp, n, k, fwd, rc);
+      window(cw, kHalo + lp + 1, k, fwd, rc);
+      b = finish<EDGE, (V & 8) != 0>(cw, vw, ww, kHalo + lp + 1, b0 + lp + 1, n, k, fwd, rc);
+    }
+    if (V & 1) {
+      __stcs(reinterpret_cast<longlong2*>(key + b0 + lp), make_longlong2(a.key, b.key));
+    } else {
+      *reinterpret_cast<longlong2*>(key + b0 + lp) = make_longlong2(a.key, b.key);
+    }
+    wbuf[s * 32 + lane] = make_int2(a.word, b.word);
+  }
+  __syncwarp();
+  const int4* w4 = reinterpret_cast<const int4*>(wbuf);
+  int4* out = reinterpret_cast<int4*>(packed + b0 + region);
+  for (int c = lane; c < 8 * P; c += 32) {
+    if (V & 1) {
+      __stcs(out + c, w4[c]);
+    } else {
+      out[c] = w4[c];
+    }
+  }
+}
+
+template <int P, bool VEC, int V>
+__global__ void __launch_bounds__(kThreads, (V & 32) ? 8 : (V & 16) ? 6 : 1)
 front_half_kernel(const uint8_t* __restrict__ codes2, const uint8_t* __restrict__ nmask,
                   long long n, int k, long long* __restrict__ key,
                   int32_t* __restrict__ packed) {
@@ -150,12 +238,14 @@ front_half_kernel(const uint8_t* __restrict__ codes2, const uint8_t* __restrict_
   // word j: positions base + 32 j .. + 31
   __shared__ u64 cw[kWords];
   __shared__ uint32_t vw[kWords];
+  __shared__ uint32_t ww[kWords];
   __shared__ __align__(16) int2 wbuf[kWarps][16 * P];  // a warp's packed words, two a lane a step
 
   const long long b0 = static_cast<long long>(blockIdx.x) * kTile;
   const long long base = b0 - kHalo;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (base >= 0 && b0 + kTile + kHalo <= n) {
+  const bool interior = base >= 0 && b0 + kTile + kHalo <= n;
+  if (interior) {
     if (tid < kWords) {
       const long long w = base / 32 + tid;
       const uint32_t d = load_u32<VEC>(nmask, w);
@@ -179,20 +269,20 @@ front_half_kernel(const uint8_t* __restrict__ codes2, const uint8_t* __restrict_
     }
   }
   __syncthreads();
+  if (V & 8) {
+    if (tid < kWords) {
+      ww[tid] = runs_of(vw[tid] | (static_cast<u64>(tid + 1 < kWords ? vw[tid + 1] : 0) << 32), k);
+    }
+    __syncthreads();
+  }
 
   const int region = warp * 32 * P;  // tile-local first position of this warp
   if (b0 + kTile <= n) {
-    for (int s = 0; s < P / 2; ++s) {
-      const int lp = region + 2 * (s * 32 + lane);
-      const Out a = position(cw, vw, kHalo + lp, b0 + lp, n, k);
-      const Out b = position(cw, vw, kHalo + lp + 1, b0 + lp + 1, n, k);
-      *reinterpret_cast<longlong2*>(key + b0 + lp) = make_longlong2(a.key, b.key);
-      wbuf[warp][s * 32 + lane] = make_int2(a.word, b.word);
+    if ((V & 4) && interior) {
+      tile_out<P, V, false>(cw, vw, ww, b0, region, lane, n, k, key, packed, wbuf[warp]);
+    } else {
+      tile_out<P, V, true>(cw, vw, ww, b0, region, lane, n, k, key, packed, wbuf[warp]);
     }
-    __syncwarp();
-    const int4* w4 = reinterpret_cast<const int4*>(wbuf[warp]);
-    int4* out = reinterpret_cast<int4*>(packed + b0 + region);
-    for (int c = lane; c < 8 * P; c += 32) out[c] = w4[c];
   } else {
     for (int s = 0; s < P / 2; ++s) {
       for (int e = 0; e < 2; ++e) {
@@ -207,7 +297,7 @@ front_half_kernel(const uint8_t* __restrict__ codes2, const uint8_t* __restrict_
   }
 }
 
-template <int P>
+template <int P, int V = 0>
 int launch(const void* codes2, const void* nmask, long long n, int k, void* key,
            void* packed, void* stream) {
   if (n <= 0) return 0;
@@ -222,9 +312,9 @@ int launch(const void* codes2, const void* nmask, long long n, int k, void* key,
   const bool vec = ((reinterpret_cast<uintptr_t>(codes2) & 7) |
                     (reinterpret_cast<uintptr_t>(nmask) & 3)) == 0;
   if (vec) {
-    front_half_kernel<P, true><<<grid, kThreads, 0, s>>>(c, m, n, k, kk, pk);
+    front_half_kernel<P, true, V><<<grid, kThreads, 0, s>>>(c, m, n, k, kk, pk);
   } else {
-    front_half_kernel<P, false><<<grid, kThreads, 0, s>>>(c, m, n, k, kk, pk);
+    front_half_kernel<P, false, V><<<grid, kThreads, 0, s>>>(c, m, n, k, kk, pk);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -243,14 +333,19 @@ extern "C" int sz_front_half(const void* codes2, const void* nmask, long long n,
   return launch<kPositions>(codes2, nmask, n, k, key, packed, stream);
 }
 
-// The same at 2, 4 or 8 positions per thread, for the sweep.
-extern "C" int sz_front_half_sweep(int positions, const void* codes2, const void* nmask,
-                                   long long n, int k, void* key, void* packed,
-                                   void* stream) {
-  switch (positions) {
-    case 2: return launch<2>(codes2, nmask, n, k, key, packed, stream);
-    case 4: return launch<4>(codes2, nmask, n, k, key, packed, stream);
-    case 8: return launch<8>(codes2, nmask, n, k, key, packed, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+// The same at P positions per thread and variant V (bit 0: streaming
+// stores; bit 1: the pair's second window slid from the first; bit 2: no
+// edge tests inside tiles that lie inside [0, n); bit 3: window validity
+// staged per position; bit 4 / 5: at least 6 / 8 blocks an SM), for the
+// sweep.
+extern "C" int sz_front_half_sweep(int positions, int variant, const void* codes2,
+                                   const void* nmask, long long n, int k, void* key,
+                                   void* packed, void* stream) {
+#define SZ_K1_CASE(P, V) \
+  if (positions == P && variant == V) return launch<P, V>(codes2, nmask, n, k, key, packed, stream);
+  SZ_K1_CASE(2, 15) SZ_K1_CASE(4, 15) SZ_K1_CASE(8, 15) SZ_K1_CASE(16, 15)
+  SZ_K1_CASE(4, 31) SZ_K1_CASE(8, 31) SZ_K1_CASE(16, 31) SZ_K1_CASE(4, 47) SZ_K1_CASE(8, 47)
+  SZ_K1_CASE(16, 47)
+#undef SZ_K1_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
