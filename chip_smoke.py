@@ -267,8 +267,8 @@ def k1_sweep(torch, kernels, cudabuild, sets):
         stream = torch.cuda.current_stream().cuda_stream
         fill_ms = cuda_ms(torch, lambda: (key.fill_(1), packed.fill_(1)), 20)
         times = []
-        for p, v in ((2, 15), (4, 15), (8, 15), (16, 15), (4, 31), (8, 31), (16, 31), (4, 47),
-                     (8, 47), (16, 47)):
+        for p, v in ((8, 0), (8, 1), (8, 2), (8, 4), (8, 5), (8, 6), (8, 7), (8, 15), (8, 31),
+                     (8, 47), (2, 31), (4, 31), (16, 31)):
             if True:
                 def run():
                     kernels._check(lib.sz_front_half_sweep(

@@ -343,9 +343,9 @@ extern "C" int sz_front_half_sweep(int positions, int variant, const void* codes
                                    void* packed, void* stream) {
 #define SZ_K1_CASE(P, V) \
   if (positions == P && variant == V) return launch<P, V>(codes2, nmask, n, k, key, packed, stream);
-  SZ_K1_CASE(2, 15) SZ_K1_CASE(4, 15) SZ_K1_CASE(8, 15) SZ_K1_CASE(16, 15)
-  SZ_K1_CASE(4, 31) SZ_K1_CASE(8, 31) SZ_K1_CASE(16, 31) SZ_K1_CASE(4, 47) SZ_K1_CASE(8, 47)
-  SZ_K1_CASE(16, 47)
+  SZ_K1_CASE(8, 0) SZ_K1_CASE(8, 1) SZ_K1_CASE(8, 2) SZ_K1_CASE(8, 4) SZ_K1_CASE(8, 5)
+  SZ_K1_CASE(8, 6) SZ_K1_CASE(8, 7) SZ_K1_CASE(8, 15) SZ_K1_CASE(8, 31) SZ_K1_CASE(8, 47)
+  SZ_K1_CASE(2, 31) SZ_K1_CASE(4, 31) SZ_K1_CASE(16, 31)
 #undef SZ_K1_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
