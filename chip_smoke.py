@@ -14,10 +14,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
   3. kernels: K1 front_half and K2 class_analysis against their plain
      PyTorch versions on the card, exact, with CUDA-event times beside the
      plain versions', the sort's and each kernel's roofline bound; K1 on
-     six full-size input sets (2^24 random positions at k=15, 25 and 31, the
-     strains workload's positions, an N every other position, random bytes
-     as codes), K2 on five full-size row sets (k=25 random, poly-A stress, one class, all
-     distinct, the strains workload's own rows), launched twice in a row;
+     six full-size input sets (2^24 random positions at k=15, 25 and 31,
+     the strains workload's positions, an N every other position, random
+     bytes as codes), K2 on five full-size row sets (k=25 random, poly-A
+     stress, one class, all distinct, the strains workload's own rows), each
+     launched twice in a row;
   4. POA kernel: K3 poa_dp_tb against its plain version on eight seeded
      buckets (unbanded, banded, tie-heavy, a far predecessor, seven
      predecessor slots, an odd window of 4097, a window of 8192, a window
@@ -224,12 +225,13 @@ def k1_sets(torch, dev, alphabet, construct, fasta):
 
 def k1_vs_plain(torch, kernels, sets, peak_ops):
     """K1 against its plain version on each input set, launched twice in a
-    row, exact, with its time, the plain version's and its bound (the packed
+    row, exact, with its time, the plain version's, its bound (the packed
     codes and the validity map in, an int64 key and an int32 word out per
-    position, each once, against K1_OPS_PER_POSITION operations).  A copy of
-    this script put into an older checkout times that checkout's kernel on
-    the same inputs.  Returns {label: dict of err, ms, plain_ms, bound_ms,
-    bound_by}."""
+    position, each once, against K1_OPS_PER_POSITION operations) and the
+    time the card takes to write those outputs alone (torch's fill of two
+    tensors of their size).  A copy of this script put into an older
+    checkout times that checkout's kernel on the same inputs.  Returns
+    {label: dict of err, ms, plain_ms, bound_ms, bound_by}."""
     out = {}
     for label, (codes2, nmask, n, k) in sets.items():
         want = kernels.front_half_plain(codes2, nmask, n, k)
@@ -241,46 +243,18 @@ def k1_vs_plain(torch, kernels, sets, peak_ops):
         check(err == 0, f"front_half differs from its plain version ({label})")
         ms = cuda_ms(torch, lambda: kernels.front_half(codes2, nmask, n, k), 20)
         plain_ms = cuda_ms(torch, lambda: kernels.front_half_plain(codes2, nmask, n, k), 3)
+        fill_ms = cuda_ms(torch, lambda: (got[0].fill_(1), got[1].fill_(1)), 20)
         bound, by = bound_ms(-(-n // 4) + -(-n // 8) + 12 * n, K1_OPS_PER_POSITION * n,
                              peak_ops)
         print(f"front_half {label}: equal, {n} positions, "
               f"{int((want[0] != kernels.INVALID_CANON).sum())} valid windows | "
               f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | bound {bound:.4f} ms by {by} "
-              f"= {100 * bound / ms:.4f}% of the kernel's time")
+              f"= {100 * bound / ms:.4f}% of the kernel's time | outputs' fill alone "
+              f"{fill_ms:.4f} ms")
         out[label] = {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                       "bound_by": by}
         del want, got
     return out
-
-
-def k1_sweep(torch, kernels, cudabuild, sets):
-    """K1 at 2, 4 and 8 positions per thread and each variant on each input
-    set, each exact; beside it, the outputs' write alone (torch's fill of
-    the key and packed tensors)."""
-    lib = cudabuild.load()
-    if not hasattr(lib, "sz_front_half_sweep"):
-        return
-    for label, (codes2, nmask, n, k) in sets.items():
-        want = kernels.front_half_plain(codes2, nmask, n, k)
-        key = torch.empty(n, dtype=torch.int64, device=codes2.device)
-        packed = torch.empty(n, dtype=torch.int32, device=codes2.device)
-        stream = torch.cuda.current_stream().cuda_stream
-        fill_ms = cuda_ms(torch, lambda: (key.fill_(1), packed.fill_(1)), 20)
-        times = []
-        for p, v in ((8, 0), (8, 1), (8, 2), (8, 4), (8, 5), (8, 6), (8, 7), (8, 15), (8, 31),
-                     (8, 47), (2, 31), (4, 31), (16, 31)):
-            if True:
-                def run():
-                    kernels._check(lib.sz_front_half_sweep(
-                        p, v, codes2.data_ptr(), nmask.data_ptr(), n, k, key.data_ptr(),
-                        packed.data_ptr(), stream), "front_half sweep")
-                key.fill_(0)
-                run()
-                torch.cuda.synchronize()
-                check(torch.equal(key, want[0]) and torch.equal(packed, want[1]),
-                      f"front_half at {p} positions per thread, variant {v} differs ({label})")
-                times.append(f"P{p}V{v} {cuda_ms(torch, run, 20):.4f}")
-        print(f"  sweep {label}: all equal | fill {fill_ms:.4f} ms | " + " | ".join(times))
 
 
 def compare_kernels(torch, dev, alphabet, construct, kernels, fasta, peak_ops):
@@ -822,7 +796,6 @@ def main(argv):
     if k1_time:
         sets = k1_sets(torch, dev, alphabet, construct, fasta)
         k1_vs_plain(torch, kernels, sets, peak_ops)
-        k1_sweep(torch, kernels, cudabuild, sets)
         print(smi)
         return 0
     if k2_time:

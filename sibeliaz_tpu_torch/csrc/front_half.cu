@@ -19,33 +19,42 @@
 // What bounds it: device memory. The function needs 12.375 B per position,
 // each byte once: 0.25 B of 2-bit codes and 0.125 B of validity map in, an
 // int64 key and an int32 word out; about 30 32-bit operations per position
-// at any k are far below the card's rate for those bytes. The design keeps
-// every per-position step independent of k:
+// at any k are far below the card's rate for those bytes. So the design
+// keeps every per-position step independent of k and few:
 //   1. A block owns a tile of kTile positions. It stages the tile's codes and
 //      validity bits, with a halo of kHalo positions on each side, into shared
 //      memory as words of 32 positions: one 8-byte load of codes and one
 //      4-byte load of validity map per word, each input byte read once per
-//      block, and code bits under positions that are not definite zeroed
-//      there (a hand-made codes2 may carry any bits under an N).
+//      block. Code bits under positions that are not definite are zeroed
+//      there (a hand-made codes2 may carry any bits under an N), and a third
+//      word per 32 positions says which windows are all definite (an AND of
+//      the validity bits over k, by doubling: log2 k steps a word).
 //   2. A window is bits [2p, 2p + 2k) of that stream, the first base lowest:
 //      one funnel shift over two 64-bit words. rc is its complement; fwd is
 //      its bit-pair reversal (__brevll, then a swap inside each pair) shifted
-//      down to 2k bits. Validity of the windows at p - 1, p and p + 1 comes
-//      from one funnel shift of k + 2 validity bits and three compares; the
-//      extension codes at p - 1 and p + k are read on their own.
-//   3. A warp owns 32 x kPositions consecutive positions, each lane two
-//      neighbouring positions a step: keys go out as 16-byte stores, lane by
-//      lane; the packed words go through a per-warp buffer in shared memory
-//      and out as 16-byte stores, lane by lane.
-//   4. The first tile and the tiles at the end, whose halo or windows would
-//      reach before 0 or past n, stage position by position, reading
-//      cyclically (warp ballots assemble the words), and store with bounds
-//      checks. No load reads past ceil(n/4) bytes of codes2 or ceil(n/8) of
-//      nmask.
+//      down to 2k bits. Each lane takes two neighbouring positions a step;
+//      the second window is the first moved on by one base (a shift and an
+//      OR each). The validity of the windows at p - 1, p and p + 1 is one
+//      funnel shift of the staged window bits; the extension codes at p - 1
+//      and p + k are read on their own.
+//   3. A warp owns 32 x kPositions consecutive positions: keys go out as
+//      16-byte stores, lane by lane; the packed words go through a per-warp
+//      buffer in shared memory and out as 16-byte stores, lane by lane; both
+//      with the streaming hint (the outputs are not read again here).
+//   4. Tiles whose halo and windows lie inside [0, n) skip every edge test.
+//      The first tile and the tiles at the end stage position by position,
+//      reading cyclically (warp ballots assemble the words), and the last
+//      stores with bounds checks. No load reads past ceil(n/4) bytes of
+//      codes2 or ceil(n/8) of nmask.
 //   5. Inputs whose pointers are off 8- (codes2) or 4-byte (nmask) alignment
 //      (views at a storage offset) take an instance with byte loads.
 // A second 64-bit limb (33 <= k <= 61) is one more funnel shift at bit
-// 2p + 62 and a wider halo; only k <= 31 is instantiated and accepted.
+// 2p + 62, one more slide step and a wider halo; only k <= 31 is
+// instantiated and accepted.
+// Measured choices (chip_smoke.py --k1-time): 8 positions a thread against
+// 2, 4 and 16; each of the slide, the edge-free interior tiles, the staged
+// window bits and the streaming stores paid; at least 6 blocks an SM (40
+// registers) beat the compiler's 54 and a forced 32.
 
 #include <cstdint>
 
@@ -57,12 +66,22 @@ typedef unsigned long long u64;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kPositions = 4;                 // positions per thread
+constexpr int kPositions = 8;                  // positions per thread
+constexpr int kTile = kThreads * kPositions;   // positions per block
 constexpr int kMaxK = 31;
-constexpr int kHalo = 32;                     // staged positions on each side: >= kMaxK + 1
+constexpr int kHalo = 32;                      // staged positions on each side: >= kMaxK + 1
+constexpr int kSpan = kTile + 2 * kHalo;
+constexpr int kWords = kSpan / 32;             // staged words of 32 positions
 constexpr int kNoExt = 4;
 constexpr long long kInvalidCanon = 1LL << 62;
 constexpr u64 kLowBits = 0x5555555555555555ull;  // the low bit of every pair
+
+// The staged tile: word j holds positions b0 - kHalo + 32 j .. + 31.
+struct Staged {
+  u64 code[kWords];      // 2-bit codes, 0 where not definite
+  uint32_t def[kWords];  // definite
+  uint32_t win[kWords];  // the k-window starting there is all definite
+};
 
 // bit i of x to bit 2i
 __device__ __forceinline__ u64 spread(uint32_t x) {
@@ -72,6 +91,20 @@ __device__ __forceinline__ u64 spread(uint32_t x) {
   v = (v | (v << 4)) & 0x0F0F0F0F0F0F0F0Full;
   v = (v | (v << 2)) & 0x3333333333333333ull;
   return (v | (v << 1)) & kLowBits;
+}
+
+// Bit i: bits i .. i + k - 1 of x all set, for i < 32 (k <= 32).
+__device__ __forceinline__ uint32_t runs_of(u64 x, int k) {
+  u64 res = ~0ull, cur = x;
+  int sh = 0;
+  for (int b = 0; (1 << b) <= k; ++b) {
+    if ((k >> b) & 1) {
+      res &= cur >> sh;
+      sh += 1 << b;
+    }
+    cur &= cur >> (1 << b);
+  }
+  return static_cast<uint32_t>(res);
 }
 
 // The 64 bits of the staged stream from bit `off` on (a funnel shift).
@@ -84,6 +117,10 @@ __device__ __forceinline__ u64 bits_at(const u64* words, int off) {
 __device__ __forceinline__ u64 pair_reverse(u64 x) {
   const u64 r = __brevll(x);
   return ((r >> 1) & kLowBits) | ((r & kLowBits) << 1);
+}
+
+__device__ __forceinline__ int code_at(const Staged& t, int q) {
+  return static_cast<int>(t.code[q >> 5] >> (2 * (q & 31))) & 3;
 }
 
 template <bool VEC>
@@ -102,48 +139,37 @@ __device__ __forceinline__ uint32_t load_u32(const uint8_t* p, long long word) {
   return v;
 }
 
+// The window codes of the staged position sp: (fwd, rc).
+__device__ __forceinline__ void window(const Staged& t, int sp, int k, u64& fwd, u64& rc) {
+  const u64 m2k = (1ull << (2 * k)) - 1;
+  const u64 win = bits_at(t.code, 2 * sp) & m2k;  // sum of c_i 4^i
+  rc = ~win & m2k;
+  fwd = pair_reverse(win) >> (64 - 2 * k);
+}
+
 struct Out {
   long long key;
   int32_t word;
 };
 
-// The key and packed word of position p, at tile-local offset lp of the
-// staged words (cw: codes of 32 positions, 0 where not definite; vw: their
-// validity bits), given its window's fwd and rc codes.
-template <bool EDGE = true, bool WV = false>
-__device__ __forceinline__ Out finish(const u64* cw, const uint32_t* vw, const uint32_t* ww,
-                                      int lp, long long p, long long n, int k, u64 fwd,
-                                      u64 rc) {
-  const int lq = lp - 1;
-  bool win_def, prev_def, next_def, d_prev, d_next;
-  if (WV) {
-    // ww: whether the window at each staged position is all definite
-    const uint32_t w3 = __funnelshift_r(ww[lq >> 5], ww[(lq >> 5) + 1], lq & 31);
-    prev_def = w3 & 1;
-    win_def = w3 & 2;
-    next_def = w3 & 4;
-    d_prev = (vw[lq >> 5] >> (lq & 31)) & 1;
-    d_next = (vw[(lp + k) >> 5] >> ((lp + k) & 31)) & 1;
-  } else {
-    // validity of positions p - 1 .. p + k, lowest bit first
-    const u64 v = (vw[lq >> 5] | (static_cast<u64>(vw[(lq >> 5) + 1]) << 32)) >> (lq & 31);
-    const u64 mk = (1ull << k) - 1;
-    win_def = ((v >> 1) & mk) == mk;
-    prev_def = (v & mk) == mk;
-    next_def = ((v >> 2) & mk) == mk;
-    d_prev = v & 1;
-    d_next = (v >> (k + 1)) & 1;
-  }
-  const bool valid = win_def && (!EDGE || p + k <= n);
-  const bool prev_valid = prev_def && (!EDGE || (p >= 1 && p - 1 + k <= n));
-  const bool next_valid = next_def && (!EDGE || p + 1 + k <= n);
+// The key and packed word of position p at staged position sp, given its
+// window's codes. EDGE false: p - 1, the windows at p - 1 .. p + 1 and the
+// position after each lie inside [0, n).
+template <bool EDGE>
+__device__ __forceinline__ Out finish(const Staged& t, int sp, long long p, long long n,
+                                      int k, u64 fwd, u64 rc) {
+  const int sq = sp - 1;
+  const uint32_t w3 = __funnelshift_r(t.win[sq >> 5], t.win[(sq >> 5) + 1], sq & 31);
+  const bool valid = (w3 & 2) && (!EDGE || p + k <= n);
+  const bool prev_valid = (w3 & 1) && (!EDGE || (p >= 1 && p - 1 + k <= n));
+  const bool next_valid = (w3 & 4) && (!EDGE || p + 1 + k <= n);
   const bool boundary = valid && !(prev_valid && next_valid);
 
   const bool positive = fwd < rc;
-  const bool nxt_ok = d_next && (!EDGE || p + k < n);
-  const bool prv_ok = d_prev && (!EDGE || p >= 1);
-  const int nxt = (cw[(lp + k) >> 5] >> (2 * ((lp + k) & 31))) & 3;
-  const int prv = (cw[lq >> 5] >> (2 * (lq & 31))) & 3;
+  const int sk = sp + k;
+  const bool nxt_ok = ((t.def[sk >> 5] >> (sk & 31)) & 1) && (!EDGE || p + k < n);
+  const bool prv_ok = ((t.def[sq >> 5] >> (sq & 31)) & 1) && (!EDGE || p >= 1);
+  const int nxt = code_at(t, sk), prv = code_at(t, sq);
   const int right = positive ? (nxt_ok ? nxt : kNoExt) : (prv_ok ? 3 - prv : kNoExt);
   const int left = positive ? (prv_ok ? prv : kNoExt) : (nxt_ok ? 3 - nxt : kNoExt);
   Out o;
@@ -152,94 +178,41 @@ __device__ __forceinline__ Out finish(const u64* cw, const uint32_t* vw, const u
   return o;
 }
 
-// Bit i: bits i .. i + k - 1 of x all set, for i < 32 (k <= 32).
-__device__ __forceinline__ uint32_t runs_of(u64 x, int k) {
-  u64 res = ~0ull, cur = x;
-  int sh = 0;
-  for (int b = 0; (1 << b) <= k; ++b) {
-    if ((k >> b) & 1) {
-      res &= cur >> sh;
-      sh += 1 << b;
-    }
-    cur &= cur >> (1 << b);
-  }
-  return static_cast<uint32_t>(res);
-}
-
-// The window's codes of position p at tile-local offset lp: (fwd, rc).
-__device__ __forceinline__ void window(const u64* cw, int lp, int k, u64& fwd, u64& rc) {
-  const u64 m2k = (1ull << (2 * k)) - 1;
-  const u64 win = bits_at(cw, 2 * lp) & m2k;  // sum of c_i 4^i
-  rc = ~win & m2k;
-  fwd = pair_reverse(win) >> (64 - 2 * k);
-}
-
-__device__ __forceinline__ Out position(const u64* cw, const uint32_t* vw, int lp,
-                                        long long p, long long n, int k) {
-  u64 fwd, rc;
-  window(cw, lp, k, fwd, rc);
-  return finish(cw, vw, nullptr, lp, p, n, k, fwd, rc);
-}
-
-// A warp's 32 x P positions of a tile that lies inside [0, n): keys stored
-// from registers, packed words through the warp's buffer `wbuf`. EDGE false:
-// every window of the tile and its neighbours' lie inside [0, n).
-template <int P, int V, bool EDGE>
-__device__ __forceinline__ void tile_out(const u64* cw, const uint32_t* vw, const uint32_t* ww,
-                                         long long b0, int region, int lane,
+// A warp's 32 x kPositions positions from tile-local position `region` on,
+// of a tile that lies inside [0, n): two neighbouring positions a lane a
+// step, keys stored from registers, packed words through the warp's buffer.
+template <bool EDGE>
+__device__ __forceinline__ void warp_out(const Staged& t, long long b0, int region, int lane,
                                          long long n, int k, long long* __restrict__ key,
                                          int32_t* __restrict__ packed, int2* wbuf) {
-  for (int s = 0; s < P / 2; ++s) {
-    const int lp = region + 2 * (s * 32 + lane);
-    Out a, b;
-    if (V & 2) {
-      u64 fwd, rc;
-      window(cw, kHalo + lp, k, fwd, rc);
-      a = finish<EDGE, (V & 8) != 0>(cw, vw, ww, kHalo + lp, b0 + lp, n, k, fwd, rc);
-      const int q = kHalo + lp + k;
-      const u64 c = (cw[q >> 5] >> (2 * (q & 31))) & 3;
-      const u64 fwd2 = ((fwd << 2) | c) & ((1ull << (2 * k)) - 1);
-      const u64 rc2 = (rc >> 2) | ((3 - c) << (2 * k - 2));
-      b = finish<EDGE, (V & 8) != 0>(cw, vw, ww, kHalo + lp + 1, b0 + lp + 1, n, k, fwd2, rc2);
-    } else {
-      u64 fwd, rc;
-      window(cw, kHalo + lp, k, fwd, rc);
-      a = finish<EDGE, (V & 8) != 0>(cw, vw, ww, kHalo + lp, b0 + lp, n, k, fwd, rc);
-      window(cw, kHalo + lp + 1, k, fwd, rc);
-      b = finish<EDGE, (V & 8) != 0>(cw, vw, ww, kHalo + lp + 1, b0 + lp + 1, n, k, fwd, rc);
-    }
-    if (V & 1) {
-      __stcs(reinterpret_cast<longlong2*>(key + b0 + lp), make_longlong2(a.key, b.key));
-    } else {
-      *reinterpret_cast<longlong2*>(key + b0 + lp) = make_longlong2(a.key, b.key);
-    }
+  const u64 m2k = (1ull << (2 * k)) - 1;
+  for (int s = 0; s < kPositions / 2; ++s) {
+    const int lp = region + 2 * (s * 32 + lane);  // tile-local
+    const int sp = kHalo + lp;                    // staged
+    u64 fwd, rc;
+    window(t, sp, k, fwd, rc);
+    const Out a = finish<EDGE>(t, sp, b0 + lp, n, k, fwd, rc);
+    // the next window: one base on
+    const u64 c = code_at(t, sp + k);
+    fwd = ((fwd << 2) | c) & m2k;
+    rc = (rc >> 2) | ((3 - c) << (2 * k - 2));
+    const Out b = finish<EDGE>(t, sp + 1, b0 + lp + 1, n, k, fwd, rc);
+    __stcs(reinterpret_cast<longlong2*>(key + b0 + lp), make_longlong2(a.key, b.key));
     wbuf[s * 32 + lane] = make_int2(a.word, b.word);
   }
   __syncwarp();
   const int4* w4 = reinterpret_cast<const int4*>(wbuf);
   int4* out = reinterpret_cast<int4*>(packed + b0 + region);
-  for (int c = lane; c < 8 * P; c += 32) {
-    if (V & 1) {
-      __stcs(out + c, w4[c]);
-    } else {
-      out[c] = w4[c];
-    }
-  }
+  for (int c = lane; c < 8 * kPositions; c += 32) __stcs(out + c, w4[c]);
 }
 
-template <int P, bool VEC, int V>
-__global__ void __launch_bounds__(kThreads, (V & 32) ? 8 : (V & 16) ? 6 : 1)
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads, 6)
 front_half_kernel(const uint8_t* __restrict__ codes2, const uint8_t* __restrict__ nmask,
                   long long n, int k, long long* __restrict__ key,
                   int32_t* __restrict__ packed) {
-  constexpr int kTile = kThreads * P;
-  constexpr int kSpan = kTile + 2 * kHalo;
-  constexpr int kWords = kSpan / 32;
-  // word j: positions base + 32 j .. + 31
-  __shared__ u64 cw[kWords];
-  __shared__ uint32_t vw[kWords];
-  __shared__ uint32_t ww[kWords];
-  __shared__ __align__(16) int2 wbuf[kWarps][16 * P];  // a warp's packed words, two a lane a step
+  __shared__ Staged t;
+  __shared__ __align__(16) int2 wbuf[kWarps][16 * kPositions];  // two words a lane a step
 
   const long long b0 = static_cast<long long>(blockIdx.x) * kTile;
   const long long base = b0 - kHalo;
@@ -249,8 +222,8 @@ front_half_kernel(const uint8_t* __restrict__ codes2, const uint8_t* __restrict_
     if (tid < kWords) {
       const long long w = base / 32 + tid;
       const uint32_t d = load_u32<VEC>(nmask, w);
-      cw[tid] = load_u64<VEC>(codes2, w) & (spread(d) * 3);
-      vw[tid] = d;
+      t.code[tid] = load_u64<VEC>(codes2, w) & (spread(d) * 3);
+      t.def[tid] = d;
     }
   } else {
     // whole warps: kSpan is a multiple of 32
@@ -263,46 +236,53 @@ front_half_kernel(const uint8_t* __restrict__ codes2, const uint8_t* __restrict_
       const uint32_t lo = __ballot_sync(~0u, c & 1);
       const uint32_t hi = __ballot_sync(~0u, c >> 1);
       if (lane == 0) {
-        cw[j >> 5] = spread(lo) | (spread(hi) << 1);
-        vw[j >> 5] = bd;
+        t.code[j >> 5] = spread(lo) | (spread(hi) << 1);
+        t.def[j >> 5] = bd;
       }
     }
   }
   __syncthreads();
-  if (V & 8) {
-    if (tid < kWords) {
-      ww[tid] = runs_of(vw[tid] | (static_cast<u64>(tid + 1 < kWords ? vw[tid + 1] : 0) << 32), k);
-    }
-    __syncthreads();
+  // the last word's windows run past the span; only its first is read
+  if (tid < kWords) {
+    const u64 next = tid + 1 < kWords ? t.def[tid + 1] : 0;
+    t.win[tid] = runs_of(t.def[tid] | (next << 32), k);
   }
+  __syncthreads();
 
-  const int region = warp * 32 * P;  // tile-local first position of this warp
+  const int region = warp * 32 * kPositions;  // tile-local first position of this warp
   if (b0 + kTile <= n) {
-    if ((V & 4) && interior) {
-      tile_out<P, V, false>(cw, vw, ww, b0, region, lane, n, k, key, packed, wbuf[warp]);
+    if (interior) {
+      warp_out<false>(t, b0, region, lane, n, k, key, packed, wbuf[warp]);
     } else {
-      tile_out<P, V, true>(cw, vw, ww, b0, region, lane, n, k, key, packed, wbuf[warp]);
+      warp_out<true>(t, b0, region, lane, n, k, key, packed, wbuf[warp]);
     }
-  } else {
-    for (int s = 0; s < P / 2; ++s) {
-      for (int e = 0; e < 2; ++e) {
-        const int lp = region + 2 * (s * 32 + lane) + e;
-        const long long p = b0 + lp;
-        if (p >= n) continue;
-        const Out o = position(cw, vw, kHalo + lp, p, n, k);
-        key[p] = o.key;
-        packed[p] = o.word;
-      }
-    }
+    return;
+  }
+  for (int i = 0; i < kPositions; ++i) {
+    const int lp = region + 32 * i + lane;
+    const long long p = b0 + lp;
+    if (p >= n) break;
+    u64 fwd, rc;
+    window(t, kHalo + lp, k, fwd, rc);
+    const Out o = finish<true>(t, kHalo + lp, p, n, k, fwd, rc);
+    key[p] = o.key;
+    packed[p] = o.word;
   }
 }
 
-template <int P, int V = 0>
-int launch(const void* codes2, const void* nmask, long long n, int k, void* key,
-           void* packed, void* stream) {
+}  // namespace
+
+// Positions per tile: the card's tests lay their N runs out by it.
+extern "C" int sz_front_half_tile_positions() { return kTile; }
+
+// codes2: ceil(n/4) bytes of 2-bit codes, four per byte, low bits first;
+// nmask: ceil(n/8) bytes of definiteness, eight per byte, low bit first (any
+// alignment); key: n int64 and packed: n int32, both 16-byte aligned.
+// 1 <= k <= 31. Returns cudaGetLastError().
+extern "C" int sz_front_half(const void* codes2, const void* nmask, long long n, int k,
+                             void* key, void* packed, void* stream) {
   if (n <= 0) return 0;
   if (k < 1 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kTile = kThreads * P;
   const auto grid = static_cast<unsigned>((n + kTile - 1) / kTile);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* c = static_cast<const uint8_t*>(codes2);
@@ -312,40 +292,9 @@ int launch(const void* codes2, const void* nmask, long long n, int k, void* key,
   const bool vec = ((reinterpret_cast<uintptr_t>(codes2) & 7) |
                     (reinterpret_cast<uintptr_t>(nmask) & 3)) == 0;
   if (vec) {
-    front_half_kernel<P, true, V><<<grid, kThreads, 0, s>>>(c, m, n, k, kk, pk);
+    front_half_kernel<true><<<grid, kThreads, 0, s>>>(c, m, n, k, kk, pk);
   } else {
-    front_half_kernel<P, false, V><<<grid, kThreads, 0, s>>>(c, m, n, k, kk, pk);
+    front_half_kernel<false><<<grid, kThreads, 0, s>>>(c, m, n, k, kk, pk);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// Positions per tile: the card's tests lay their N runs out by it.
-extern "C" int sz_front_half_tile_positions() { return kThreads * kPositions; }
-
-// codes2: ceil(n/4) bytes of 2-bit codes, four per byte, low bits first;
-// nmask: ceil(n/8) bytes of definiteness, eight per byte, low bit first (any
-// alignment); key: n int64 and packed: n int32, both 16-byte aligned.
-// 1 <= k <= 31. Returns cudaGetLastError().
-extern "C" int sz_front_half(const void* codes2, const void* nmask, long long n, int k,
-                             void* key, void* packed, void* stream) {
-  return launch<kPositions>(codes2, nmask, n, k, key, packed, stream);
-}
-
-// The same at P positions per thread and variant V (bit 0: streaming
-// stores; bit 1: the pair's second window slid from the first; bit 2: no
-// edge tests inside tiles that lie inside [0, n); bit 3: window validity
-// staged per position; bit 4 / 5: at least 6 / 8 blocks an SM), for the
-// sweep.
-extern "C" int sz_front_half_sweep(int positions, int variant, const void* codes2,
-                                   const void* nmask, long long n, int k, void* key,
-                                   void* packed, void* stream) {
-#define SZ_K1_CASE(P, V) \
-  if (positions == P && variant == V) return launch<P, V>(codes2, nmask, n, k, key, packed, stream);
-  SZ_K1_CASE(8, 0) SZ_K1_CASE(8, 1) SZ_K1_CASE(8, 2) SZ_K1_CASE(8, 4) SZ_K1_CASE(8, 5)
-  SZ_K1_CASE(8, 6) SZ_K1_CASE(8, 7) SZ_K1_CASE(8, 15) SZ_K1_CASE(8, 31) SZ_K1_CASE(8, 47)
-  SZ_K1_CASE(2, 31) SZ_K1_CASE(4, 31) SZ_K1_CASE(16, 31)
-#undef SZ_K1_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -3,10 +3,10 @@
 K1 `front_half` (csrc/front_half.cu) turns the packed 2-bit upload into a
 canonical k-mer key and a packed extension word per position, one tile of
 K1_TILE_POSITIONS positions a thread block, each window taken whole from
-the packed stream.  K2
-`class_analysis` (csrc/class_analysis.cu) turns the key-sorted rows into a
-junction verdict and a class-first position per row, in one pass over
-tiles of K2_TILE_ROWS rows with a decoupled look-back.
+the packed stream.  K2 `class_analysis` (csrc/class_analysis.cu) turns the
+key-sorted rows into a junction verdict and a class-first position per
+row, in one pass over tiles of K2_TILE_ROWS rows with a decoupled
+look-back.
 
 Each wrapper routes by the device of the tensors it is given: a CPU tensor
 goes to the plain PyTorch version beside it, a CUDA tensor launches the
@@ -72,7 +72,7 @@ def _check(status: int, what: str) -> None:
 # Positions per tile of the kernel (csrc/front_half.cu,
 # sz_front_half_tile_positions): the tests lay their N runs out by it, and
 # the card's check it.
-K1_TILE_POSITIONS = 1024
+K1_TILE_POSITIONS = 2048
 
 
 def front_half_plain(codes2: torch.Tensor, nmask: torch.Tensor, n: int, k: int):

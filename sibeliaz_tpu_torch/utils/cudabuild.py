@@ -98,7 +98,6 @@ def load() -> ctypes.CDLL:
     signatures = {
         "sz_front_half": [vp, vp, i64, i32, vp, vp, vp],
         "sz_front_half_tile_positions": [],
-        "sz_front_half_sweep": [i32, i32, vp, vp, i64, i32, vp, vp, vp],
         "sz_class_tile_rows": [],
         "sz_class_scratch_bytes": [i64],
         "sz_class_analysis": [vp, vp, vp, i64, vp, vp, vp, vp],

@@ -27,7 +27,7 @@ def port_front_half(codes, k):
     return key.numpy(), packed.numpy()
 
 
-@pytest.mark.parametrize("k", [3, 9, 15, 25, 31])
+@pytest.mark.parametrize("k", [1, 2, 3, 9, 15, 25, 31])  # k <= 2: no inner window
 @pytest.mark.parametrize("n_at_ends", [False, True])
 def test_plain_matches_prepare_packed(k, n_at_ends):
     codes = codes_with_n_runs(k, 3001, 12, n_at_ends)
@@ -52,17 +52,6 @@ def assert_plain_matches_prepare_packed(codes2, nmask, n, k):
     key, got_packed = kernels.front_half(torch.from_numpy(codes2), torch.from_numpy(nmask), n, k)
     assert np.array_equal(key.numpy(), np.asarray(keys[0]))
     assert np.array_equal(got_packed.numpy(), np.asarray(packed))
-
-
-@pytest.mark.parametrize("k", [1, 2])
-@pytest.mark.parametrize("n_at_ends", [False, True])
-def test_plain_matches_prepare_packed_at_k_1_and_2(k, n_at_ends):
-    """The inner-window test is empty at k <= 2."""
-    codes = codes_with_n_runs(k, 3001, 12, n_at_ends)
-    (keys, packed, _) = _prepare_packed(jnp.asarray(codes), k)
-    key, got_packed = port_front_half(codes, k)
-    assert np.array_equal(key, np.asarray(keys[0]))
-    assert np.array_equal(got_packed, np.asarray(packed))
 
 
 @pytest.mark.parametrize("k,n", [(k, n) for k in (1, 2, 3, 8, 16, 31)
