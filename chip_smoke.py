@@ -13,12 +13,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
      shared-memory and spill report) and the native LCB and POA engines;
   3. kernels: K1 front_half and K2 class_analysis against their plain
      PyTorch versions on the card, exact, with CUDA-event times beside the
-     plain versions', the sort's and each kernel's roofline bound; K1 on
-     six full-size input sets (2^24 random positions at k=15, 25 and 31,
-     the strains workload's positions, an N every other position, random
-     bytes as codes), K2 on five full-size row sets (k=25 random, poly-A
-     stress, one class, all distinct, the strains workload's own rows), each
-     launched twice in a row;
+     plain versions', the sorts' (one pass, and two passes for two-limb
+     keys) and each kernel's roofline bound; K1 on ten full-size input sets
+     (2^24 random positions at k=15, 25, 31 and, two limbs, 33, 45, 61, the
+     strains workload's positions, an N every other position at k=25 and
+     61, random bytes as codes), K2 on ten full-size row sets (k=25
+     random, poly-A stress, one class, all distinct, the strains workload's
+     own rows; two limbs: k=33 and 61 random, the k=33 classes with hi
+     equal throughout and with lo equal throughout, poly-A stress at
+     k=45), each launched twice in a row;
   4. POA kernel: K3 poa_dp_tb against its plain version on eight seeded
      buckets (unbanded, banded, tie-heavy, a far predecessor, seven
      predecessor slots, an odd window of 4097, a window of 8192, a window
@@ -26,11 +29,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
      exact, with times, the split into pre-pass, DP and traceback, the
      bound and the chain floor; three of them again cut into small chunks;
   5. small graphs: build_junctions on the card against the brute-force
-     oracle on the graph tests' fixture shapes;
+     oracle on the graph tests' fixture shapes, k 3 to 61;
   6. goldens: the CLI with -n on examples/ (k=15) and on the regenerated
      reference-scale examples/large pair (k=25), byte-equal to the committed
-     GFFs; the large run is the main-path run whose K1, K2 and K3 launches
-     count (K3: none, the run stops before the alignment);
+     GFFs, and on examples/large at k=33 (two-limb keys), whose GFF's
+     SHA-256 must be the JAX package's (LARGE_K33_GFF_SHA); each large run
+     is a main-path run whose K1, K2 and K3 launches count (K3: none, the
+     runs stop before the alignment);
   7. golden MAFs: the CLI without -n on examples/ with the native and the
      device POA engine, both byte-equal to the committed MAF; the device run
      is the main-path run whose K1, K2 and K3 launches count, and K3 is
@@ -38,11 +43,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
   8. examples/large alignment at the CLI's budget: the device engine's MSAs
      against the native engine's on every block of the large pair, and K3
      against its plain version on the run's largest dispatch;
-  9. timed pass: the CLI on the 16 x 1 Mbp strain workload (k=15), with the
-     graph stage's steps, LCB and total seconds, input Mbp/s and the peak
-     device bytes per position.
+  9. timed pass: the CLI on the 16 x 1 Mbp strain workload (k=15, twice;
+     then once at k=33), with the graph stage's steps, LCB and total
+     seconds, input Mbp/s and the peak device bytes per position.
 The last two lines are a JSON summary of the kernels (time, plain time,
-bound, launches per main path) and {"ok": true, "device": {...}}.  It
+bound, launches per main path; K1's and K2's "ms" are their one-limb
+instances' and "by_limbs" holds both instances') and {"ok": true, "device": {...}}.  It
 imports neither jax nor sibeliaz_tpu.
 """
 
@@ -64,8 +70,16 @@ LARGE_SHA = {  # tests/test_examples_dir.py LARGE_SHA
     "genome1.fa": "f44bc27bba29089c1f142796f0a4631131a8668908d83fb149aac67868e0c6cc",
     "genome2.fa": "ea148275a6a76583ddd7eff23a66fb1d48c33a4d8110d51aa770de11f2d52a89",
 }
+# SHA-256 of the JAX package's blocks_coords.gff at k=33 on examples/large
+# (5,262 blocks): `python -m sibeliaz_tpu -k 33 -n -o OUT
+# examples/large/genome1.fa examples/large/genome2.fa` after
+# examples/large/make_large_example.py, on the CPU backend
+LARGE_K33_GFF_SHA = "a5e711b8685569b9322b15e0e964ba578b86df6fd96619adf92204ca50120f08"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-PEAK_B_PER_POSITION = 52.2  # the graph stage's measured peak on examples/large; not to rise
+# the graph stage's measured peaks on examples/large (k=25, and k=33 with
+# two-limb keys); not to rise
+PEAK_B_PER_POSITION = 52.2
+PEAK_B_PER_POSITION_WIDE = 68.2
 SMS, INT32_LANES_PER_SM = 132, 64  # H100 SXM: 64 int32 lanes on each of 132 SMs
 
 
@@ -176,6 +190,11 @@ def bench_strains(alphabet, fasta):
 # not the kernel's instruction count: front_half.cu takes each window that
 # way, with no step per base, plus the staging and masking it needs.
 K1_OPS_PER_POSITION = 30
+# Two limbs (k >= 32): each limb of fwd and of rc is its own funnel shift and
+# mask (16) or bit-pair reversal (10 each, two), the canonical choice a
+# two-limb compare and two selects (8), validity two runs (8), the
+# extension and boundary bits 4: about 60, still far below the bytes.
+K1_OPS_PER_POSITION_WIDE = 60
 
 
 def bound_ms(nbytes, ops, peak_ops):
@@ -196,10 +215,10 @@ def strains_codes(alphabet, fasta):
 
 def k1_sets(torch, dev, alphabet, construct, fasta):
     """K1's input sets, each at full size: 2^24 random positions with 2,000
-    N runs at k = 15, 25 and 31; the strains workload's joined positions at
-    k=15; an N every other position (k=25); random bytes as codes2 (code
-    bits set under N) over the k=25 set's validity map.  {label: (codes2,
-    nmask, n, k)} on the card."""
+    N runs at k = 15, 25 and 31 and, two limbs, 33, 45 and 61; the strains
+    workload's joined positions at k=15; an N every other position (k=25
+    and 61); random bytes as codes2 (code bits set under N) over the k=25
+    set's validity map.  {label: (codes2, nmask, n, k)} on the card."""
     n = 1 << 24
     rng = np.random.default_rng(1)
 
@@ -208,7 +227,7 @@ def k1_sets(torch, dev, alphabet, construct, fasta):
         return torch.from_numpy(pk_h).to(dev), torch.from_numpy(nm_h).to(dev)
 
     sets = {}
-    for k in (15, 25, 31):
+    for k in (15, 25, 31, 33, 45, 61):
         codes = rng.integers(0, 4, size=n).astype(np.uint8)
         for lo in rng.integers(0, n, size=2000):
             codes[lo : lo + int(rng.integers(1, 500))] = alphabet.BAD_CODE
@@ -218,6 +237,7 @@ def k1_sets(torch, dev, alphabet, construct, fasta):
     dense = rng.integers(0, 4, size=n).astype(np.uint8)
     dense[1::2] = alphabet.BAD_CODE
     sets["N every other k=25"] = (*up(dense), n, 25)
+    sets["N every other k=61"] = (*sets["N every other k=25"][:2], n, 61)
     garbage = torch.from_numpy(rng.integers(0, 256, size=n // 4).astype(np.uint8)).to(dev)
     sets["random bytes k=25"] = (garbage, sets["k=25 random"][1], n, 25)
     return sets
@@ -226,27 +246,32 @@ def k1_sets(torch, dev, alphabet, construct, fasta):
 def k1_vs_plain(torch, kernels, sets, peak_ops):
     """K1 against its plain version on each input set, launched twice in a
     row, exact, with its time, the plain version's, its bound (the packed
-    codes and the validity map in, an int64 key and an int32 word out per
-    position, each once, against K1_OPS_PER_POSITION operations) and the
-    time the card takes to write those outputs alone (torch's fill of two
-    tensors of their size).  A copy of this script put into an older
+    codes and the validity map in, one or two int64 key limbs and an int32
+    word out per position, each once, against K1_OPS_PER_POSITION(_WIDE)
+    operations) and the time the card takes to write those outputs alone
+    (torch's fill of tensors of their size).  A copy of this script put into an older
     checkout times that checkout's kernel on the same inputs.  Returns
     {label: dict of err, ms, plain_ms, bound_ms, bound_by}."""
     out = {}
     for label, (codes2, nmask, n, k) in sets.items():
         want = kernels.front_half_plain(codes2, nmask, n, k)
+        want = (*want[0], want[1])
+        limbs = 1 if k <= kernels.ONE_LIMB_MAX_K else 2
+        check(len(want) == limbs + 1, f"front_half_plain gave {len(want) - 1} limbs ({label})")
         err = 0
         for _twice in range(2):
             got = kernels.front_half(codes2, nmask, n, k)
+            got = (*got[0], got[1])
             torch.cuda.synchronize()
+            check(len(got) == len(want), f"front_half gave {len(got) - 1} limbs ({label})")
             err = max(err, *(int((a - b).abs().max()) for a, b in zip(got, want)))
         check(err == 0, f"front_half differs from its plain version ({label})")
         ms = cuda_ms(torch, lambda: kernels.front_half(codes2, nmask, n, k), 20)
         plain_ms = cuda_ms(torch, lambda: kernels.front_half_plain(codes2, nmask, n, k), 3)
-        fill_ms = cuda_ms(torch, lambda: (got[0].fill_(1), got[1].fill_(1)), 20)
-        bound, by = bound_ms(-(-n // 4) + -(-n // 8) + 12 * n, K1_OPS_PER_POSITION * n,
-                             peak_ops)
-        print(f"front_half {label}: equal, {n} positions, "
+        fill_ms = cuda_ms(torch, lambda: [t.fill_(1) for t in got], 20)
+        ops = K1_OPS_PER_POSITION if limbs == 1 else K1_OPS_PER_POSITION_WIDE
+        bound, by = bound_ms(-(-n // 4) + -(-n // 8) + (8 * limbs + 4) * n, ops * n, peak_ops)
+        print(f"front_half {label}: equal, {limbs} key limb(s), {n} positions, "
               f"{int((want[0] != kernels.INVALID_CANON).sum())} valid windows | "
               f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | bound {bound:.4f} ms by {by} "
               f"= {100 * bound / ms:.4f}% of the kernel's time | outputs' fill alone "
@@ -258,34 +283,38 @@ def k1_vs_plain(torch, kernels, sets, peak_ops):
 
 
 def compare_kernels(torch, dev, alphabet, construct, kernels, fasta, peak_ops):
-    """Phase 3's K1 part: K1 equal to its plain version on its six input
-    sets; returns (K1 max abs error, {name: (ms, plain ms, bound ms, bound
-    by)}) with K1 at k=25 on 2^24 random positions and the stable sort of
-    that set's keys."""
+    """Phase 3's K1 part: K1 equal to its plain version on its ten input
+    sets, and the graph stage's sort of the k=25 set's keys (one stable
+    pass) and of the k=33 set's (two stable passes, construct.sort_keys).
+    Returns k1_vs_plain's results."""
     sets = k1_sets(torch, dev, alphabet, construct, fasta)
     k1 = k1_vs_plain(torch, kernels, sets, peak_ops)
-    main = k1["k=25 random"]
-    times = {"front_half": (main["ms"], main["plain_ms"], main["bound_ms"], main["bound_by"])}
-    codes2, nmask, n, k = sets["k=25 random"]
-    key = kernels.front_half(codes2, nmask, n, k)[0]
-    sort_ms = cuda_ms(torch, lambda: torch.sort(key, stable=True), 10)
-    print(f"torch.sort(stable) of 2^24 int64 keys: {sort_ms:.4f} ms")
-    times["sort"] = sort_ms
-    return max(r["err"] for r in k1.values()), times
+    for k in (25, 33):
+        codes2, nmask, n, _k = sets[f"k={k} random"]
+        keys = kernels.front_half(codes2, nmask, n, k)[0]
+        sort_ms = cuda_ms(torch, lambda: construct.sort_keys(list(keys)), 10)
+        print(f"graph sort of 2^24 keys at k={k}: {len(keys)} stable torch.sort pass(es) "
+              f"{sort_ms:.4f} ms")
+    return k1
 
 
-def sorted_rows(torch, key, packed):
-    """K2's input: the rows sorted by key (stable), as the graph stage has them."""
-    key_s, order = torch.sort(key, stable=True)
-    return key_s, packed[order], order.to(torch.int32)
+def sorted_rows(torch, construct, keys, packed):
+    """K2's input: the rows sorted by key (stable, lexicographic over the
+    limbs), as the graph stage has them."""
+    keys_s, order = construct.sort_keys(list(keys))
+    return keys_s, packed[order], order.to(torch.int32)
 
 
 def k2_row_sets(torch, dev, alphabet, construct, kernels, fasta):
     """K2's row sets, each at full size: k=25 rows of 2^24 random positions
     with N runs; the poly-A stress (one class of ~10^6 rows, spanning
     hundreds of tiles, and a poly-C and an N stretch); the first set's words
-    and positions as one class and as 2^24 distinct keys; and the strains
-    workload's own rows (16 x 1 Mbp joined with N, k=15).  {label: rows}."""
+    and positions as one class and as 2^24 distinct keys; the strains
+    workload's own rows (16 x 1 Mbp joined with N, k=15); and with two-limb
+    keys: the random positions' rows at k=33 and 61, the k=33 rows' classes
+    keyed with hi equal throughout (classes split on lo alone) and with lo
+    equal throughout (on hi alone), and the poly-A stress at k=45.
+    {label: rows}."""
     n = 1 << 24
     rng = np.random.default_rng(1)
     codes = rng.integers(0, 4, size=n).astype(np.uint8)
@@ -299,28 +328,39 @@ def k2_row_sets(torch, dev, alphabet, construct, kernels, fasta):
 
     def rows_of(c, k):
         pk_h, nm_h = construct.pack_codes_host(c)
-        key, packed = kernels.front_half(torch.from_numpy(pk_h).to(dev),
-                                         torch.from_numpy(nm_h).to(dev), len(c), k)
-        return sorted_rows(torch, key, packed)
+        keys, packed = kernels.front_half(torch.from_numpy(pk_h).to(dev),
+                                          torch.from_numpy(nm_h).to(dev), len(c), k)
+        return sorted_rows(torch, construct, keys, packed)
 
     sets = {"k=25 random": rows_of(codes, 25), "poly-A stress": rows_of(poly, 25)}
-    _key_s, packed_s, pos_s = sets["k=25 random"]
-    sets["one class"] = (torch.zeros(n, dtype=torch.int64, device=dev), packed_s, pos_s)
-    sets["all distinct"] = (torch.arange(n, dtype=torch.int64, device=dev), packed_s, pos_s)
+    _keys_s, packed_s, pos_s = sets["k=25 random"]
+    sets["one class"] = ((torch.zeros(n, dtype=torch.int64, device=dev),), packed_s, pos_s)
+    sets["all distinct"] = ((torch.arange(n, dtype=torch.int64, device=dev),), packed_s, pos_s)
     sets["strains k=15"] = rows_of(joined, 15)
+    sets["k=33 random"] = rows_of(codes, 33)
+    sets["k=61 random"] = rows_of(codes, 61)
+    (hi_s, lo_s), packed_s, pos_s = sets["k=33 random"]
+    start = torch.ones(n, dtype=torch.bool, device=dev)
+    start[1:] = (hi_s[1:] != hi_s[:-1]) | (lo_s[1:] != lo_s[:-1])
+    cls = torch.cumsum(start, 0) - 1  # each row's class, dense
+    zero = torch.zeros_like(cls)
+    sets["k=33 classes, hi equal"] = ((zero, cls), packed_s, pos_s)
+    sets["k=33 classes, lo equal"] = ((cls, zero), packed_s, pos_s)
+    sets["poly-A stress k=45"] = rows_of(poly, 45)
     return sets
 
 
 def k2_vs_plain(torch, kernels, sets, peak_ops):
     """K2 against its plain version on each row set, launched twice in a row,
     exact, with its time, the plain version's and its bound (21 B per row:
-    key 8 + word 4 + position 4 in, flag 1 + first 4 out, each once).  A
+    key 8 + word 4 + position 4 in, flag 1 + first 4 out, each once; 29 B
+    with a second key limb).  A
     copy of this script put into an older checkout times that checkout's
     kernel on the same rows.  Returns {label: dict of err, ms, plain_ms,
     bound_ms, bound_by}."""
     out = {}
     for label, rows in sets.items():
-        n = rows[0].shape[0]
+        n, limbs = rows[1].shape[0], len(rows[0])
         want = kernels.class_analysis_plain(*rows)
         err = 0
         for _twice in range(2):
@@ -331,8 +371,9 @@ def k2_vs_plain(torch, kernels, sets, peak_ops):
         check(err == 0, f"class_analysis differs from its plain version ({label})")
         ms = cuda_ms(torch, lambda: kernels.class_analysis(*rows), 20)
         plain_ms = cuda_ms(torch, lambda: kernels.class_analysis_plain(*rows), 3)
-        bound, by = bound_ms(21 * n, 0, peak_ops)
-        print(f"class_analysis {label}: equal, {n} rows, {int(want[0].sum())} junction rows | "
+        bound, by = bound_ms((13 + 8 * limbs) * n, 0, peak_ops)
+        print(f"class_analysis {label}: equal, {limbs} key limb(s), {n} rows, "
+              f"{int(want[0].sum())} junction rows | "
               f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | bound {bound:.4f} ms by {by} "
               f"= {100 * bound / ms:.4f}% of the kernel's time")
         out[label] = {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
@@ -657,8 +698,10 @@ def print_ptxas(report):
             elif m.group(1) == "poa_dp_kernel" and len(args) == 3:
                 shape = {"10": "chunked", "01": "whole", "00": "ragged"}
                 kernel = f"{m.group(1)}<{args[0]}, {shape[args[1] + args[2]]}>"
-            elif m.group(1) == "class_tile_kernel" and len(args) == 1:
-                kernel = f"{m.group(1)}<{'16-byte' if args[0] == '1' else 'scalar'} loads>"
+            elif m.group(1) in ("class_tile_kernel", "front_half_kernel") and len(args) == 2:
+                loads = {"class_tile_kernel": "16-byte", "front_half_kernel": "word"}[m.group(1)]
+                kernel = (f"{m.group(1)}<{args[0]} key limb(s), "
+                          f"{loads if args[1] == '1' else 'byte'} loads>")
             else:
                 kernel = m.group(1) + (f"<{', '.join(args)}>" if args else "")
             spill = ""
@@ -825,11 +868,9 @@ def main(argv):
         return 0
 
     phase(f"3 kernels vs plain versions, n = 2^24 {label}")
-    k1_err, times = compare_kernels(torch, dev, alphabet, construct, kernels, fasta, peak_ops)
+    k1 = compare_kernels(torch, dev, alphabet, construct, kernels, fasta, peak_ops)
     k2 = k2_vs_plain(torch, kernels, k2_row_sets(torch, dev, alphabet, construct, kernels,
                                                  fasta), peak_ops)
-    k2_err = max(r["err"] for r in k2.values())
-    k2_main = k2["k=25 random"]
 
     phase(f"4 POA kernel vs its plain version {label}")
     k3_err = compare_poa(torch, dev, torch_cases, device_poa, poa_ref, align_kernels,
@@ -837,7 +878,7 @@ def main(argv):
     phase("5 small graphs vs the oracle")
     cases = 0
     for seed, n_prob in ((0, 0.0), (1, 0.02), (2, 0.0), (3, 0.01), (4, 0.0), (5, 0.05)):
-        for k in (3, 9, 15, 25, 31):
+        for k in (3, 9, 15, 25, 31, 33, 45, 61):
             seqs = random_genomes(alphabet, np.random.default_rng(seed), 3, 50, 400, n_prob)
             got = construct.build_junctions(seqs, k, dev)
             want = oracle.enumerate_junctions(seqs, k)
@@ -860,7 +901,7 @@ def main(argv):
         cases += 1
     print(f"{cases} graphs equal to the oracle")
 
-    phase(f"6 golden GFFs through the CLI {label}")
+    phase(f"6 golden GFFs through the CLI, k=15, 25 and 33 {label}")
     ex_out = os.path.join(tmp.name, "examples")
     run_cli(cli, ["-k", "15", "-n", "-o", ex_out,
                   os.path.join(EXAMPLES, "genome1.fa"), os.path.join(EXAMPLES, "genome2.fa")])
@@ -871,24 +912,38 @@ def main(argv):
     print("examples/ k=15: GFF byte-equal to the golden (11 blocks)")
 
     large_fa = regenerate_large(alphabet, fasta, tmp.name)
-    kernels.reset_launches()
-    align_kernels.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    mem0 = torch.cuda.memory_allocated()
-    large_out = os.path.join(tmp.name, "large")
-    secs = run_cli(cli, ["-k", "25", "-n", "-t", "4", "-o", large_out, *large_fa])
-    launches = {**kernels.LAUNCHES, **align_kernels.LAUNCHES}
-    large_peak = (torch.cuda.max_memory_allocated() - mem0) / metrics.counters["graph_positions"]
-    with open(os.path.join(large_out, "blocks_coords.gff"), "rb") as f, open(
-        os.path.join(EXAMPLES, "large", "sibeliaz_out", "blocks_coords.gff"), "rb"
-    ) as g:
-        check(f.read() == g.read(), "examples/large GFF differs from the golden")
-    check(launches["front_half"] > 0 and launches["class_analysis"] > 0
-          and launches["poa_dp_tb"] == 0, f"launches of the -n run: {launches}")
-    check(round(large_peak, 1) <= PEAK_B_PER_POSITION,
-          f"peak {large_peak:.1f} B/position, above {PEAK_B_PER_POSITION}")
-    print(f"examples/large k=25: GFF byte-equal to the golden (1256 blocks) in "
-          f"{secs:.2f} s | launches {launches} | peak {large_peak:.1f} B/position {label}")
+    with open(os.path.join(EXAMPLES, "large", "sibeliaz_out", "blocks_coords.gff"), "rb") as g:
+        large_golden = hashlib.sha256(g.read()).hexdigest()
+    # k=25 against the committed golden; k=33 (two-limb keys through both
+    # kernels and the two-pass sort) against the JAX package's GFF
+    large_launches_by_k = {}
+    for k, golden, whose, peak_limit in (
+            (25, large_golden, "the committed golden's", PEAK_B_PER_POSITION),
+            (33, LARGE_K33_GFF_SHA, "the JAX package's", PEAK_B_PER_POSITION_WIDE)):
+        metrics.timings.clear()
+        metrics.counters.clear()
+        kernels.reset_launches()
+        align_kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        out = os.path.join(tmp.name, f"large_k{k}")
+        secs = run_cli(cli, ["-k", str(k), "-n", "-t", "4", "-o", out, *large_fa])
+        counts = {**kernels.LAUNCHES, **align_kernels.LAUNCHES}
+        peak = (torch.cuda.max_memory_allocated() - mem0) / metrics.counters["graph_positions"]
+        with open(os.path.join(out, "blocks_coords.gff"), "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+        check(digest == golden, f"examples/large k={k} GFF SHA-256 {digest}, not {whose}")
+        check(counts["front_half"] > 0 and counts["class_analysis"] > 0
+              and counts["poa_dp_tb"] == 0, f"launches of the -k {k} -n run: {counts}")
+        check(round(peak, 1) <= peak_limit,
+              f"peak {peak:.1f} B/position at k={k}, above {peak_limit}")
+        stages = {t["stage"]: t["seconds"] for t in metrics.timings}
+        print(f"examples/large k={k}: GFF SHA-256 equal to {whose} "
+              f"({int(metrics.counters['blocks_found'])} blocks) in {secs:.2f} s | launches "
+              f"{counts} | peak {peak:.1f} B/position (limit {peak_limit}) | "
+              + " | ".join(f"{s} {v:.4f} s" for s, v in stages.items() if s.startswith("graph_"))
+              + f" {label}")
+        large_launches_by_k[k] = counts
 
     phase(f"7 golden MAFs through the CLI, both POA engines {label}")
     maf_launches, ex_args = golden_mafs(torch, cli, metrics, kernels, align_kernels,
@@ -903,26 +958,27 @@ def main(argv):
                            "examples/large largest dispatch", peak_ops)
     del ex_args, large_args
 
-    phase(f"9 timed pass: 16 x 1 Mbp strains, k=15 {label}")
+    phase(f"9 timed pass: 16 x 1 Mbp strains, k=15 twice, then k=33 {label}")
     strains = bench_strains(alphabet, fasta)
     bench_fa = os.path.join(tmp.name, "strains.fa")
     fasta.write_fasta(bench_fa, strains)
     mbp = sum(len(r.seq) for r in strains) / 1e6
-    for p in (1, 2):
+    for p, k in ((1, 15), (2, 15), (3, 33)):  # pass 3: two-limb keys, two sort passes
         metrics.timings.clear()
         metrics.counters.clear()
         kernels.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         mem0 = torch.cuda.memory_allocated()
-        wall = run_cli(cli, ["-k", "15", "-n", "-o", os.path.join(tmp.name, f"bench{p}"), bench_fa])
+        wall = run_cli(cli, ["-k", str(k), "-n", "-o", os.path.join(tmp.name, f"bench{p}"),
+                             bench_fa])
         peak = (torch.cuda.max_memory_allocated() - mem0) / metrics.counters["graph_positions"]
         st = {t["stage"]: t["seconds"] for t in metrics.timings}
         graph = sum(v for s, v in st.items() if s.startswith("graph_"))
         lcb = st["junction_table"] + st["lcb_engine"] + st["trim_and_render"]
         check(all(v > 0 for v in kernels.LAUNCHES.values()),
               f"a kernel was not launched: {kernels.LAUNCHES}")
-        print(f"pass {p}: " + " | ".join(f"{s} {v:.4f} s" for s, v in st.items()))
-        print(f"pass {p}: graph {graph:.4f} s | lcb+out {lcb:.4f} s | graph+lcb "
+        print(f"pass {p}, k={k}: " + " | ".join(f"{s} {v:.4f} s" for s, v in st.items()))
+        print(f"pass {p}, k={k}: graph {graph:.4f} s | lcb+out {lcb:.4f} s | graph+lcb "
               f"{graph + lcb:.4f} s | CLI wall {wall:.4f} s | {mbp / wall:.3f} input Mbp/s | "
               f"junctions {int(metrics.counters['graph_junctions'])} | "
               f"blocks {int(metrics.counters['blocks_found'])} | peak {peak:.1f} B/position | "
@@ -930,31 +986,44 @@ def main(argv):
     tmp.cleanup()
 
     src = "sibeliaz_tpu_torch/csrc/"
-    # launches per main path: the -n CLI run (examples/large, phase 6), the
-    # default CLI run with the device POA engine on examples/ (phase 7), and
-    # the same two stages on examples/large through the library (phase 8)
-    paths = {"examples/large -n": launches,
+    # launches per main path: the -n CLI runs (examples/large at k=25 and
+    # k=33, phase 6), the default CLI run with the device POA engine on
+    # examples/ (phase 7), and the same two stages on examples/large through
+    # the library (phase 8)
+    paths = {"examples/large -n": large_launches_by_k[25],
+             "examples/large -k 33 -n": large_launches_by_k[33],
              "examples/ --align-engine tpu": maf_launches,
              "examples/large --align-engine tpu": large_launches}
 
     def by_path(kernel):
         return {path: counts[kernel] for path, counts in paths.items()}
 
+    def by_limbs(results):
+        """The times of K1's or K2's one-limb instance (the k=25 path's) and
+        its two-limb instance (the k=33 path's), on 2^24 random positions."""
+        return {str(limbs): {"set": s, **{key: results[s][key] for key in
+                                          ("ms", "plain_ms", "bound_ms", "bound_by")}}
+                for limbs, s in ((1, "k=25 random"), (2, "k=33 random"))}
+
+    k1_main, k2_main = k1["k=25 random"], k2["k=25 random"]
+
     summary = {"kernels": [
         {"name": "front_half", "route": "cuda", "source": src + "front_half.cu",
          "replaces": "sibeliaz_tpu/graph/pallas_kernels.py:170",
-         "launches": launches["front_half"], "launches_by_path": by_path("front_half"),
-         "max_abs_err": k1_err,
-         "ms": times["front_half"][0], "plain_ms": times["front_half"][1],
-         "bound_ms": times["front_half"][2], "bound_by": times["front_half"][3],
-         "library_ms": None},
+         "launches": paths["examples/large -n"]["front_half"],
+         "launches_by_path": by_path("front_half"),
+         "max_abs_err": max(r["err"] for r in k1.values()),
+         "ms": k1_main["ms"], "plain_ms": k1_main["plain_ms"],
+         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
+         "by_limbs": by_limbs(k1), "library_ms": None},
         {"name": "class_analysis", "route": "cuda", "source": src + "class_analysis.cu",
          "replaces": "sibeliaz_tpu/graph/construct.py:450",
-         "launches": launches["class_analysis"],
-         "launches_by_path": by_path("class_analysis"), "max_abs_err": k2_err,
+         "launches": paths["examples/large -n"]["class_analysis"],
+         "launches_by_path": by_path("class_analysis"),
+         "max_abs_err": max(r["err"] for r in k2.values()),
          "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
          "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
-         "library_ms": None},
+         "by_limbs": by_limbs(k2), "library_ms": None},
         {"name": "poa_dp_tb", "route": "cuda", "source": src + "poa_dp_tb.cu",
          "replaces": "sibeliaz_tpu/align/tpu_poa.py:206",
          "launches": maf_launches["poa_dp_tb"],

@@ -8,8 +8,9 @@ The port runs FASTA -> GFF with the native LCB engine, and then, unless
 device DP on the card; the name is the JAX package's, so that the same
 command lines run on both).  It refuses, and never falls back, for: no
 CUDA card under the default `--device cuda`; an `--lcb-engine` other than
-native; k > 31; an input whose graph stage does not fit the card (or the
-`-f` budget).
+native (ROADMAP.md items A7 and A9); an input whose graph stage does not fit
+the card (or the `-f` budget; item A3).  k is odd, 3 to 61, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from sibeliaz_tpu_torch.config import Config
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
-    p.add_argument("-k", type=int, default=25, help="k-mer (vertex) size, odd, at most 31")
+    p.add_argument("-k", type=int, default=25, help="k-mer (vertex) size, odd, 3 to 61")
     p.add_argument("-b", type=int, default=200, help="maximum bubble branch size")
     p.add_argument("-m", type=int, default=50, help="minimum LCB size")
     p.add_argument("-a", type=int, default=150, help="maximum junction abundance")

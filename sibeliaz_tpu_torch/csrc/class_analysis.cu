@@ -40,6 +40,11 @@
 //      it reads one status word and one slot per tile.
 // Scratch is n / T status words, n / T slots and the counter, zeroed on the
 // stream at each call; sz_class_scratch_bytes gives its size.
+// Two-limb keys (32 <= k <= 61, construct.py:466-476): a class starts where
+// either limb changes, and a row is invalid where the high limb is 2^62.
+// Keys are read in stage 1 alone, so the instance of two limbs differs from
+// the one-limb instance only there: each compare takes both limbs, and the
+// bound grows to 29 B per row.
 // Tiles of 8 rows a thread measured fastest on the random, poly-A and strains
 // rows; 4 pays twice the look-backs, 16 loses occupancy to registers.
 
@@ -133,9 +138,11 @@ __device__ void look_back(const unsigned long long* status, long long tile, int 
   }
 }
 
-template <bool VEC>
+// key1 is null at LIMBS 1.
+template <int LIMBS, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-class_tile_kernel(const long long* __restrict__ key, const int32_t* __restrict__ packed,
+class_tile_kernel(const long long* __restrict__ key0, const long long* __restrict__ key1,
+                  const int32_t* __restrict__ packed,
                   const int32_t* __restrict__ pos, long long n,
                   uint8_t* __restrict__ junction, int32_t* __restrict__ first,
                   unsigned long long* status, uint8_t* slot, unsigned int* counter) {
@@ -143,10 +150,11 @@ class_tile_kernel(const long long* __restrict__ key, const int32_t* __restrict__
   constexpr int Q = R / 4;  // quads of rows per thread, striped
   __shared__ __align__(16) uint16_t s_state[T + 8];  // [T]: does row `end` start a class
   __shared__ __align__(16) int32_t s_pos[T];          // positions, then first
-  __shared__ long long s_last[T / 4];                 // last key of each quad
+  __shared__ long long s_last[LIMBS][T / 4];         // last key of each quad
   __shared__ uint32_t s_warp[kWarps];
   __shared__ uint32_t s_rev[kWarps];
-  __shared__ long long s_tile, s_prev_key, s_head_start;
+  __shared__ long long s_prev_key[LIMBS];
+  __shared__ long long s_tile, s_head_start;
   __shared__ uint32_t s_head_or;
   __shared__ int32_t s_head_first;
 
@@ -157,32 +165,42 @@ class_tile_kernel(const long long* __restrict__ key, const int32_t* __restrict__
   const long long base = tile * T;
 
   // ---- 1. load striped (quad q = rows 4q..4q+3), stage the row states ----
-  if (tid == 0 && base > 0) s_prev_key = key[base - 1];
+  auto keys = [&](int l) { return l == 0 ? key0 : key1; };  // l is known at compile time
+  if (tid == 0 && base > 0) {
+#pragma unroll
+    for (int l = 0; l < LIMBS; ++l) s_prev_key[l] = keys(l)[base - 1];
+  }
   if (tid == kThreads - 1) {
-    const bool on = base + T < n && key[base + T] == key[base + T - 1];
+    bool on = base + T < n;
+#pragma unroll
+    for (int l = 0; l < LIMBS; ++l) on = on && keys(l)[base + T] == keys(l)[base + T - 1];
     s_state[T] = on ? 0 : static_cast<uint16_t>(kStart);
   }
-  long long k0[Q];
+  long long k0[LIMBS][Q];
   uint32_t st01[Q], st23[Q];
 #pragma unroll
   for (int m = 0; m < Q; ++m) {
     const int q = tid + m * kThreads;
     const long long r0 = base + 4LL * q;
-    long long k[4];
+    long long k[LIMBS][4];
     int32_t w[4], p[4];
     if (VEC && r0 + 3 < n) {
-      const longlong2 a = *reinterpret_cast<const longlong2*>(key + r0);
-      const longlong2 b = *reinterpret_cast<const longlong2*>(key + r0 + 2);
+#pragma unroll
+      for (int l = 0; l < LIMBS; ++l) {
+        const longlong2 a = *reinterpret_cast<const longlong2*>(keys(l) + r0);
+        const longlong2 b = *reinterpret_cast<const longlong2*>(keys(l) + r0 + 2);
+        k[l][0] = a.x; k[l][1] = a.y; k[l][2] = b.x; k[l][3] = b.y;
+      }
       const int4 wv = *reinterpret_cast<const int4*>(packed + r0);
       const int4 pv = *reinterpret_cast<const int4*>(pos + r0);
-      k[0] = a.x; k[1] = a.y; k[2] = b.x; k[3] = b.y;
       w[0] = wv.x; w[1] = wv.y; w[2] = wv.z; w[3] = wv.w;
       p[0] = pv.x; p[1] = pv.y; p[2] = pv.z; p[3] = pv.w;
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const bool in = r0 + j < n;
-        k[j] = in ? key[r0 + j] : 0;
+#pragma unroll
+        for (int l = 0; l < LIMBS; ++l) k[l][j] = in ? keys(l)[r0 + j] : 0;
         w[j] = in ? packed[r0 + j] : 0;
         p[j] = in ? pos[r0 + j] : 0;
       }
@@ -190,14 +208,20 @@ class_tile_kernel(const long long* __restrict__ key, const int32_t* __restrict__
     uint32_t s[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      s[j] = k[j] != kInvalidCanon ? static_cast<uint32_t>(w[j]) & kVerdictBits : 0u;
-      if (j > 0 && k[j] != k[j - 1]) s[j] |= kStart;
+      s[j] = k[0][j] != kInvalidCanon ? static_cast<uint32_t>(w[j]) & kVerdictBits : 0u;
+      bool differs = false;
+#pragma unroll
+      for (int l = 0; l < LIMBS; ++l) differs = differs || (j > 0 && k[l][j] != k[l][j - 1]);
+      if (differs) s[j] |= kStart;
       if (r0 + j >= n) s[j] = kStart;  // past the end: rows of their own
     }
-    k0[m] = k[0];
+#pragma unroll
+    for (int l = 0; l < LIMBS; ++l) {
+      k0[l][m] = k[l][0];
+      s_last[l][q] = k[l][3];
+    }
     st01[m] = s[0] | (s[1] << 16);
     st23[m] = s[2] | (s[3] << 16);
-    s_last[q] = k[3];
     *reinterpret_cast<int4*>(s_pos + 4 * q) = make_int4(p[0], p[1], p[2], p[3]);
   }
   __syncthreads();
@@ -205,8 +229,12 @@ class_tile_kernel(const long long* __restrict__ key, const int32_t* __restrict__
   for (int m = 0; m < Q; ++m) {
     const int q = tid + m * kThreads;
     const long long r0 = base + 4LL * q;
-    const long long prev = q > 0 ? s_last[q - 1] : s_prev_key;
-    if (r0 == 0 || r0 >= n || prev != k0[m]) st01[m] |= kStart;
+    bool differs = false;
+#pragma unroll
+    for (int l = 0; l < LIMBS; ++l) {
+      differs = differs || (q > 0 ? s_last[l][q - 1] : s_prev_key[l]) != k0[l][m];
+    }
+    if (r0 == 0 || r0 >= n || differs) st01[m] |= kStart;
     *reinterpret_cast<uint2*>(s_state + 4 * q) = make_uint2(st01[m], st23[m]);
   }
   __syncthreads();
@@ -372,6 +400,20 @@ __global__ void class_fixup_kernel(const unsigned long long* __restrict__ status
 
 long long tiles_of(long long n) { return (n + kTile - 1) / kTile; }
 
+template <int LIMBS>
+void launch(const long long* k0, const long long* k1, const int32_t* packed,
+            const int32_t* pos, long long n, uint8_t* jn, int32_t* fs,
+            unsigned long long* status, uint8_t* slot, unsigned int* counter, bool vec,
+            unsigned grid, cudaStream_t s) {
+  if (vec) {
+    class_tile_kernel<LIMBS, true><<<grid, kThreads, 0, s>>>(k0, k1, packed, pos, n, jn, fs,
+                                                             status, slot, counter);
+  } else {
+    class_tile_kernel<LIMBS, false><<<grid, kThreads, 0, s>>>(k0, k1, packed, pos, n, jn, fs,
+                                                              status, slot, counter);
+  }
+}
+
 }  // namespace
 
 // Rows per tile: the card's tests lay their class runs out by it.
@@ -383,10 +425,11 @@ extern "C" long long sz_class_scratch_bytes(long long n) {
   return (tiles_of(n) + 1) * 8 + tiles_of(n);
 }
 
-// key_s int64, packed_s and pos_s int32: n rows; junction: n uint8 out; first:
-// n int32 out (both 16-byte aligned); scratch: sz_class_scratch_bytes(n)
-// bytes, 8-byte aligned, zeroed here. Returns cudaGetLastError().
-extern "C" int sz_class_analysis(const void* key_s, const void* packed_s,
+// key0_s int64 (and key1_s, the low limb of two-limb keys, else null),
+// packed_s and pos_s int32: n rows; junction: n uint8 out; first: n int32 out
+// (both 16-byte aligned); scratch: sz_class_scratch_bytes(n) bytes, 8-byte
+// aligned, zeroed here. Returns cudaGetLastError().
+extern "C" int sz_class_analysis(const void* key0_s, const void* key1_s, const void* packed_s,
                                  const void* pos_s, long long n, void* junction,
                                  void* first, void* scratch, void* stream) {
   if (n <= 0) return 0;
@@ -397,20 +440,20 @@ extern "C" int sz_class_analysis(const void* key_s, const void* packed_s,
   auto* slot = reinterpret_cast<uint8_t*>(status + tiles + 1);
   cudaError_t err = cudaMemsetAsync(scratch, 0, sz_class_scratch_bytes(n), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bool vec = ((reinterpret_cast<uintptr_t>(key_s) | reinterpret_cast<uintptr_t>(packed_s) |
-                     reinterpret_cast<uintptr_t>(pos_s)) & 15) == 0;
-  const auto* key = static_cast<const long long*>(key_s);
+  const bool vec = ((reinterpret_cast<uintptr_t>(key0_s) | reinterpret_cast<uintptr_t>(key1_s) |
+                     reinterpret_cast<uintptr_t>(packed_s) | reinterpret_cast<uintptr_t>(pos_s)) &
+                    15) == 0;
+  const auto* k0 = static_cast<const long long*>(key0_s);
+  const auto* k1 = static_cast<const long long*>(key1_s);
   const auto* packed = static_cast<const int32_t*>(packed_s);
   const auto* pos = static_cast<const int32_t*>(pos_s);
   auto* jn = static_cast<uint8_t*>(junction);
   auto* fs = static_cast<int32_t*>(first);
   const auto grid = static_cast<unsigned>(tiles);
-  if (vec) {
-    class_tile_kernel<true><<<grid, kThreads, 0, s>>>(key, packed, pos, n, jn, fs, status,
-                                                      slot, counter);
+  if (k1 != nullptr) {
+    launch<2>(k0, k1, packed, pos, n, jn, fs, status, slot, counter, vec, grid, s);
   } else {
-    class_tile_kernel<false><<<grid, kThreads, 0, s>>>(key, packed, pos, n, jn, fs, status,
-                                                       slot, counter);
+    launch<1>(k0, k1, packed, pos, n, jn, fs, status, slot, counter, vec, grid, s);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess || tiles == 1) return static_cast<int>(err);

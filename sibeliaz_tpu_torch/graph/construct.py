@@ -6,17 +6,19 @@ in PyTorch around two hand-written kernels (graph/kernels.py):
   1. all chromosomes are joined with one 'N' separator and packed on the
      host into 2-bit codes plus a validity bitmap (0.375 B/position),
   2. K1 `front_half` computes, per position, the canonical k-mer key and the
-     packed extension/boundary/orientation word,
-  3. one stable torch.sort by key groups each vertex class, keeping genome
-     order inside a class,
+     packed extension/boundary/orientation word; the key is one int64 for
+     k <= 31 and two base-2^62 limbs (hi, lo) for 33 <= k <= 61,
+  3. a stable torch.sort by key groups each vertex class, keeping genome
+     order inside a class; two limbs sort as two stable passes, the low
+     limb first,
   4. K2 `class_analysis` gives each sorted row its junction verdict and the
      position of its class's first occurrence,
   5. torch ops scatter both back to genome order, rank the class-first
      positions into dense signed ids and compact the junction rows.
 
 Semantics contract: identical output to graph/oracle.py and to the JAX
-package's build_junctions (tested).  k <= 31 only; wider k and inputs whose
-graph stage does not fit the card are refused (see ROADMAP.md).
+package's build_junctions (tested).  k <= 61; inputs whose graph stage does
+not fit the card are refused (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -40,6 +42,11 @@ from sibeliaz_tpu_torch.utils.metrics import GLOBAL as metrics
 # NVIDIA H100 80GB HBM3 with a 700 W power limit (PERF.md); the bound keeps
 # ~20% headroom over that.
 PEAK_BYTES_PER_POS = 64
+# The same for two-limb keys (k >= 33: a second int64 limb, the sort's
+# second pass and its gathers): 68.2 B/position on examples/large (12 Mbp,
+# chip_smoke.py phase 6) and on the 16 Mbp strains (phase 9) at k=33, same
+# card; ~20% headroom again.
+PEAK_BYTES_PER_POS_WIDE = 82
 
 
 def pack_codes_host(codes: np.ndarray):
@@ -60,17 +67,17 @@ def pack_codes_host(codes: np.ndarray):
 
 
 def check_fits(n: int, k: int, device: torch.device, budget: int | None) -> None:
-    """Refuse what the monolithic graph stage cannot run: k > 31, positions
+    """Refuse what the monolithic graph stage cannot run: k > 61, positions
     past int32, or an input whose peak would not fit `budget` bytes (or the
     card's free memory when no budget is given)."""
     if k > kernels.MAX_K:
         raise NotImplementedError(
-            f"k={k}: the port's graph stage handles k <= {kernels.MAX_K}; "
-            "two-limb codes for 33 <= k <= 61 are ROADMAP.md queue A item 1"
+            f"k={k}: the graph stage takes k <= {kernels.MAX_K} (two 62-bit "
+            "limbs), as the JAX package does; no ROADMAP.md item goes wider"
         )
     if budget is None and device.type == "cuda":
         budget = torch.cuda.mem_get_info(device)[0]
-    need = n * PEAK_BYTES_PER_POS
+    need = n * (PEAK_BYTES_PER_POS if k <= kernels.ONE_LIMB_MAX_K else PEAK_BYTES_PER_POS_WIDE)
     if n >= 1 << 31 or (budget is not None and need > budget):
         raise NotImplementedError(
             f"{n} positions need ~{need} B of device memory for the "
@@ -86,6 +93,28 @@ def _step(name: str, device: torch.device):
         yield
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+
+
+def sort_keys(keys):
+    """Stable sort of the rows by their keys, lexicographic over the limbs
+    (as lax.sort(num_keys=len(keys), is_stable=True)): two limbs take two
+    stable passes, the low limb first, so ties keep genome order and a
+    class's first row is its first occurrence.  Takes ownership of `keys`
+    (a list, emptied here so that each buffer is freed once it is spent).
+
+    Returns (sorted keys tuple, int64 row order)."""
+    if len(keys) == 1:
+        key_s, order = torch.sort(keys.pop(), stable=True)
+        return (key_s,), order
+    lo = keys.pop()
+    lo_s, o1 = torch.sort(lo, stable=True)
+    del lo
+    hi1 = keys.pop()[o1]
+    hi_s, o2 = torch.sort(hi1, stable=True)
+    del hi1
+    order = o1[o2]
+    del o1
+    return (hi_s, lo_s[o2]), order
 
 
 def build_junctions(
@@ -120,17 +149,18 @@ def build_junctions(
         codes2 = torch.from_numpy(pk_host).to(device)
         nmask = torch.from_numpy(nm_host).to(device)
     with _step("graph_front_half", device):
-        key, packed = kernels.front_half(codes2, nmask, n, k)
+        keys, packed = kernels.front_half(codes2, nmask, n, k)
+        keys = list(keys)
         del codes2, nmask
     with _step("graph_sort", device):
-        key_s, order = torch.sort(key, stable=True)
-        del key
+        keys_s, order = sort_keys(keys)
+        del keys
         packed_s = packed[order]
         pos_s = order.to(torch.int32)
         del order
     with _step("graph_class_analysis", device):
-        junction_s, first_s = kernels.class_analysis(key_s, packed_s, pos_s)
-        del key_s, packed_s
+        junction_s, first_s = kernels.class_analysis(keys_s, packed_s, pos_s)
+        del keys_s, packed_s
     with _step("graph_ids_fetch", device):
         # back to genome order; a class's first occurrence is itself a
         # junction row, so ranking the rows where first == position gives

@@ -8,6 +8,11 @@ key-sorted rows into a junction verdict and a class-first position per
 row, in one pass over tiles of K2_TILE_ROWS rows with a decoupled
 look-back.
 
+Keys are a tuple of int64 tensors, as the JAX package's _prepare_packed
+gives them: one limb for k <= 31, two base-2^62 limbs (hi, lo) for
+32 <= k <= 61, ordered lexicographically.  Each kernel has an instance for
+each limb count.
+
 Each wrapper routes by the device of the tensors it is given: a CPU tensor
 goes to the plain PyTorch version beside it, a CUDA tensor launches the
 kernel (or raises), anything else raises.  The plain versions are the CPU
@@ -23,11 +28,13 @@ import torch
 
 from sibeliaz_tpu_torch.utils import cudabuild
 
-# Canonical key of a window that is not all ACGT or runs past the end; it
-# sorts after every real code (4^31 - 1 < 2^62).
+# Canonical key (high limb) of a window that is not all ACGT or runs past
+# the end; it sorts after every real code (4^31 - 1 < 2^62).  Its low limb,
+# where there is one, is 0.
 INVALID_CANON = 1 << 62
 _NO_EXT = 4
-MAX_K = 31
+ONE_LIMB_MAX_K = 31  # a limb holds 31 bases; wider k takes two
+MAX_K = 61  # k = 62 would let the high limb reach INVALID_CANON
 
 LAUNCHES = {"front_half": 0, "class_analysis": 0}
 
@@ -76,22 +83,36 @@ K1_TILE_POSITIONS = 2048
 
 
 def front_half_plain(codes2: torch.Tensor, nmask: torch.Tensor, n: int, k: int):
-    """Plain PyTorch K1: the math of construct._prepare_packed for k <= 31,
-    written with torch.roll (windows past the end wrap around, as there)."""
+    """Plain PyTorch K1: the math of construct._prepare_packed, written with
+    torch.roll (windows past the end wrap around, as there).  The codes
+    fwd = sum c_i 4^(k-1-i) and rc = sum (3 - c_i) 4^i are built base by
+    base as (hi, lo) limbs of base 2^62 (hi is 0 for k <= 31)."""
     idx = torch.arange(n, device=codes2.device)
     definite = ((nmask[idx >> 3].long() >> (idx & 7)) & 1) > 0
     code = (codes2[idx >> 2].long() >> ((idx & 3) * 2)) & 3
     codes = torch.where(definite, code, 0)
-    fwd = torch.zeros(n, dtype=torch.int64, device=codes2.device)
-    rc = torch.zeros_like(fwd)
+    fwd_hi, fwd_lo, rc_hi, rc_lo = (
+        torch.zeros(n, dtype=torch.int64, device=codes2.device) for _ in range(4))
     valid = idx + k <= n
     for i in range(k):
         ci = torch.roll(codes, -i)
-        fwd = (fwd << 2) | ci
-        rc = rc | ((3 - ci) << (2 * i))
         valid = valid & torch.roll(definite, -i)
-    positive = fwd < rc
-    key = torch.where(valid, torch.minimum(fwd, rc), INVALID_CANON)
+        j = k - 1 - i  # the pair of base i in fwd
+        if j >= ONE_LIMB_MAX_K:
+            fwd_hi |= ci << (2 * (j - ONE_LIMB_MAX_K))
+        else:
+            fwd_lo |= ci << (2 * j)
+        if i >= ONE_LIMB_MAX_K:
+            rc_hi |= (3 - ci) << (2 * (i - ONE_LIMB_MAX_K))
+        else:
+            rc_lo |= (3 - ci) << (2 * i)
+    positive = (fwd_hi < rc_hi) | ((fwd_hi == rc_hi) & (fwd_lo < rc_lo))
+    canon_hi = torch.where(positive, fwd_hi, rc_hi)
+    canon_lo = torch.where(positive, fwd_lo, rc_lo)
+    if k <= ONE_LIMB_MAX_K:
+        keys = (torch.where(valid, canon_lo, INVALID_CANON),)
+    else:
+        keys = (torch.where(valid, canon_hi, INVALID_CANON), torch.where(valid, canon_lo, 0))
 
     nxt_ok = torch.roll(definite, -k) & (idx + k < n)
     prv_ok = torch.roll(definite, 1) & (idx >= 1)
@@ -113,14 +134,15 @@ def front_half_plain(codes2: torch.Tensor, nmask: torch.Tensor, n: int, k: int):
         | (boundary.long() << 10)
         | (positive.long() << 11)
     ).to(torch.int32)
-    return key, packed
+    return keys, packed
 
 
 def front_half(codes2: torch.Tensor, nmask: torch.Tensor, n: int, k: int):
     """K1.  codes2: uint8 2-bit codes, four per byte (pack_codes_host);
-    nmask: uint8 definiteness bits, eight per byte; n positions; k <= 31.
+    nmask: uint8 definiteness bits, eight per byte; n positions; k <= 61.
 
-    Returns (key int64 [n], packed int32 [n]) in genome order."""
+    Returns (keys, packed int32 [n]) in genome order: keys is (key,) for
+    k <= 31 and (hi, lo) for 32 <= k <= 61, each int64 [n]."""
     kind = _route(codes2, nmask)
     if not 1 <= k <= MAX_K:
         raise ValueError(f"front_half takes 1 <= k <= {MAX_K}, got k={k}")
@@ -128,18 +150,19 @@ def front_half(codes2: torch.Tensor, nmask: torch.Tensor, n: int, k: int):
     _require(nmask, torch.uint8, -(-n // 8), "nmask")
     if kind == "cpu":
         return front_half_plain(codes2, nmask, n, k)
-    key = torch.empty(n, dtype=torch.int64, device=codes2.device)
+    limbs = 1 if k <= ONE_LIMB_MAX_K else 2
+    keys = tuple(torch.empty(n, dtype=torch.int64, device=codes2.device) for _ in range(limbs))
     packed = torch.empty(n, dtype=torch.int32, device=codes2.device)
     lib = cudabuild.load()
     _check(
         lib.sz_front_half(
-            _ptr(codes2), _ptr(nmask), n, k, _ptr(key), _ptr(packed),
-            _stream(codes2.device),
+            _ptr(codes2), _ptr(nmask), n, k, _ptr(keys[0]),
+            _ptr(keys[1]) if limbs == 2 else None, _ptr(packed), _stream(codes2.device),
         ),
         "front_half",
     )
     LAUNCHES["front_half"] += 1
-    return key, packed
+    return keys, packed
 
 
 # ---- K2: class analysis ---------------------------------------------------
@@ -153,15 +176,18 @@ K2_TILE_ROWS = 2048
 _VERDICT_BITS = (0, 1, 2, 3, 5, 6, 7, 8, 10)
 
 
-def class_analysis_plain(key_s: torch.Tensor, packed_s: torch.Tensor, pos_s: torch.Tensor):
-    """Plain PyTorch K2: per-class "contains bit b" as a scatter amax over
-    the nine bit planes the verdict reads."""
-    n = key_s.shape[0]
-    dev = key_s.device
+def class_analysis_plain(keys_s, packed_s: torch.Tensor, pos_s: torch.Tensor):
+    """Plain PyTorch K2: a class starts where any key limb changes;
+    per-class "contains bit b" as a scatter amax over the nine bit planes
+    the verdict reads."""
+    n = keys_s[0].shape[0]
+    dev = keys_s[0].device
     start = torch.ones(n, dtype=torch.bool, device=dev)
-    start[1:] = key_s[1:] != key_s[:-1]
+    start[1:] = keys_s[0][1:] != keys_s[0][:-1]
+    for key_s in keys_s[1:]:
+        start[1:] |= key_s[1:] != key_s[:-1]
     cls = torch.cumsum(start, 0) - 1
-    valid = key_s != INVALID_CANON
+    valid = keys_s[0] != INVALID_CANON
     shifts = torch.tensor(_VERDICT_BITS, dtype=torch.int32, device=dev)
     bits = ((packed_s[None, :] >> shifts[:, None]) & 1) * valid
     has = torch.zeros(len(_VERDICT_BITS), n, dtype=torch.int32, device=dev)
@@ -175,22 +201,25 @@ def class_analysis_plain(key_s: torch.Tensor, packed_s: torch.Tensor, pos_s: tor
     return junction_s, cls_first[cls]
 
 
-def class_analysis(key_s: torch.Tensor, packed_s: torch.Tensor, pos_s: torch.Tensor):
-    """K2.  key_s: int64 keys, equal keys adjacent (sorted, or any runs);
-    packed_s, pos_s: int32 packed words and genome positions in the same row
-    order.
+def class_analysis(keys_s, packed_s: torch.Tensor, pos_s: torch.Tensor):
+    """K2.  keys_s: a tuple of one or two int64 key limbs (hi first), equal
+    keys adjacent (sorted, or any runs); packed_s, pos_s: int32 packed words
+    and genome positions in the same row order.
 
     Returns (junction_s bool [n], first_s int32 [n]) in row order."""
-    kind = _route(key_s, packed_s, pos_s)
-    n = key_s.shape[0]
-    _require(key_s, torch.int64, n, "key_s")
+    if not isinstance(keys_s, (tuple, list)) or len(keys_s) not in (1, 2):
+        raise ValueError("keys_s must be a tuple of one or two key limbs")
+    kind = _route(*keys_s, packed_s, pos_s)
+    n = keys_s[0].shape[0]
+    for key_s in keys_s:
+        _require(key_s, torch.int64, n, "key_s")
     _require(packed_s, torch.int32, n, "packed_s")
     _require(pos_s, torch.int32, n, "pos_s")
-    if packed_s.shape[0] != n or pos_s.shape[0] != n:
-        raise ValueError("key_s, packed_s and pos_s differ in length")
+    if any(t.shape[0] != n for t in (*keys_s, packed_s, pos_s)):
+        raise ValueError("keys_s, packed_s and pos_s differ in length")
     if kind == "cpu":
-        return class_analysis_plain(key_s, packed_s, pos_s)
-    dev = key_s.device
+        return class_analysis_plain(keys_s, packed_s, pos_s)
+    dev = packed_s.device
     junction_s = torch.empty(n, dtype=torch.bool, device=dev)
     first_s = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
@@ -199,7 +228,8 @@ def class_analysis(key_s: torch.Tensor, packed_s: torch.Tensor, pos_s: torch.Ten
     scratch = torch.empty(lib.sz_class_scratch_bytes(n), dtype=torch.uint8, device=dev)
     _check(
         lib.sz_class_analysis(
-            _ptr(key_s), _ptr(packed_s), _ptr(pos_s), n,
+            _ptr(keys_s[0]), _ptr(keys_s[1]) if len(keys_s) == 2 else None,
+            _ptr(packed_s), _ptr(pos_s), n,
             _ptr(junction_s), _ptr(first_s), _ptr(scratch), _stream(dev),
         ),
         "class_analysis",

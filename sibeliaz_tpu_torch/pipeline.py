@@ -49,9 +49,12 @@ def build_table(
 
 def check_engine(engine: str) -> None:
     if engine != "native":
+        # the fused device engine is its own item; the others run on the
+        # oracle engine (sibeliaz_tpu/pipeline.py:57-68)
+        item = "A9" if engine == "tpu-fused" else "A7"
         raise NotImplementedError(
             f"--lcb-engine {engine}: the port runs the native LCB engine "
-            "only; the device LCB engines are ROADMAP.md queue A item 6"
+            f"only; this engine is ROADMAP.md item {item}"
         )
 
 

@@ -96,11 +96,11 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(build()[0])
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     signatures = {
-        "sz_front_half": [vp, vp, i64, i32, vp, vp, vp],
+        "sz_front_half": [vp, vp, i64, i32, vp, vp, vp, vp],
         "sz_front_half_tile_positions": [],
         "sz_class_tile_rows": [],
         "sz_class_scratch_bytes": [i64],
-        "sz_class_analysis": [vp, vp, vp, i64, vp, vp, vp, vp],
+        "sz_class_analysis": [vp, vp, vp, vp, i64, vp, vp, vp, vp],
         "sz_poa_dp_tb": ([vp] * 7 + [i32] * 5 + [vp, vp, i32] + [vp] * 5
                          + [i32, vp] + [i32] * 3
                          + [ctypes.POINTER(ctypes.c_float), vp]),

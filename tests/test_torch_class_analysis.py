@@ -1,6 +1,7 @@
 """K2 class_analysis (plain PyTorch path) against the JAX package's
 production class-analysis core, construct._v7_core_cummax2, on the same
-sorted rows.  All comparisons are exact."""
+sorted rows (one key limb for k <= 31, two above), and against a numpy
+per-run oracle on hand-laid runs.  All comparisons are exact."""
 
 import jax
 import jax.numpy as jnp
@@ -11,25 +12,25 @@ import torch
 from sibeliaz_tpu.graph import construct as jax_construct
 from sibeliaz_tpu_torch.graph import construct, kernels
 
-from torch_cases import CLASS_RUN_KINDS, class_case, class_runs
+from torch_cases import CLASS_RUN_KINDS, LIMB_SPLITS, class_case, class_runs, split_limbs
 
 _core = jax.jit(jax_construct._v7_core_cummax2, static_argnums=(1,))
 
 
 def port_core(codes, k):
     pk_host, nm_host = construct.pack_codes_host(codes)
-    key, packed = kernels.front_half(
+    keys, packed = kernels.front_half(
         torch.from_numpy(pk_host), torch.from_numpy(nm_host), len(codes), k
     )
-    key_s, order = torch.sort(key, stable=True)
+    keys_s, order = construct.sort_keys(list(keys))
     packed_s = packed[order]
     pos_s = order.to(torch.int32)
-    junction_s, first_s = kernels.class_analysis(key_s, packed_s, pos_s)
+    junction_s, first_s = kernels.class_analysis(keys_s, packed_s, pos_s)
     return junction_s.numpy(), first_s.numpy(), pos_s.numpy(), packed_s.numpy()
 
 
 @pytest.mark.parametrize("case", ["repeat_heavy", "poly_a", "n_separated"])
-@pytest.mark.parametrize("k", [9, 15, 25])
+@pytest.mark.parametrize("k", [9, 15, 25, 33, 45])
 def test_plain_matches_cummax2(case, k):
     codes = class_case(case)
     want_j, want_first, want_idx, want_packed, _ = (
@@ -80,7 +81,7 @@ def test_plain_matches_run_oracle_on_hand_laid_runs(kind, extra):
     n = kernels.K2_TILE_ROWS + extra
     key, packed, pos = class_runs(kind, n, kernels.K2_TILE_ROWS)
     got_j, got_first = kernels.class_analysis(
-        torch.from_numpy(key), torch.from_numpy(packed), torch.from_numpy(pos))
+        (torch.from_numpy(key),), torch.from_numpy(packed), torch.from_numpy(pos))
     want_j, want_first = run_oracle(key, packed, pos)
     assert np.array_equal(got_j.numpy(), want_j)
     assert np.array_equal(got_first.numpy(), want_first)
@@ -88,6 +89,22 @@ def test_plain_matches_run_oracle_on_hand_laid_runs(kind, extra):
         assert want_j.any() and not want_j.all()
     if kind.startswith("one_run"):
         assert want_j.all() == (kind == "one_run") and (want_first == pos[0]).all()
+
+
+@pytest.mark.parametrize("split", LIMB_SPLITS)
+@pytest.mark.parametrize("kind", CLASS_RUN_KINDS)
+def test_plain_matches_run_oracle_on_two_limb_runs(kind, split):
+    """The hand-laid runs with their keys split over two limbs: run
+    boundaries on the high limb only, on the low limb only, or on both."""
+    n = 3 * kernels.K2_TILE_ROWS + 5
+    key, packed, pos = class_runs(kind, n, kernels.K2_TILE_ROWS)
+    hi, lo = split_limbs(key, split)
+    got_j, got_first = kernels.class_analysis(
+        (torch.from_numpy(hi), torch.from_numpy(lo)), torch.from_numpy(packed),
+        torch.from_numpy(pos))
+    want_j, want_first = run_oracle(key, packed, pos)
+    assert np.array_equal(got_j.numpy(), want_j)
+    assert np.array_equal(got_first.numpy(), want_first)
 
 
 def test_hot_class_is_one_junction_class():
@@ -105,10 +122,17 @@ def test_hot_class_is_one_junction_class():
 def test_wrapper_checks_inputs():
     key = torch.zeros(4, dtype=torch.int64)
     packed = torch.zeros(4, dtype=torch.int32)
+    pos = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError):
-        kernels.class_analysis(key, packed, torch.zeros(4, dtype=torch.int64))
+        kernels.class_analysis((key,), packed, torch.zeros(4, dtype=torch.int64))
     with pytest.raises(ValueError):
-        kernels.class_analysis(key, packed, torch.zeros(3, dtype=torch.int32))
+        kernels.class_analysis((key,), packed, torch.zeros(3, dtype=torch.int32))
     with pytest.raises(ValueError):
-        kernels.class_analysis(key.to("meta"), packed.to("meta"),
+        kernels.class_analysis((key.to("meta"),), packed.to("meta"),
                                torch.zeros(4, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError):  # keys are a tuple of limbs
+        kernels.class_analysis(key, packed, pos)
+    with pytest.raises(ValueError):
+        kernels.class_analysis((key, key, key), packed, pos)
+    with pytest.raises(ValueError):
+        kernels.class_analysis((key, key[:3]), packed, pos)

@@ -12,12 +12,13 @@ import torch
 
 from sibeliaz_tpu_torch.align import device_poa, poa_ref
 from sibeliaz_tpu_torch.align import kernels as align_kernels
-from sibeliaz_tpu_torch.graph import construct, kernels
+from sibeliaz_tpu_torch.core import alphabet
+from sibeliaz_tpu_torch.graph import construct, kernels, oracle
 from sibeliaz_tpu_torch.utils import cudabuild
 
-from torch_cases import (CLASS_RUN_KINDS, K1_KINDS, class_case, class_runs,
+from torch_cases import (CLASS_RUN_KINDS, K1_KINDS, LIMB_SPLITS, class_case, class_runs,
                          codes_with_n_runs, edge_band_round, k1_case, poa_case, poa_round,
-                         rand_block, spread_slots)
+                         rand_block, split_limbs, spread_slots)
 
 pytestmark = pytest.mark.gpu
 
@@ -41,10 +42,10 @@ def test_front_half_matches_plain(cuda, k, n):
     codes = codes_with_n_runs(k, n, n // 500, n_at_ends=True)
     codes2, nmask = upload(codes, cuda)
     before = kernels.LAUNCHES["front_half"]
-    key, packed = kernels.front_half(codes2, nmask, n, k)
+    (key,), packed = kernels.front_half(codes2, nmask, n, k)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["front_half"] == before + 1
-    want_key, want_packed = kernels.front_half_plain(codes2, nmask, n, k)
+    (want_key,), want_packed = kernels.front_half_plain(codes2, nmask, n, k)
     assert torch.equal(key, want_key)
     assert torch.equal(packed, want_packed)
 
@@ -52,13 +53,15 @@ def test_front_half_matches_plain(cuda, k, n):
 def assert_front_half_matches_plain(codes2, nmask, n, k):
     """K1 twice in a row on the same inputs, each equal to the plain
     version."""
-    want = kernels.front_half_plain(codes2, nmask, n, k)
+    want_keys, want_packed = kernels.front_half_plain(codes2, nmask, n, k)
+    assert len(want_keys) == (1 if k <= 31 else 2)
     before = kernels.LAUNCHES["front_half"]
     for _ in range(2):
-        key, packed = kernels.front_half(codes2, nmask, n, k)
+        keys, packed = kernels.front_half(codes2, nmask, n, k)
         torch.cuda.synchronize()
-        assert torch.equal(key, want[0])
-        assert torch.equal(packed, want[1])
+        assert len(keys) == len(want_keys)
+        assert all(torch.equal(a, b) for a, b in zip(keys, want_keys))
+        assert torch.equal(packed, want_packed)
     assert kernels.LAUNCHES["front_half"] == before + 2
 
 
@@ -91,6 +94,33 @@ def test_front_half_takes_views_off_alignment(cuda, offset, n):
     assert_front_half_matches_plain(view2, viewm, n, 25)
 
 
+# the two-limb instance: n around k, the tile, and the 64-position halo
+# (tile 1 is the first edge-free tile from n = 2 T1 + 64 on); k=32 is its
+# tightest case: one base in the high limb and a run of 0 past the first 32
+@pytest.mark.parametrize("k,n", sorted({
+    (k, n) for k in (32, 33, 45, 61)
+    for n in (1, k - 1, k, k + 1, T1 - 1, T1, T1 + 1, 2 * T1 + 63, 2 * T1 + 64,
+              2 * T1 + 65, 3 * T1 + 5, (1 << 22) + 3)}))
+def test_front_half_two_limbs_at_tile_edges_and_tiny_n(cuda, k, n):
+    codes2, nmask = upload(codes_with_n_runs(k + n, n, n // 300, n_at_ends=n > 8), cuda)
+    assert_front_half_matches_plain(codes2, nmask, n, k)
+
+
+@pytest.mark.parametrize("k", [32, 33, 45, 61])
+@pytest.mark.parametrize("kind", K1_KINDS)
+def test_front_half_two_limbs_on_inputs_the_engine_never_makes(cuda, kind, k):
+    n = 5 * T1 + 3
+    codes2, nmask = (torch.from_numpy(a).to(cuda) for a in k1_case(kind, n, T1))
+    assert_front_half_matches_plain(codes2, nmask, n, k)
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+def test_front_half_two_limbs_take_views_off_alignment(cuda, offset):
+    n = (1 << 20) + 7
+    codes2, nmask = (torch.from_numpy(a).to(cuda) for a in k1_case("random_bytes", n + 64, T1))
+    assert_front_half_matches_plain(codes2[offset:], nmask[offset:], n, 45)
+
+
 def test_front_half_tile_is_the_kernels(cuda):
     """The tests lay their N runs out by the kernel's own tile."""
     assert cudabuild.load().sz_front_half_tile_positions() == T1
@@ -100,31 +130,36 @@ def test_front_half_tile_is_the_kernels(cuda):
 def test_class_analysis_matches_plain(cuda, case):
     codes = class_case(case)
     codes2, nmask = upload(codes, cuda)
-    key, packed = kernels.front_half(codes2, nmask, len(codes), 15)
-    key_s, order = torch.sort(key, stable=True)
+    keys, packed = kernels.front_half(codes2, nmask, len(codes), 15)
+    keys_s, order = construct.sort_keys(list(keys))
     packed_s, pos_s = packed[order], order.to(torch.int32)
     before = kernels.LAUNCHES["class_analysis"]
-    got = kernels.class_analysis(key_s, packed_s, pos_s)
+    got = kernels.class_analysis(keys_s, packed_s, pos_s)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["class_analysis"] == before + 1
-    want = kernels.class_analysis_plain(key_s, packed_s, pos_s)
+    want = kernels.class_analysis_plain(keys_s, packed_s, pos_s)
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[1], want[1])
 
 
-def assert_class_analysis_matches_plain(key_s, packed_s, pos_s):
+def assert_class_analysis_matches_plain(keys_s, packed_s, pos_s):
     """K2 twice in a row on the same rows (the tile counter and status words
     are reset per call), each equal to the plain version."""
-    want = kernels.class_analysis_plain(key_s, packed_s, pos_s)
+    want = kernels.class_analysis_plain(keys_s, packed_s, pos_s)
     for _ in range(2):
-        got = kernels.class_analysis(key_s, packed_s, pos_s)
+        got = kernels.class_analysis(keys_s, packed_s, pos_s)
         torch.cuda.synchronize()
         assert torch.equal(got[0], want[0])
         assert torch.equal(got[1], want[1])
 
 
-def run_rows(kind, n, tile, device):
-    return [torch.from_numpy(a).to(device) for a in class_runs(kind, n, tile)]
+def run_rows(kind, n, tile, device, split=None):
+    """class_runs' rows on `device` as (keys, packed, pos); with `split`,
+    the keys over two limbs (torch_cases.split_limbs)."""
+    key, packed, pos = class_runs(kind, n, tile)
+    keys = (key,) if split is None else split_limbs(key, split)
+    return (tuple(torch.from_numpy(a).to(device) for a in keys),
+            torch.from_numpy(packed).to(device), torch.from_numpy(pos).to(device))
 
 
 T = kernels.K2_TILE_ROWS
@@ -138,6 +173,22 @@ def test_class_analysis_matches_plain_on_hand_laid_runs(cuda, kind, n):
     assert kernels.LAUNCHES["class_analysis"] == before + 2
 
 
+@pytest.mark.parametrize("n", [1, T + 1, 3 * T + 5, 1 << 22])
+@pytest.mark.parametrize("split", LIMB_SPLITS)
+@pytest.mark.parametrize("kind", CLASS_RUN_KINDS)
+def test_class_analysis_two_limbs_on_hand_laid_runs(cuda, kind, split, n):
+    """Run boundaries on the high limb only, the low limb only, or both."""
+    before = kernels.LAUNCHES["class_analysis"]
+    assert_class_analysis_matches_plain(*run_rows(kind, n, T, cuda, split))
+    assert kernels.LAUNCHES["class_analysis"] == before + 2
+
+
+@pytest.mark.parametrize("kind", ["tile_edges", "invalid_middle", "one_run"])
+def test_class_analysis_two_limbs_off_16_byte_alignment(cuda, kind):
+    (hi, lo), packed, pos = run_rows(kind, 3 * T + 6, T, cuda, "both")
+    assert_class_analysis_matches_plain((hi[1:], lo[1:]), packed[1:], pos[1:])
+
+
 def test_class_analysis_tile_is_the_kernels(cuda):
     """The hand-laid runs are laid out by the kernel's own tile."""
     assert cudabuild.load().sz_class_tile_rows() == T
@@ -145,18 +196,28 @@ def test_class_analysis_tile_is_the_kernels(cuda):
 
 @pytest.mark.parametrize("kind", ["tile_edges", "invalid_middle", "one_run"])
 def test_class_analysis_takes_rows_off_16_byte_alignment(cuda, kind):
-    key, packed, pos = run_rows(kind, 3 * T + 6, T, cuda)
-    assert_class_analysis_matches_plain(key[1:], packed[1:], pos[1:])
+    (key,), packed, pos = run_rows(kind, 3 * T + 6, T, cuda)
+    assert_class_analysis_matches_plain((key[1:],), packed[1:], pos[1:])
 
 
 @pytest.mark.parametrize("rows", [T - 1, T, T + 1])
 def test_class_analysis_when_the_hot_class_fills_a_tile(cuda, rows):
     codes = class_case("poly_a_rows", rows=rows, k=15)
     codes2, nmask = upload(codes, cuda)
-    key, packed = kernels.front_half(codes2, nmask, len(codes), 15)
-    key_s, order = torch.sort(key, stable=True)
-    assert int((key_s == 0).sum()) == rows
-    assert_class_analysis_matches_plain(key_s, packed[order], order.to(torch.int32))
+    keys, packed = kernels.front_half(codes2, nmask, len(codes), 15)
+    keys_s, order = construct.sort_keys(list(keys))
+    assert int((keys_s[0] == 0).sum()) == rows
+    assert_class_analysis_matches_plain(keys_s, packed[order], order.to(torch.int32))
+
+
+def test_class_analysis_two_limbs_poly_a_class(cuda):
+    """A poly-A class of T + 1 rows at k=45 (key (0, 0)) through K1."""
+    codes = class_case("poly_a_rows", rows=T + 1, k=45)
+    codes2, nmask = upload(codes, cuda)
+    keys, packed = kernels.front_half(codes2, nmask, len(codes), 45)
+    keys_s, order = construct.sort_keys(list(keys))
+    assert int(((keys_s[0] == 0) & (keys_s[1] == 0)).sum()) == T + 1
+    assert_class_analysis_matches_plain(keys_s, packed[order], order.to(torch.int32))
 
 
 def test_build_junctions_cuda_matches_cpu(cuda):
@@ -170,6 +231,29 @@ def test_build_junctions_cuda_matches_cpu(cuda):
     got = construct.build_junctions(seqs, 15, cuda)
     want = construct.build_junctions(seqs, 15, "cpu")
     for a, b in zip(got, want):
+        assert np.array_equal(a.pos, b.pos) and np.array_equal(a.ids, b.ids)
+
+
+def wide_pair(seed=3, n=12000):
+    """tests/test_graph.py::TestWideK._pair, without JAX: a random genome
+    with an N run, and a copy with 2% substitutions and an inversion."""
+    rng = np.random.default_rng(seed)
+    base = alphabet.decode(rng.integers(0, 4, size=n).astype(np.uint8))
+    mut = base.copy()
+    for p in np.flatnonzero(rng.random(len(mut)) < 0.02):
+        mut[p] = alphabet.decode(np.uint8(rng.integers(0, 4)))
+    mut[2000:3000] = alphabet.reverse_complement(mut[2000:3000])
+    base[100:130] = ord("N")
+    return [base, mut]
+
+
+@pytest.mark.parametrize("k", [33, 61])
+def test_build_junctions_two_limbs_cuda_matches_oracle(cuda, k):
+    seqs = wide_pair()
+    before = dict(kernels.LAUNCHES)
+    got = construct.build_junctions(seqs, k, cuda)
+    assert all(kernels.LAUNCHES[name] == before[name] + 1 for name in before)
+    for a, b in zip(got, oracle.enumerate_junctions(seqs, k)):
         assert np.array_equal(a.pos, b.pos) and np.array_equal(a.ids, b.ids)
 
 

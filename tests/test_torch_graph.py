@@ -1,9 +1,12 @@
 """The port's graph stage (build_junctions on the CPU path) against the JAX
 package's build_junctions and the brute-force oracle, on the cases of
-tests/test_graph.py::TestConstructParity."""
+tests/test_graph.py::TestConstructParity and ::TestWideK (two-limb keys,
+33 <= k <= 61)."""
 
 import numpy as np
 import pytest
+
+import test_graph
 
 from sibeliaz_tpu.graph import construct as jax_construct
 from sibeliaz_tpu.graph import oracle as jax_oracle
@@ -58,10 +61,23 @@ def test_short_input():
     assert construct.build_junctions([], 5, "cpu") == []
 
 
+@pytest.mark.parametrize("k", [33, 45, 61])
+def test_wide_k_parity(k):
+    check_all(test_graph.TestWideK._pair(None), k)
+
+
+def test_limb_boundary_parity():
+    """k=31 (the last one-limb k) and k=33 (the first two-limb k) on the
+    same input."""
+    seqs = test_graph.TestWideK._pair(None, seed=9, n=6000)
+    for k in (31, 33):
+        check_all(seqs, k)
+
+
 def test_wide_k_is_refused():
     seq = alphabet.str_to_seq("ACGT" * 30)
-    with pytest.raises(NotImplementedError, match="queue A item 1"):
-        construct.build_junctions([seq], 33, "cpu")
+    with pytest.raises(NotImplementedError, match="k <= 61"):
+        construct.build_junctions([seq], 63, "cpu")
 
 
 def test_memory_guard_refuses():
@@ -75,4 +91,15 @@ def test_memory_guard_refuses():
         [seq], 15, "cpu",
         memory_budget_bytes=len(seq) * construct.PEAK_BYTES_PER_POS,
     )
+    assert len(recs[0].pos) > 0
+
+
+def test_memory_guard_refuses_wide_k():
+    """Two-limb keys take their own per-position peak."""
+    seq = alphabet.str_to_seq("ACGT" * 300)
+    need = len(seq) * construct.PEAK_BYTES_PER_POS_WIDE
+    assert construct.PEAK_BYTES_PER_POS_WIDE > construct.PEAK_BYTES_PER_POS
+    with pytest.raises(NotImplementedError, match="queue A item 3"):
+        construct.build_junctions([seq], 33, "cpu", memory_budget_bytes=need - 1)
+    recs = construct.build_junctions([seq], 33, "cpu", memory_budget_bytes=need)
     assert len(recs[0].pos) > 0

@@ -120,8 +120,8 @@ def test_cli_help(capsys):
 @pytest.mark.parametrize(
     "extra,message",
     [
-        (["-n", "--lcb-engine", "oracle"], "queue A item 6"),
-        (["-n", "--lcb-engine", "tpu-fused"], "queue A item 6"),
+        (["-n", "--lcb-engine", "oracle"], "item A7"),
+        (["-n", "--lcb-engine", "tpu-fused"], "item A9"),
     ],
 )
 def test_cli_refuses(tmp_path, extra, message):
@@ -140,6 +140,22 @@ def test_cli_refuses_cuda_without_card(tmp_path):
 
 
 def test_cli_refuses_wide_k(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue A item 1"):
-        run(["-k", "33", "-n", "--device", "cpu", "-o", str(tmp_path),
+    """k = 63 is past two limbs: Config refuses it, as the JAX package's."""
+    with pytest.raises(ValueError, match=r"\[3, 61\]"):
+        run(["-k", "63", "-n", "--device", "cpu", "-o", str(tmp_path),
              *EXAMPLE_FASTAS])
+    with pytest.raises(ValueError, match=r"\[3, 61\]"):
+        JaxConfig(k=63)
+
+
+def test_cli_wide_k_matches_jax_cli(tmp_path):
+    """tests/test_cli.py::test_cli_wide_k_cross_engine's input at k=33
+    (two-limb keys): the port's GFF byte-equal to the JAX package's."""
+    seqs, names = random_related_genomes(52, length=2500, mut=0.02)
+    fa = write_inputs(tmp_path, seqs, names)
+    out_j, out_p = tmp_path / "jax", tmp_path / "port"
+    assert jax_run(["-k", "33", "-n", "-o", str(out_j), fa]) == 0
+    assert run(["-k", "33", "-n", "--device", "cpu", "-o", str(out_p), fa]) == 0
+    gff = (out_p / "blocks_coords.gff").read_bytes()
+    assert gff == (out_j / "blocks_coords.gff").read_bytes()
+    assert b"SO:0000856" in gff

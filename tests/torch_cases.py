@@ -187,6 +187,23 @@ def class_runs(kind, n, tile, seed=0):
     return key, packed.astype(np.int32), pos.astype(np.int32)
 
 
+LIMB_SPLITS = ("hi", "lo", "both")
+
+
+def split_limbs(key, split):
+    """One-limb keys as two-limb keys (hi, lo) with the same runs: the runs
+    change on the high limb alone (`hi`: lo is 0 throughout), on the low
+    limb alone (`lo`: hi is 0 on every valid row) or on both (`both`: the
+    low 20 bits in lo, the rest in hi, so class_runs' steps of 1 change lo,
+    of 2^32 hi, and random steps mostly both).  An invalid key stays
+    invalid: (INVALID_CANON, 0)."""
+    valid = key != INVALID_CANON
+    hi, lo = {"hi": (key, np.zeros_like(key)),
+              "lo": (np.zeros_like(key), key),
+              "both": (key >> 20, key & ((1 << 20) - 1))}[split]
+    return np.where(valid, hi, INVALID_CANON), np.where(valid, lo, 0)
+
+
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 
 
