@@ -45,10 +45,27 @@ Phases, in order; any failure raises and the exit code is non-zero:
      against its plain version on the run's largest dispatch;
   9. timed pass: the CLI on the 16 x 1 Mbp strain workload (k=15, twice;
      then once at k=33), with the graph stage's steps, LCB and total
-     seconds, input Mbp/s and the peak device bytes per position.
+     seconds, input Mbp/s and the peak device bytes per position;
+ 10. streamed graph stage: (a) K4 round_append against its plain version,
+     exact, on hand-laid chunks (tests/torch_cases.py's round_rows) and on
+     K1's outputs for 2^22-position chunks (one and two limbs; G = 1 and 8
+     of 8, and the main paths' shapes at their plans' caps: G = 2 of 8 and
+     4 of 4), with times and bounds; (b) examples/large through the pipeline
+     at a budget that cuts it into 8 rounds, 2 a pass, at k=25 and k=33,
+     each GFF held to its golden, the peak to the budget and one round's
+     epilogue to its per-row constant; (c) the CLI with -k 33 -n -f 1 on
+     the strains, whose 1 GB budget routes them to the streamed stage: the
+     GFF equal to phase 9's k=33 GFF; (d) full size through
+     construct.build_junctions: 2 x 512 Mbp at k=25 streamed (a budget of
+     4 passes) against monolithic, and 2 x 1.1 Gbp at k=25 (2.2e9
+     positions, past 2^31), which routes to the streamed stage by itself,
+     each with its stage seconds, passes, rounds, junctions and peak bytes
+     per position.
 The last two lines are a JSON summary of the kernels (time, plain time,
 bound, launches per main path; K1's and K2's "ms" are their one-limb
-instances' and "by_limbs" holds both instances') and {"ok": true, "device": {...}}.  It
+instances' and "by_limbs" holds both instances'; K4's "ms" is its shape on
+the examples/large streamed passes, named in "shape", and "by_shape" holds
+its eight timed shapes) and {"ok": true, "device": {...}}.  It
 imports neither jax nor sibeliaz_tpu.
 """
 
@@ -81,6 +98,21 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_B_PER_POSITION = 52.2
 PEAK_B_PER_POSITION_WIDE = 68.2
 SMS, INT32_LANES_PER_SM = 132, 64  # H100 SXM: 64 int32 lanes on each of 132 SMs
+# What K4's function needs per row: the round hash (a 64-bit multiply as
+# three 32-bit multiply-adds; two limbs: two and an XOR), its shift and
+# mask (2), the modulo by n_rounds (about 12 as a multiply by the inverse
+# and a correction) and the keep test (4); per kept row: its rank among its
+# round's rows (a match and a population count, 4) and the payload (3).
+K4_OPS_PER_ROW = 21
+K4_OPS_PER_ROW_WIDE = 29
+K4_OPS_PER_KEPT_ROW = 7
+# the full-size pairs of phase 10d: bases per copy
+PAIR_512M, PAIR_1100M = 512_000_000, 1_100_000_000
+
+
+# the graph kernels of the monolithic stage's path (K4 runs on the streamed
+# stage's alone)
+MONOLITHIC_KERNELS = ("front_half", "class_analysis")
 
 
 def check(cond, msg):
@@ -631,7 +663,7 @@ def golden_mafs(torch, cli, metrics, kernels, align_kernels, out_dir):
         check(maf_body(os.path.join(out, "alignment.maf")) == golden,
               f"examples/ MAF ({engine} engine) differs from the golden")
         if engine == "tpu":
-            check(all(v > 0 for v in launches.values()),
+            check(all(launches[name] > 0 for name in MONOLITHIC_KERNELS + ("poa_dp_tb",)),
                   f"a kernel was not launched on the CLI path: {launches}")
             check(counts["poa_blocks_dispatched"] == 11 and counts["poa_native_redo"] == 0
                   and counts["poa_native_routed"] == 0,
@@ -724,6 +756,348 @@ def regenerate_large(alphabet, fasta, out_dir):
         large_fa.append(path)
     print("examples/large inputs regenerated; SHA-256 digests match")
     return large_fa
+
+
+def synth_pair(alphabet, seed, length):
+    """benchmarks/run_configs.py::synth's recipe for two genomes of one
+    chromosome each (chromosome-k25-1g's shape: a random ancestor, each copy
+    with 1% substitutions, no inversion), drawn as uint8 with the
+    substitution sites by count, so that the host holds O(length) bytes and
+    no float per position."""
+    rng = np.random.default_rng(seed)
+    ancestor = alphabet.decode(rng.integers(0, 4, size=length, dtype=np.uint8))
+    seqs = []
+    for _g in range(2):
+        s = ancestor.copy()
+        sites = rng.integers(0, length, size=int(rng.binomial(length, 0.01)))
+        s[sites] = alphabet.decode(rng.integers(0, 4, size=len(sites), dtype=np.uint8))
+        seqs.append(s)
+    return seqs
+
+
+def round_append_vs_plain(torch, kernels, chunks, r0, n_rounds, G, cap):
+    """K4 and its plain version over the same chunks ((keys, packed, gpos0)
+    on the card, appended in turn), each into its own G x cap buffers filled
+    with -7, one run after the other: the max abs difference over the
+    buffers, cursors and flag, and K4's cursors.  Only the first R rows of
+    each round (R: K4's largest cursor, at most cap) are kept for the
+    comparison; a run that wrote a row past them fails the check (its error
+    is the written value's distance from -7), so that buffers of a full-size
+    plan's cap need not be held twice."""
+    limbs, dev = len(chunks[0][0]), chunks[0][1].device
+    runs, err = [], 0
+    for fn in (kernels.round_append, kernels.round_append_plain):
+        bufs = [torch.full((G, cap), -7, dtype=torch.int64, device=dev) for _ in range(limbs + 1)]
+        cursors = torch.zeros(G, dtype=torch.int64, device=dev)
+        overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+        for keys, packed, gpos0 in chunks:
+            fn(keys, packed, gpos0, r0, n_rounds, tuple(bufs[:limbs]), bufs[limbs], cursors,
+               overflow)
+        torch.cuda.synchronize()
+        if not runs:
+            rows = min(cap, int(cursors.max()))
+        for b in bufs:
+            tail = b[:, rows:]
+            if bool((tail != -7).any()):
+                err = max(err, int((tail[tail != -7] + 7).abs().max()))
+        runs.append(([b[:, :rows].clone() for b in bufs], cursors, overflow.long()))
+        del bufs
+    (heads_a, *rest_a), (heads_b, *rest_b) = runs
+    err = max(err, *(int((a - b).abs().max()) for a, b in zip(heads_a + rest_a,
+                                                                heads_b + rest_b)
+                     if a.numel()))
+    return err, runs[0][1]
+
+
+def k4_hand_laid(torch, dev, kernels, cases):
+    """K4 against its plain version on hand-laid chunks of T - 1, 3T and
+    T + 5 rows (T = the kernel's tile): every kind of round_rows, one and two
+    limbs, one round of one and G = 8 of 8.  Returns the max abs error."""
+    T = kernels.K4_TILE_ROWS
+    err = 0
+    for kind in cases.ROUND_ROW_KINDS:
+        for limbs in (1, 2):
+            chunks, gpos0 = [], 1
+            for c, m in enumerate((T - 1, 3 * T, T + 5)):
+                keys, packed = cases.round_rows(kind, m, limbs, seed=c)
+                chunks.append((tuple(torch.from_numpy(x).to(dev) for x in keys),
+                               torch.from_numpy(packed).to(dev), gpos0))
+                gpos0 += m
+            for r0, n_rounds, G in ((0, 1, 1), (0, 8, 8), (30, 100, 64)):
+                e, _cur = round_append_vs_plain(torch, kernels, chunks, r0, n_rounds, G, gpos0)
+                check(e == 0, f"round_append differs from its plain version ({kind}, "
+                              f"{limbs} limb(s), G={G})")
+                err = max(err, e)
+    print(f"round_append on hand-laid chunks: equal ({len(cases.ROUND_ROW_KINDS)} kinds x one "
+          f"and two limbs x G 1, 8, 64)")
+    return err
+
+
+def k4_full_size(torch, dev, alphabet, construct, streamed, kernels, peak_ops, ns):
+    """K4 on K1's outputs for a 2^22-position chunk of random codes with N
+    runs (k=25: one limb; k=33: two), as the streamed stage hands them over
+    (window offsets 1..2^22), in four shapes: G=1 (round 3 of 8) and G=8 of
+    8 into buffers with room for two chunks; G=2 of 8 from round 2, the
+    shape of examples/large's streamed passes, and G=4 of 4, the shape of
+    the 2 x 1.1 Gbp pass (one limb) and of the strains' -f 1 pass (two
+    limbs), each with the cap that streamed.plan gives that run (ns: its
+    positions).  Exact against the plain version over two chunks in a row;
+    then its time over 20 launches into buffers with room for all of them,
+    the plain version's, and the bound (every row's keys read once, each
+    kept row's word read and its keys and payload written once; operations:
+    the hash, modulo and keep test a row, the rank and payload a kept row).
+    Returns {label: dict}."""
+    m = 1 << 22
+    rng = np.random.default_rng(4)
+    out = {}
+    torch.cuda.empty_cache()
+    for limbs, k in ((1, 25), (2, 33)):
+        codes = rng.integers(0, 4, size=m + k + 2).astype(np.uint8)
+        for lo in rng.integers(0, m, size=500):
+            codes[lo : lo + int(rng.integers(1, 500))] = alphabet.BAD_CODE
+        pk_h, nm_h = construct.pack_codes_host(codes)
+        keys, packed = kernels.front_half(torch.from_numpy(pk_h).to(dev),
+                                          torch.from_numpy(nm_h).to(dev), m + k + 2, k)
+        keys, packed = tuple(x[1 : m + 1] for x in keys), packed[1 : m + 1]
+        g4_path = "2 x 1.1 Gbp" if limbs == 1 else "strains -k 33 -n -f 1"
+        for r0, n_rounds, G, path in ((3, 8, 1, None), (0, 8, 8, None),
+                                      (2, 8, 2, f"examples/large streamed k={k}"),
+                                      (0, 4, 4, g4_path)):
+            label = f"{limbs} limb(s) G={G} of {n_rounds}"
+            cap = 2 * m if path is None else streamed.plan(ns[path], k, 1 << 22, 1.25, None,
+                                                           n_rounds).cap
+            err, cursors = round_append_vs_plain(
+                torch, kernels, [(keys, packed, 1), (keys, packed, 1 + m)], r0, n_rounds, G, cap)
+            check(err == 0, f"round_append differs from its plain version ({label}, cap {cap})")
+            kept = int(cursors.sum()) // 2
+            reps = 20
+            room = int((reps + 2) * (cursors.max().item() // 2) * 1.05)
+            bufs = [torch.empty((G, room), dtype=torch.int64, device=dev)
+                    for _ in range(limbs + 1)]
+            cur = torch.zeros(G, dtype=torch.int64, device=dev)
+            ovf = torch.zeros(1, dtype=torch.int32, device=dev)
+            ms = cuda_ms(torch, lambda: kernels.round_append(
+                keys, packed, 1, r0, n_rounds, tuple(bufs[:limbs]), bufs[limbs], cur, ovf), reps)
+            check(int(ovf) == 0, f"round_append timing overflowed ({label})")
+            del bufs
+            pbufs = [torch.empty((G, m), dtype=torch.int64, device=dev)
+                     for _ in range(limbs + 1)]
+            plain_ms = cuda_ms(torch, lambda: (cur.zero_(), kernels.round_append_plain(
+                keys, packed, 1, r0, n_rounds, tuple(pbufs[:limbs]), pbufs[limbs], cur, ovf)), 3)
+            del pbufs
+            ops = (K4_OPS_PER_ROW if limbs == 1 else K4_OPS_PER_ROW_WIDE) * m \
+                + K4_OPS_PER_KEPT_ROW * kept
+            bound, by = bound_ms(m * 8 * limbs + kept * (8 * limbs + 12), ops, peak_ops)
+            print(f"round_append {label} (round {r0} on, cap {cap}"
+                  f"{'' if path is None else ': ' + path}), 2^22 rows of K1's k={k} outputs: "
+                  f"equal, {kept} kept | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | bound "
+                  f"{bound:.4f} ms by {by} = {100 * bound / ms:.4f}% of the kernel's time")
+            out[label] = {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                          "bound_by": by, "kept": kept, "r0": r0, "cap": cap, "path": path}
+    return out
+
+
+def streamed_counts(metrics, kernels):
+    """The streamed stage's passes, rounds, rounds a pass, retries and stage
+    seconds, and the launches of the run."""
+    c = metrics.counters
+    stages = {}
+    for t in metrics.timings:
+        if t["stage"].startswith("graph_"):
+            stages[t["stage"]] = stages.get(t["stage"], 0.0) + t["seconds"]
+    return ({key: int(c.get(key, -1)) for key in ("graph_passes", "graph_rounds",
+                                                  "graph_rounds_per_pass", "graph_round_retries",
+                                                  "graph_positions", "graph_junctions")},
+            stages, dict(kernels.LAUNCHES))
+
+
+def fresh_run(torch, metrics, kernels):
+    """Counts and peaks to zero before a main-path run; returns the bytes
+    allocated at its start."""
+    metrics.timings.clear()
+    metrics.counters.clear()
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def all_launched(launches, label):
+    check(all(launches[name] > 0 for name in ("front_half", "class_analysis", "round_append")),
+          f"a kernel of the streamed stage was not launched ({label}): {launches}")
+
+
+def epilogue_peak(torch, streamed, seqs, k):
+    """One round's epilogue on the card (round 0 of 8, one buffer): its peak
+    allocated bytes over the live rows, against the constant the plan uses."""
+    n = 1 + sum(len(s) + 1 for s in seqs)
+    p = streamed.plan(n, k, 1 << 22, 1.25, None, 8)
+    codes2, nmask = streamed._upload(seqs, n, k, p.chunk, torch.device("cuda"))
+    buf_keys, buf_payload, live, overflowed = streamed._scan_pass(codes2, nmask, n, k, p, 0, 1)
+    check(not overflowed, "epilogue measurement: round 0 overflowed")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    streamed._round_junctions(buf_keys, buf_payload, 0, live[0])
+    per_row = (torch.cuda.max_memory_allocated() - before) / live[0]
+    limit = p.epilogue_bytes
+    check(per_row <= limit, f"epilogue peak {per_row:.2f} B/row at k={k}, above {limit}")
+    print(f"one round's epilogue at k={k}: {live[0]} live rows, peak {per_row:.2f} B/row "
+          f"(plan's constant {limit})")
+    return per_row
+
+
+def joined_positions(recs):
+    """Positions of the streamed stage's joined genome: a leading N, one
+    after each sequence."""
+    return 1 + sum(len(r.seq) + 1 for r in recs)
+
+
+def streamed_large(torch, recs, pipeline, Config, streamed, kernels, metrics, goldens, label):
+    """Phase 10b: examples/large (its records) through the pipeline at a
+    budget that holds 2 of its 8 round buffers (4 passes), at k=25 and
+    k=33.  Returns the launches per k."""
+    seqs, names = [r.seq for r in recs], [r.name for r in recs]
+    n = joined_positions(recs)
+    launches = {}
+    for k, golden in goldens.items():
+        p8 = streamed.plan(n, k, 1 << 22, 1.25, None, 8)
+        budget = p8.fixed_bytes + p8.cap * (p8.epilogue_bytes + 2 * p8.row_bytes)
+        p = streamed.plan(n, k, 1 << 22, 1.25, budget)
+        check((p.n_rounds, p.G) == (8, 2), f"examples/large k={k}: plan {p}")
+        mem0 = fresh_run(torch, metrics, kernels)
+        t0 = time.time()
+        res = pipeline.find_blocks(seqs, names, Config(k=k, threads=4,
+                                                       memory_budget_bytes=budget),
+                                   device="cuda")
+        secs = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() - mem0
+        counts, stages, launched = streamed_counts(metrics, kernels)
+        digest = hashlib.sha256(res.gff.encode()).hexdigest()
+        check(digest == golden, f"examples/large k={k} streamed GFF SHA-256 {digest}")
+        check(counts["graph_passes"] == 4 and counts["graph_rounds"] == 8
+              and counts["graph_round_retries"] == 0, f"examples/large k={k}: {counts}")
+        all_launched(launched, f"examples/large k={k}")
+        check(peak <= budget, f"examples/large k={k}: peak {peak} B over the budget {budget}")
+        print(f"examples/large k={k} streamed, budget {budget} B: GFF SHA-256 equal to the "
+              f"golden ({res.blocks_found} blocks) in {secs:.2f} s | {counts} | peak {peak} B "
+              f"= {peak / n:.2f} B/position | launches {launched} | "
+              + " | ".join(f"{s} {v:.4f} s" for s, v in stages.items()) + f" {label}")
+        launches[k] = launched
+        epilogue_peak(torch, streamed, seqs, k)
+    return launches
+
+
+def streamed_cli_strains(torch, cli, metrics, kernels, bench_fa, monolithic_gff, out_dir,
+                         label):
+    """Phase 10c: the strains with -k 33 -n -f 1 (82 B/position x 16 Mbp
+    over 1 GB): the streamed stage, and phase 9's monolithic GFF."""
+    fresh_run(torch, metrics, kernels)
+    wall = run_cli(cli, ["-k", "33", "-n", "-f", "1", "-o", out_dir, bench_fa])
+    counts, stages, launched = streamed_counts(metrics, kernels)
+    check("graph_scan" in stages, "-f 1 did not route the strains to the streamed stage")
+    check(counts["graph_rounds"] == 4 and counts["graph_rounds_per_pass"] == 4,
+          f"strains -k 33 -n -f 1: {counts}, not the G=4 of 4 shape K4 was timed at")
+    all_launched(launched, "strains -k 33 -n -f 1")
+    with open(os.path.join(out_dir, "blocks_coords.gff"), "rb") as f, \
+            open(monolithic_gff, "rb") as g:
+        check(f.read() == g.read(), "strains -k 33 -f 1: GFF differs from the monolithic run's")
+    print(f"strains -k 33 -n -f 1: GFF byte-equal to the monolithic run's | CLI wall "
+          f"{wall:.4f} s | {counts} | launches {launched} | "
+          + " | ".join(f"{s} {v:.4f} s" for s, v in stages.items()) + f" {label}")
+    return launched
+
+
+def streamed_full_size(torch, alphabet, construct, streamed, kernels, metrics, label):
+    """Phase 10d: 2 x 512 Mbp at k=25 streamed (a budget of 8 rounds, 2 a
+    pass) against the monolithic stage at the card's free memory; then
+    2 x 1.1 Gbp at k=25, past 2^31 positions, at the card's free memory.
+    Returns the launches of both streamed runs."""
+    launches = {}
+    seqs = synth_pair(alphabet, 8, PAIR_512M)
+    n = 1 + sum(len(s) + 1 for s in seqs)
+    torch.cuda.empty_cache()
+    mem0 = fresh_run(torch, metrics, kernels)
+    t0 = time.time()
+    mono = construct.build_junctions(seqs, 25, "cuda")
+    secs = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() - mem0
+    _counts, stages, _launched = streamed_counts(metrics, kernels)
+    check("graph_scan" not in stages,
+          "2 x 512 Mbp did not run the monolithic stage at the card's free memory")
+    print(f"2 x 512 Mbp k=25 monolithic: {secs:.2f} s | junctions "
+          f"{sum(len(r.pos) for r in mono)} | peak {peak / (n - 2):.2f} B/position | "
+          + " | ".join(f"{s} {v:.4f} s" for s, v in stages.items()) + f" {label}")
+    p8 = streamed.plan(n, 25, 1 << 22, 1.25, None, 8)
+    budget = p8.fixed_bytes + p8.cap * (p8.epilogue_bytes + 2 * p8.row_bytes)
+    for name, seqs_, budget_ in (("2 x 512 Mbp", seqs, budget), ("2 x 1.1 Gbp", None, None)):
+        if seqs_ is None:
+            del seqs, mono
+            seqs_ = synth_pair(alphabet, 11, PAIR_1100M)
+            n = 1 + sum(len(s) + 1 for s in seqs_)
+            check(n > 1 << 31, f"{name}: {n} positions")
+        torch.cuda.empty_cache()
+        mem0 = fresh_run(torch, metrics, kernels)
+        t0 = time.time()
+        got = construct.build_junctions(seqs_, 25, "cuda", memory_budget_bytes=budget_)
+        secs = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() - mem0
+        counts, stages, launched = streamed_counts(metrics, kernels)
+        check("graph_scan" in stages and counts["graph_round_retries"] == 0,
+              f"{name}: {counts}")
+        all_launched(launched, name)
+        if budget_ is not None:
+            check(counts["graph_passes"] == 4, f"{name}: {counts}")
+            check(peak <= budget_, f"{name}: peak {peak} B over the budget {budget_}")
+            for a, b in zip(mono, got):
+                check(np.array_equal(a.pos, b.pos) and np.array_equal(a.ids, b.ids),
+                      f"{name}: streamed records differ from the monolithic ones")
+            same = "records equal to the monolithic ones"
+        else:
+            # no monolithic run holds 2.2e9 positions: the records' own
+            # invariants, and both copies of the ancestor with junctions
+            per_chr = [len(r.pos) for r in got]
+            ids = np.abs(np.concatenate([r.ids for r in got]))
+            check(all(bool((np.diff(r.pos.astype(np.int64)) > 0).all()) for r in got)
+                  and ids.min() == 1 and ids.max() == len(np.unique(ids)),
+                  f"{name}: records out of order or ids not dense")
+            check(min(per_chr) > 0.9 * max(per_chr), f"{name}: junctions per copy {per_chr}")
+            del ids
+            same = f"junctions per copy {per_chr}"
+        print(f"{name} k=25 streamed{'' if budget_ is None else f', budget {budget_} B'}: "
+              f"{same} in {secs:.2f} s | {counts} | peak {peak} B = {peak / n:.4f} B/position | "
+              f"launches {launched} | " + " | ".join(f"{s} {v:.4f} s" for s, v in stages.items())
+              + f" {label}")
+        launches[name] = launched
+        del got
+    return launches
+
+
+def streamed_phase(torch, dev, mods, tmp_dir, large_fa, large_golden, bench_fa, mono_k33_gff,
+                   peak_ops, label):
+    """Phase 10: returns K4's max abs error on the hand-laid chunks, its
+    full-size results, and the launches of each streamed main path."""
+    (cases, cli, pipeline, _device_poa, _msa, _poa_ref, kernels, _align_kernels, Config,
+     alphabet, fasta, metrics) = mods
+    from sibeliaz_tpu_torch.graph import construct, streamed
+
+    phase(f"10 streamed graph stage {label}")
+    large_recs = fasta.read_many(large_fa)
+    ns = {"examples/large streamed k=25": joined_positions(large_recs),
+          "examples/large streamed k=33": joined_positions(large_recs),
+          "strains -k 33 -n -f 1": joined_positions(fasta.read_many([bench_fa])),
+          "2 x 1.1 Gbp": 1 + 2 * (PAIR_1100M + 1)}
+    k4_err = k4_hand_laid(torch, dev, kernels, cases)
+    k4 = k4_full_size(torch, dev, alphabet, construct, streamed, kernels, peak_ops, ns)
+    large = streamed_large(torch, large_recs, pipeline, Config, streamed, kernels, metrics,
+                           {25: large_golden, 33: LARGE_K33_GFF_SHA}, label)
+    strains = streamed_cli_strains(torch, cli, metrics, kernels, bench_fa, mono_k33_gff,
+                                   os.path.join(tmp_dir, "strains_f1"), label)
+    full = streamed_full_size(torch, alphabet, construct, streamed, kernels, metrics, label)
+    return k4_err, k4, {"examples/large streamed k=25": large[25],
+                        "examples/large streamed k=33": large[33],
+                        "strains -k 33 -n -f 1": strains,
+                        "2 x 512 Mbp streamed": full["2 x 512 Mbp"],
+                        "2 x 1.1 Gbp streamed": full["2 x 1.1 Gbp"]}
 
 
 def int32_peak():
@@ -859,14 +1233,13 @@ def main(argv):
     msa.ensure_built()
     print(f"native POA engine built in {time.time() - t0:.1f} s")
 
+    mods = (torch_cases, cli, pipeline, device_poa, msa, poa_ref, kernels, align_kernels, Config,
+            alphabet, fasta, metrics)
     if replay_dir is not None:
-        k3_replay(torch, dev, (torch_cases, cli, pipeline, device_poa, msa, poa_ref,
-                               kernels, align_kernels, Config, alphabet, fasta, metrics),
-                  replay_dir, peak_ops, tmp.name)
+        k3_replay(torch, dev, mods, replay_dir, peak_ops, tmp.name)
         tmp.cleanup()
         print(smi)
         return 0
-
     phase(f"3 kernels vs plain versions, n = 2^24 {label}")
     k1 = compare_kernels(torch, dev, alphabet, construct, kernels, fasta, peak_ops)
     k2 = k2_vs_plain(torch, kernels, k2_row_sets(torch, dev, alphabet, construct, kernels,
@@ -934,7 +1307,8 @@ def main(argv):
             digest = hashlib.sha256(f.read()).hexdigest()
         check(digest == golden, f"examples/large k={k} GFF SHA-256 {digest}, not {whose}")
         check(counts["front_half"] > 0 and counts["class_analysis"] > 0
-              and counts["poa_dp_tb"] == 0, f"launches of the -k {k} -n run: {counts}")
+              and counts["poa_dp_tb"] == 0 and counts["round_append"] == 0,
+              f"launches of the -k {k} -n run: {counts}")
         check(round(peak, 1) <= peak_limit,
               f"peak {peak:.1f} B/position at k={k}, above {peak_limit}")
         stages = {t["stage"]: t["seconds"] for t in metrics.timings}
@@ -975,7 +1349,7 @@ def main(argv):
         st = {t["stage"]: t["seconds"] for t in metrics.timings}
         graph = sum(v for s, v in st.items() if s.startswith("graph_"))
         lcb = st["junction_table"] + st["lcb_engine"] + st["trim_and_render"]
-        check(all(v > 0 for v in kernels.LAUNCHES.values()),
+        check(all(kernels.LAUNCHES[name] > 0 for name in MONOLITHIC_KERNELS),
               f"a kernel was not launched: {kernels.LAUNCHES}")
         print(f"pass {p}, k={k}: " + " | ".join(f"{s} {v:.4f} s" for s, v in st.items()))
         print(f"pass {p}, k={k}: graph {graph:.4f} s | lcb+out {lcb:.4f} s | graph+lcb "
@@ -983,6 +1357,10 @@ def main(argv):
               f"junctions {int(metrics.counters['graph_junctions'])} | "
               f"blocks {int(metrics.counters['blocks_found'])} | peak {peak:.1f} B/position | "
               f"launches {kernels.LAUNCHES} {label}")
+
+    k4_err, k4, stream_paths = streamed_phase(
+        torch, dev, mods, tmp.name, large_fa, large_golden, bench_fa,
+        os.path.join(tmp.name, "bench3", "blocks_coords.gff"), peak_ops, label)
     tmp.cleanup()
 
     src = "sibeliaz_tpu_torch/csrc/"
@@ -990,13 +1368,17 @@ def main(argv):
     # k=33, phase 6), the default CLI run with the device POA engine on
     # examples/ (phase 7), and the same two stages on examples/large through
     # the library (phase 8)
+    # and the streamed stage's (phase 10): examples/large through the
+    # pipeline at k=25 and k=33, the strains' -k 33 -n -f 1 CLI run, and
+    # the two full-size inputs
     paths = {"examples/large -n": large_launches_by_k[25],
              "examples/large -k 33 -n": large_launches_by_k[33],
              "examples/ --align-engine tpu": maf_launches,
-             "examples/large --align-engine tpu": large_launches}
+             "examples/large --align-engine tpu": large_launches,
+             **stream_paths}
 
     def by_path(kernel):
-        return {path: counts[kernel] for path, counts in paths.items()}
+        return {path: counts.get(kernel, 0) for path, counts in paths.items()}
 
     def by_limbs(results):
         """The times of K1's or K2's one-limb instance (the k=25 path's) and
@@ -1006,6 +1388,9 @@ def main(argv):
                 for limbs, s in ((1, "k=25 random"), (2, "k=33 random"))}
 
     k1_main, k2_main = k1["k=25 random"], k2["k=25 random"]
+    # K4's "ms": the shape of the examples/large streamed passes (G=2 of 8)
+    k4_shape = "1 limb(s) G=2 of 8"
+    k4_main = k4[k4_shape]
 
     summary = {"kernels": [
         {"name": "front_half", "route": "cuda", "source": src + "front_half.cu",
@@ -1032,6 +1417,14 @@ def main(argv):
          "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"],
          "bound_ms": k3_main["bound_ms"], "bound_by": k3_main["bound_by"],
          "library_ms": None},
+        {"name": "round_append", "route": "cuda", "source": src + "round_append.cu",
+         "replaces": "sibeliaz_tpu/graph/streamed.py:331",
+         "launches": paths["examples/large streamed k=25"]["round_append"],
+         "launches_by_path": by_path("round_append"),
+         "max_abs_err": max(k4_err, *(r["err"] for r in k4.values())),
+         "ms": k4_main["ms"], "plain_ms": k4_main["plain_ms"],
+         "bound_ms": k4_main["bound_ms"], "bound_by": k4_main["bound_by"],
+         "shape": k4_shape, "by_shape": k4, "library_ms": None},
     ]}
     print()
     print(smi)

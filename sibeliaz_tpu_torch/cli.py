@@ -6,10 +6,12 @@ The port runs FASTA -> GFF with the native LCB engine, and then, unless
 `-n` is given, the alignment stage -> MAF with either POA engine:
 `--align-engine native` (host C++) or `--align-engine tpu` (the batched
 device DP on the card; the name is the JAX package's, so that the same
-command lines run on both).  It refuses, and never falls back, for: no
-CUDA card under the default `--device cuda`; an `--lcb-engine` other than
-native (ROADMAP.md items A7 and A9); an input whose graph stage does not fit
-the card (or the `-f` budget; item A3).  k is odd, 3 to 61, as in the JAX
+command lines run on both).  An input whose monolithic graph stage does not
+fit the card (or the `-f` budget), or that has 2^31 positions or more, runs
+the streamed graph stage, in rounds, with the same records.  It refuses, and
+never falls back, for: no CUDA card under the default `--device cuda`; an
+`--lcb-engine` other than native (ROADMAP.md items A7 and A9); an input of
+2^32 positions or more (item A4).  k is odd, 3 to 61, as in the JAX
 package.
 """
 
@@ -32,9 +34,10 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("-t", type=int, default=0, help="worker threads (0 = all cores)")
     p.add_argument(
         "-f", type=int, default=0,
-        help="device-memory budget in GB for the graph stage and for the "
-        "device POA engine's scratch (default: the card's free memory; "
-        "half of it for the POA)",
+        help="device-memory budget in GB for the graph stage (an input "
+        "whose monolithic stage does not fit it runs the streamed stage, in "
+        "rounds) and for the device POA engine's scratch (default: the "
+        "card's free memory; half of it for the POA)",
     )
     p.add_argument("-o", dest="outdir", default="./sibeliaz_out", help="output directory")
     p.add_argument("-n", dest="noalign", action="store_true", help="skip the alignment stage")

@@ -17,13 +17,16 @@ in PyTorch around two hand-written kernels (graph/kernels.py):
      positions into dense signed ids and compact the junction rows.
 
 Semantics contract: identical output to graph/oracle.py and to the JAX
-package's build_junctions (tested).  k <= 61; inputs whose graph stage does
-not fit the card are refused (see ROADMAP.md).
+package's build_junctions (tested).  k <= 61.  An input whose monolithic
+stage does not fit the card (or the memory budget), or that has 2^31
+positions or more, runs the streamed stage instead (graph/streamed.py: the
+same records, in rounds).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import List, Sequence
 
 import numpy as np
@@ -66,24 +69,32 @@ def pack_codes_host(codes: np.ndarray):
     return packed, nmask
 
 
-def check_fits(n: int, k: int, device: torch.device, budget: int | None) -> None:
-    """Refuse what the monolithic graph stage cannot run: k > 61, positions
-    past int32, or an input whose peak would not fit `budget` bytes (or the
-    card's free memory when no budget is given)."""
+def check_k(k: int) -> None:
+    """Refuse k > 61, as the JAX package does."""
     if k > kernels.MAX_K:
         raise NotImplementedError(
             f"k={k}: the graph stage takes k <= {kernels.MAX_K} (two 62-bit "
             "limbs), as the JAX package does; no ROADMAP.md item goes wider"
         )
-    if budget is None and device.type == "cuda":
-        budget = torch.cuda.mem_get_info(device)[0]
+
+
+def device_budget(device: torch.device, budget: int | None) -> int | None:
+    """The device bytes the graph stage may use: `budget` where one is given;
+    else on a CUDA card its free memory and what PyTorch's allocator holds
+    unused; else None (no limit: the CPU path)."""
+    if budget is not None or device.type != "cuda":
+        return budget
+    free = torch.cuda.mem_get_info(device)[0]
+    return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+
+
+def check_fits(n: int, k: int, budget: int | None) -> bool:
+    """Refuse k > 61; say whether the monolithic graph stage runs n
+    positions: fewer than 2^31 (its int32 positions), with a peak within
+    `budget` bytes (None: no limit)."""
+    check_k(k)
     need = n * (PEAK_BYTES_PER_POS if k <= kernels.ONE_LIMB_MAX_K else PEAK_BYTES_PER_POS_WIDE)
-    if n >= 1 << 31 or (budget is not None and need > budget):
-        raise NotImplementedError(
-            f"{n} positions need ~{need} B of device memory for the "
-            f"monolithic graph stage (budget {budget} B); the streamed graph "
-            "stage is ROADMAP.md queue A item 3"
-        )
+    return n < 1 << 31 and (budget is None or need <= budget)
 
 
 @contextlib.contextmanager
@@ -117,6 +128,31 @@ def sort_keys(keys):
     return (hi_s, lo_s[o2]), order
 
 
+def class_verdicts(keys, packed, step=lambda name: contextlib.nullcontext()):
+    """The vertex class analysis of rows in insertion order: a stable sort
+    by key (sort_keys, which takes ownership of the `keys` list), K2
+    class_analysis with each row's insertion rank as its position, and the
+    verdicts scattered back.  Rows of a class must lie in genome order, so
+    that a class's least rank is its first occurrence.  `step(name)` wraps
+    the sort ("graph_sort") and the analysis ("graph_class_analysis").
+
+    Returns (junction flag, the rank of the class's first row), each in
+    insertion order."""
+    with step("graph_sort"):
+        keys_s, order = sort_keys(keys)
+        packed_s = packed[order]
+        ranks_s = order.to(torch.int32)
+        del order
+    with step("graph_class_analysis"):
+        junction_s, first_s = kernels.class_analysis(keys_s, packed_s, ranks_s)
+        del keys_s, packed_s
+        isj = torch.empty_like(junction_s)
+        isj[ranks_s] = junction_s
+        first = torch.empty_like(first_s)
+        first[ranks_s] = first_s
+    return isj, first
+
+
 def build_junctions(
     seqs: Sequence[np.ndarray],
     k: int,
@@ -125,6 +161,11 @@ def build_junctions(
 ) -> List[JunctionChr]:
     """Run junction enumeration on `device`; return per-chromosome records.
 
+    `memory_budget_bytes`: device bytes the stage may use (default: the
+    card's free memory; no limit on the CPU).  Where the monolithic stage
+    does not fit it, or n >= 2^31, the streamed stage runs instead
+    (streamed.build_junctions_streamed_resident, with this budget).
+
     Each step is a metrics stage (graph_upload, graph_front_half,
     graph_sort, graph_class_analysis, graph_ids_fetch) that waits for the
     device before it ends."""
@@ -132,12 +173,17 @@ def build_junctions(
     if not seqs:
         return []
     lengths = [len(s) for s in seqs]
+    n = sum(lengths) + len(seqs) - 1
+    budget = device_budget(device, memory_budget_bytes)
+    if not check_fits(n, k, budget):
+        from sibeliaz_tpu_torch.graph import streamed
+
+        return streamed.build_junctions_streamed_resident(
+            seqs, k, device, memory_budget_bytes=budget)
     sep = np.array([ord("N")], dtype=np.uint8)  # separator (never definite)
     joined = np.concatenate(
         [x for s in seqs for x in (s, sep)][:-1] if len(seqs) > 1 else [seqs[0]]
     )
-    n = len(joined)
-    check_fits(n, k, device, memory_budget_bytes)
     if n < k:
         return [
             JunctionChr(pos=np.zeros(0, np.uint32), ids=np.zeros(0, np.int64))
@@ -152,24 +198,11 @@ def build_junctions(
         keys, packed = kernels.front_half(codes2, nmask, n, k)
         keys = list(keys)
         del codes2, nmask
-    with _step("graph_sort", device):
-        keys_s, order = sort_keys(keys)
-        del keys
-        packed_s = packed[order]
-        pos_s = order.to(torch.int32)
-        del order
-    with _step("graph_class_analysis", device):
-        junction_s, first_s = kernels.class_analysis(keys_s, packed_s, pos_s)
-        del keys_s, packed_s
+    isj, first = class_verdicts(keys, packed, functools.partial(_step, device=device))
     with _step("graph_ids_fetch", device):
-        # back to genome order; a class's first occurrence is itself a
-        # junction row, so ranking the rows where first == position gives
-        # the dense ids of assemble.assign_ids
-        isj = torch.empty_like(junction_s)
-        isj[pos_s] = junction_s
-        first = torch.empty_like(first_s)
-        first[pos_s] = first_s
-        del junction_s, first_s, pos_s
+        # a class's first occurrence is itself a junction row, so ranking
+        # the rows where first == position gives the dense ids of
+        # assemble.assign_ids
         idx = torch.arange(n, dtype=torch.int32, device=device)
         crank = torch.cumsum(isj & (first == idx), 0, dtype=torch.int32)
         jpos = torch.nonzero(isj).squeeze(1)

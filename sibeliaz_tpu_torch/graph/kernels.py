@@ -1,4 +1,4 @@
-"""The graph stage's two hand-written CUDA kernels and their plain versions.
+"""The graph stage's three hand-written CUDA kernels and their plain versions.
 
 K1 `front_half` (csrc/front_half.cu) turns the packed 2-bit upload into a
 canonical k-mer key and a packed extension word per position, one tile of
@@ -6,7 +6,9 @@ K1_TILE_POSITIONS positions a thread block, each window taken whole from
 the packed stream.  K2 `class_analysis` (csrc/class_analysis.cu) turns the
 key-sorted rows into a junction verdict and a class-first position per
 row, in one pass over tiles of K2_TILE_ROWS rows with a decoupled
-look-back.
+look-back.  K4 `round_append` (csrc/round_append.cu), for the streamed
+graph stage, appends one chunk's rows to the round buffers of the rounds
+their classes hash to, in genome order.
 
 Keys are a tuple of int64 tensors, as the JAX package's _prepare_packed
 gives them: one limb for k <= 31, two base-2^62 limbs (hi, lo) for
@@ -36,7 +38,7 @@ _NO_EXT = 4
 ONE_LIMB_MAX_K = 31  # a limb holds 31 bases; wider k takes two
 MAX_K = 61  # k = 62 would let the high limb reach INVALID_CANON
 
-LAUNCHES = {"front_half": 0, "class_analysis": 0}
+LAUNCHES = {"front_half": 0, "class_analysis": 0, "round_append": 0}
 
 
 def reset_launches() -> None:
@@ -236,3 +238,125 @@ def class_analysis(keys_s, packed_s: torch.Tensor, pos_s: torch.Tensor):
     )
     LAUNCHES["class_analysis"] += 1
     return junction_s, first_s
+
+
+# ---- K4: round append -----------------------------------------------------
+
+# The Fibonacci-hash constants of the JAX package's streamed stage
+# (sibeliaz_tpu/graph/streamed.py _MIX, _MIX2) as two's-complement int64:
+# 0x9E3779B97F4A7C15 and 0xC2B2AE3D27D4EB4F.
+MIX = -7046029254386353131
+MIX2 = -4417276706812531889
+# Rounds one launch appends into at most (csrc/round_append.cu,
+# sz_round_max_rounds): the kernel keeps a counter per round and warp in
+# shared memory.
+MAX_ROUNDS_PER_LAUNCH = 64
+# Rows per tile of the kernel (sz_round_tile_rows): the tests lay their
+# rounds out across tiles by it.
+K4_TILE_ROWS = 2048
+# A payload is gpos << 12 | the 12-bit word; gpos must leave the sign bit.
+_MAX_GPOS = 1 << 51
+
+
+def round_bucket(keys, n_rounds: int) -> torch.Tensor:
+    """The round of each row's class, as streamed._round_bucket and
+    _round_bucket2: the key times MIX (two limbs: hi * MIX xor lo * MIX2),
+    wrapping in int64, bits 32-62 of the product, modulo n_rounds.  Any
+    function of the key keeps a class in one round; the product's high bits
+    keep the rounds balanced."""
+    h = keys[0] * MIX
+    if len(keys) == 2:
+        h = h ^ (keys[1] * MIX2)
+    return ((h >> 32) & 0x7FFFFFFF) % n_rounds
+
+
+def _round_of(keys, r0: int, n_rounds: int, G: int) -> torch.Tensor:
+    """Each row's round relative to r0, or -1 where the row is not kept (an
+    invalid window, or a round outside [r0, r0 + G))."""
+    g = round_bucket(keys, n_rounds) - r0
+    keep = (keys[0] != INVALID_CANON) & (g >= 0) & (g < G)
+    return torch.where(keep, g, -1)
+
+
+def round_append_plain(keys, packed, gpos0, r0, n_rounds, buf_keys, buf_payload,
+                       cursors, overflow):
+    """Plain PyTorch K4: a stable sort of the kept rows by round, each
+    round's rows written from its cursor on; rows past the cap are dropped
+    and raise the overflow flag."""
+    G, cap = buf_payload.shape
+    g = _round_of(keys, r0, n_rounds, G)
+    rows = torch.nonzero(g >= 0).squeeze(1)
+    g_sorted, order = torch.sort(g[rows], stable=True)
+    rows = rows[order]
+    counts = torch.bincount(g_sorted, minlength=G)
+    first_of_round = torch.cumsum(counts, 0) - counts
+    dst = cursors[g_sorted] + torch.arange(len(rows), device=rows.device) - first_of_round[g_sorted]
+    ok = dst < cap
+    g_ok, dst, rows = g_sorted[ok], dst[ok], rows[ok]
+    for buf, key in zip(buf_keys, keys):
+        buf[g_ok, dst] = key[rows]
+    buf_payload[g_ok, dst] = ((gpos0 + rows) << 12) | (packed[rows].long() & 0xFFF)
+    overflow |= (cursors + counts > cap).any().to(overflow.dtype)
+    cursors += counts
+
+
+def round_append(keys, packed, gpos0: int, r0: int, n_rounds: int, buf_keys, buf_payload,
+                 cursors, overflow) -> None:
+    """K4.  Appends the kept rows of one chunk to G = buf_payload.shape[0]
+    round buffers, in place.
+
+    keys: one or two int64 key limbs [m] (K1's, hi first); packed: K1's
+    int32 words [m]; row i lies at global position gpos0 + i.  A row is kept
+    when its key is valid and its round (round_bucket of n_rounds) lies in
+    [r0, r0 + G); it goes to round buffer round - r0 at that round's cursor,
+    kept rows of one round in ascending row order.  buf_keys: one [G, cap]
+    int64 buffer per limb; buf_payload: [G, cap] int64, gpos << 12 | bits
+    0-11 of the word; cursors: int64 [G], the rows each round holds, raised
+    by the rows appended; overflow: int32 [1], set to 1 when a cursor passes
+    cap (rows past the cap are not written)."""
+    if not isinstance(keys, (tuple, list)) or len(keys) not in (1, 2):
+        raise ValueError("keys must be a tuple of one or two key limbs")
+    if not isinstance(buf_keys, (tuple, list)) or len(buf_keys) != len(keys):
+        raise ValueError("buf_keys must hold one buffer per key limb")
+    kind = _route(*keys, packed, *buf_keys, buf_payload, cursors, overflow)
+    m = packed.shape[0]
+    for key in keys:
+        _require(key, torch.int64, m, "key")
+    _require(packed, torch.int32, m, "packed")
+    if any(key.shape[0] != m for key in keys):
+        raise ValueError("keys and packed differ in length")
+    if buf_payload.dtype != torch.int64 or buf_payload.dim() != 2 or not buf_payload.is_contiguous():
+        raise ValueError("buf_payload must be a contiguous [G, cap] int64 tensor")
+    G, cap = buf_payload.shape
+    for buf in buf_keys:
+        if buf.dtype != torch.int64 or buf.shape != buf_payload.shape or not buf.is_contiguous():
+            raise ValueError("each key buffer must be a contiguous int64 tensor shaped as buf_payload")
+    _require(cursors, torch.int64, G, "cursors")
+    _require(overflow, torch.int32, 1, "overflow")
+    if cursors.shape[0] != G:
+        raise ValueError(f"cursors has {cursors.shape[0]} entries for {G} rounds")
+    if not 1 <= G <= MAX_ROUNDS_PER_LAUNCH:
+        raise ValueError(f"round_append takes 1 to {MAX_ROUNDS_PER_LAUNCH} rounds, got {G}")
+    if not (1 <= n_rounds < 1 << 31 and 0 <= r0 < n_rounds):
+        raise ValueError(f"r0={r0} and n_rounds={n_rounds} name no round")
+    if not 0 <= gpos0 <= _MAX_GPOS - m:
+        raise ValueError(f"gpos0={gpos0}: positions must stay under 2^51")
+    if kind == "cpu":
+        return round_append_plain(keys, packed, gpos0, r0, n_rounds, buf_keys, buf_payload,
+                                  cursors, overflow)
+    if m == 0:
+        return None
+    dev = packed.device
+    lib = cudabuild.load()
+    scratch = torch.empty(lib.sz_round_scratch_bytes(m, G), dtype=torch.uint8, device=dev)
+    _check(
+        lib.sz_round_append(
+            _ptr(keys[0]), _ptr(keys[1]) if len(keys) == 2 else None, _ptr(packed), m,
+            gpos0, r0, n_rounds, G, cap, _ptr(buf_keys[0]),
+            _ptr(buf_keys[1]) if len(keys) == 2 else None, _ptr(buf_payload),
+            _ptr(cursors), _ptr(overflow), _ptr(scratch), _stream(dev),
+        ),
+        "round_append",
+    )
+    LAUNCHES["round_append"] += 1
+    return None

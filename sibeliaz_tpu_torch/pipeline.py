@@ -40,6 +40,9 @@ def build_table(
     records: Optional[Sequence[JunctionChr]] = None,
     device: str = "cuda",
 ) -> JunctionTable:
+    """The junction table of `seqs`; the graph stage runs unless `records`
+    are given.  `cfg.memory_budget_bytes` bounds its device memory: over
+    it, the streamed graph stage runs instead of the monolithic one."""
     if records is None:
         records = construct.build_junctions(
             list(seqs), cfg.k, device, cfg.memory_budget_bytes

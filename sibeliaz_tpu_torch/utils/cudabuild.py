@@ -105,11 +105,16 @@ def load() -> ctypes.CDLL:
                          + [i32, vp] + [i32] * 3
                          + [ctypes.POINTER(ctypes.c_float), vp]),
         "sz_poa_chain_probe": [i32, i32, vp, vp],
+        "sz_round_max_rounds": [],
+        "sz_round_tile_rows": [],
+        "sz_round_scratch_bytes": [i64, i32],
+        "sz_round_append": [vp, vp, vp, i64, i64, i32, i32, i32, i64] + [vp] * 7,
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     lib.sz_class_scratch_bytes.restype = i64
+    lib.sz_round_scratch_bytes.restype = i64
     _lib = lib
     return lib

@@ -13,12 +13,12 @@ import torch
 from sibeliaz_tpu_torch.align import device_poa, poa_ref
 from sibeliaz_tpu_torch.align import kernels as align_kernels
 from sibeliaz_tpu_torch.core import alphabet
-from sibeliaz_tpu_torch.graph import construct, kernels, oracle
+from sibeliaz_tpu_torch.graph import construct, kernels, oracle, streamed
 from sibeliaz_tpu_torch.utils import cudabuild
 
-from torch_cases import (CLASS_RUN_KINDS, K1_KINDS, LIMB_SPLITS, class_case, class_runs,
-                         codes_with_n_runs, edge_band_round, k1_case, poa_case, poa_round,
-                         rand_block, split_limbs, spread_slots)
+from torch_cases import (CLASS_RUN_KINDS, K1_KINDS, LIMB_SPLITS, ROUND_ROW_KINDS, class_case,
+                         class_runs, codes_with_n_runs, edge_band_round, k1_case, poa_case,
+                         poa_round, rand_block, round_rows, split_limbs, spread_slots)
 
 pytestmark = pytest.mark.gpu
 
@@ -252,8 +252,146 @@ def test_build_junctions_two_limbs_cuda_matches_oracle(cuda, k):
     seqs = wide_pair()
     before = dict(kernels.LAUNCHES)
     got = construct.build_junctions(seqs, k, cuda)
-    assert all(kernels.LAUNCHES[name] == before[name] + 1 for name in before)
+    assert {name: kernels.LAUNCHES[name] - before[name] for name in before} == {
+        "front_half": 1, "class_analysis": 1, "round_append": 0}
     for a, b in zip(got, oracle.enumerate_junctions(seqs, k)):
+        assert np.array_equal(a.pos, b.pos) and np.array_equal(a.ids, b.ids)
+
+
+T4 = kernels.K4_TILE_ROWS
+
+
+def assert_round_append_matches_plain(chunks, r0, n_rounds, G, cap, device, start=0,
+                                      offset=0):
+    """K4 over `chunks` (numpy (keys, packed, gpos0) each, appended in turn)
+    against its plain version on the same card tensors: every buffer entry
+    (unwritten ones hold -7), the cursors and the overflow flag equal.  With
+    `offset`, each input is a view that starts `offset` rows into its
+    storage.  Returns the cursors and the flag."""
+    limbs = len(chunks[0][0])
+    runs = []
+    for fn in (kernels.round_append, kernels.round_append_plain):
+        buf_keys = tuple(torch.full((G, cap), -7, dtype=torch.int64, device=device)
+                         for _ in range(limbs))
+        buf_payload = torch.full((G, cap), -7, dtype=torch.int64, device=device)
+        cursors = torch.full((G,), start, dtype=torch.int64, device=device)
+        overflow = torch.zeros(1, dtype=torch.int32, device=device)
+        for keys, packed, gpos0 in chunks:
+            pad = lambda a: torch.from_numpy(  # noqa: E731
+                np.concatenate([np.zeros(offset, a.dtype), a])).to(device)[offset:]
+            fn(tuple(pad(x) for x in keys), pad(packed), gpos0, r0, n_rounds, buf_keys,
+               buf_payload, cursors, overflow)
+        torch.cuda.synchronize()
+        runs.append((*buf_keys, buf_payload, cursors, overflow))
+    for got, want in zip(*runs):
+        assert torch.equal(got, want)
+    return runs[0][-2], runs[0][-1]
+
+
+def round_chunks(kind, limbs, sizes, gpos0=1):
+    chunks = []
+    for c, m in enumerate(sizes):
+        keys, packed = round_rows(kind, m, limbs, seed=c)
+        chunks.append((keys, packed, gpos0))
+        gpos0 += m
+    return chunks
+
+
+@pytest.mark.parametrize("limbs", [1, 2])
+@pytest.mark.parametrize("kind", ROUND_ROW_KINDS)
+@pytest.mark.parametrize("r0,n_rounds,G", [(0, 1, 1), (0, 8, 8), (3, 8, 1), (5, 8, 3),
+                                           (0, 64, 64), (30, 100, 64)])
+def test_round_append_matches_plain(cuda, kind, limbs, r0, n_rounds, G):
+    """Every round taking rows (random), one round taking all (one_class),
+    none kept (all_invalid), rounds fed from every tile (repeats); G from 1
+    to the kernel's maximum; chunks one row short of, at, and past tile
+    multiples."""
+    before = kernels.LAUNCHES["round_append"]
+    chunks = round_chunks(kind, limbs, (T4 - 1, 3 * T4, T4 + 5, 1))
+    cap = sum(len(c[1]) for c in chunks)
+    cursors, overflow = assert_round_append_matches_plain(chunks, r0, n_rounds, G, cap, cuda)
+    assert kernels.LAUNCHES["round_append"] == before + len(chunks)
+    assert int(overflow) == 0
+    if kind == "all_invalid":
+        assert int(cursors.sum()) == 0
+    if kind == "one_class" and (r0, n_rounds, G) == (0, 1, 1):
+        assert int(cursors[0]) == cap
+
+
+@pytest.mark.parametrize("limbs", [1, 2])
+@pytest.mark.parametrize("G", [1, 8])
+def test_round_append_full_size_chunks(cuda, limbs, G):
+    """Chunks of the streamed stage's size (2^22 rows, and one of 2^22 + 3),
+    K1's outputs on random codes with N runs, three in a row."""
+    k = 25 if limbs == 1 else 33
+    chunks, gpos0 = [], 1
+    for c, m in enumerate((1 << 22, (1 << 22) + 3, 1 << 22)):
+        codes2, nmask = upload(codes_with_n_runs(c, m + k + 2, m // 500), cuda)
+        keys, packed = kernels.front_half(codes2, nmask, m + k + 2, k)
+        chunks.append((tuple(x[1 : m + 1].cpu().numpy() for x in keys),
+                       packed[1 : m + 1].cpu().numpy(), gpos0))
+        gpos0 += m
+    cap = gpos0 if G == 1 else gpos0 // 6
+    assert_round_append_matches_plain(chunks, 0 if G == 8 else 5, 8, G, cap, cuda)
+
+
+def test_round_append_max_rounds_is_the_kernels(cuda):
+    lib = cudabuild.load()
+    assert lib.sz_round_max_rounds() == kernels.MAX_ROUNDS_PER_LAUNCH >= 16
+    assert lib.sz_round_tile_rows() == T4
+
+
+@pytest.mark.parametrize("limbs", [1, 2])
+@pytest.mark.parametrize("kind", ["random", "repeats", "one_class"])
+def test_round_append_cursors_just_under_the_cap(cuda, kind, limbs):
+    """Cursors 5 rows under the cap: the flag is set, the rows that fit are
+    written and none past the cap (the buffers equal the plain version's,
+    whose -7s stand), the cursors advance by every kept row."""
+    chunks = round_chunks(kind, limbs, (3 * T4 + 7,))
+    cursors, overflow = assert_round_append_matches_plain(chunks, 0, 4, 4, 1000, cuda,
+                                                          start=995)
+    assert int(overflow) == 1 and int(cursors.max()) > 1000
+
+
+@pytest.mark.parametrize("limbs", [1, 2])
+@pytest.mark.parametrize("offset", [1, 3])
+def test_round_append_takes_views_off_16_byte_alignment(cuda, limbs, offset):
+    chunks = round_chunks("random", limbs, (3 * T4 + 5, T4))
+    assert_round_append_matches_plain(chunks, 1, 4, 2, 4 * T4 + 5, cuda, offset=offset)
+
+
+def streamed_seqs():
+    rng = np.random.default_rng(41)
+    base = alphabet.decode(rng.integers(0, 4, size=20000).astype(np.uint8))
+    mut = base.copy()
+    idx = np.flatnonzero(rng.random(len(mut)) < 0.01)
+    mut[idx] = alphabet.decode(rng.integers(0, 4, size=len(idx)).astype(np.uint8))
+    mut[5000:5004] = ord("N")
+    return [base, mut, alphabet.reverse_complement(base)]
+
+
+@pytest.mark.parametrize("k", [15, 33, 61])
+@pytest.mark.parametrize("kw", [{"chunk_size": 4096, "n_rounds": 3},
+                                {"chunk_size": 1024, "n_rounds": 2, "round_slack": 0.2},
+                                {"chunk_size": 2048, "n_rounds": 8, "passes": 3}],
+                         ids=["rounds3", "overflow_retry", "three_passes"])
+def test_streamed_stage_cuda_matches_cpu(cuda, k, kw):
+    """The streamed stage on the card against its CPU run (the plain K1, K2
+    and K4), with launches of all three kernels; `passes`: a budget that
+    holds 3 of 8 round buffers."""
+    seqs = streamed_seqs()
+    kw = dict(kw)
+    if kw.pop("passes", None):
+        n = 1 + sum(len(s) + 1 for s in seqs)
+        p = streamed.plan(n, k, kw["chunk_size"], 1.25, None, kw.pop("n_rounds"))
+        kw["memory_budget_bytes"] = p.fixed_bytes + p.cap * (p.epilogue_bytes + 3 * p.row_bytes)
+    before = dict(kernels.LAUNCHES)
+    got = streamed.build_junctions_streamed_resident(seqs, k, cuda, **kw)
+    assert all(kernels.LAUNCHES[name] > before[name] for name in before)
+    want = streamed.build_junctions_streamed_resident(seqs, k, "cpu", **kw)
+    for a, b in zip(got, want):
+        assert np.array_equal(a.pos, b.pos) and np.array_equal(a.ids, b.ids)
+    for a, b in zip(want, construct.build_junctions(seqs, k, "cpu")):
         assert np.array_equal(a.pos, b.pos) and np.array_equal(a.ids, b.ids)
 
 

@@ -1,7 +1,8 @@
 """The port's graph stage (build_junctions on the CPU path) against the JAX
 package's build_junctions and the brute-force oracle, on the cases of
 tests/test_graph.py::TestConstructParity and ::TestWideK (two-limb keys,
-33 <= k <= 61)."""
+33 <= k <= 61); and its routing to the streamed stage under a memory
+budget."""
 
 import numpy as np
 import pytest
@@ -12,6 +13,7 @@ from sibeliaz_tpu.graph import construct as jax_construct
 from sibeliaz_tpu.graph import oracle as jax_oracle
 from sibeliaz_tpu_torch.core import alphabet
 from sibeliaz_tpu_torch.graph import construct, oracle
+from sibeliaz_tpu_torch.utils.metrics import GLOBAL as metrics
 
 from test_graph import mutate, random_genomes
 
@@ -80,26 +82,34 @@ def test_wide_k_is_refused():
         construct.build_junctions([seq], 63, "cpu")
 
 
+def route(seqs, k, budget):
+    """build_junctions at `budget` bytes: (records, whether the streamed
+    stage ran)."""
+    metrics.timings.clear()
+    recs = construct.build_junctions(seqs, k, "cpu", memory_budget_bytes=budget)
+    return recs, "graph_scan" in {t["stage"] for t in metrics.timings}
+
+
 def test_memory_guard_refuses():
-    seq = alphabet.str_to_seq("ACGT" * 300)
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        construct.build_junctions(
-            [seq], 15, "cpu",
-            memory_budget_bytes=len(seq) * construct.PEAK_BYTES_PER_POS - 1,
-        )
-    recs = construct.build_junctions(
-        [seq], 15, "cpu",
-        memory_budget_bytes=len(seq) * construct.PEAK_BYTES_PER_POS,
-    )
-    assert len(recs[0].pos) > 0
+    """One byte under the monolithic stage's peak, the streamed stage runs
+    (the guard no longer refuses), with the monolithic stage's records."""
+    seqs = test_graph.TestWideK._pair(None)
+    need = (sum(len(s) for s in seqs) + len(seqs) - 1) * construct.PEAK_BYTES_PER_POS
+    want, streamed_ran = route(seqs, 15, need)
+    assert not streamed_ran and sum(len(r.pos) for r in want) > 0
+    got, streamed_ran = route(seqs, 15, need - 1)
+    assert streamed_ran
+    assert_same(want, got)
 
 
 def test_memory_guard_refuses_wide_k():
-    """Two-limb keys take their own per-position peak."""
-    seq = alphabet.str_to_seq("ACGT" * 300)
-    need = len(seq) * construct.PEAK_BYTES_PER_POS_WIDE
+    """Two-limb keys take their own per-position peak, and route the same
+    way."""
     assert construct.PEAK_BYTES_PER_POS_WIDE > construct.PEAK_BYTES_PER_POS
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        construct.build_junctions([seq], 33, "cpu", memory_budget_bytes=need - 1)
-    recs = construct.build_junctions([seq], 33, "cpu", memory_budget_bytes=need)
-    assert len(recs[0].pos) > 0
+    seqs = test_graph.TestWideK._pair(None)
+    need = (sum(len(s) for s in seqs) + len(seqs) - 1) * construct.PEAK_BYTES_PER_POS_WIDE
+    want, streamed_ran = route(seqs, 33, need)
+    assert not streamed_ran and sum(len(r.pos) for r in want) > 0
+    got, streamed_ran = route(seqs, 33, need - 1)
+    assert streamed_ran
+    assert_same(want, got)

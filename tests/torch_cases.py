@@ -187,6 +187,35 @@ def class_runs(kind, n, tile, seed=0):
     return key, packed.astype(np.int32), pos.astype(np.int32)
 
 
+ROUND_ROW_KINDS = ("random", "repeats", "one_class", "all_invalid")
+
+
+def round_rows(kind, m, limbs, seed=0):
+    """One chunk's rows for K4 (round_append): `limbs` int64 key limbs and
+    an int32 word per row.  `random`: random valid keys, about one row in 16
+    invalid (key (INVALID_CANON, 0)); `repeats`: keys drawn from 37 values,
+    so that each round takes rows from every tile; `one_class`: one key
+    throughout, so that one round takes every row; `all_invalid`: no row is
+    kept.  Words carry random bits above the 12 the payload keeps.
+
+    Returns (tuple of key limbs, packed) as numpy arrays of m rows."""
+    rng = np.random.default_rng([seed, ROUND_ROW_KINDS.index(kind), m, limbs])
+    if kind == "random":
+        key = rng.integers(0, INVALID_CANON, size=(limbs, m))
+        invalid = rng.random(m) < 1 / 16
+        key[0, invalid] = INVALID_CANON
+        key[1:, invalid] = 0
+    elif kind == "repeats":
+        key = rng.integers(0, INVALID_CANON, size=(limbs, 37))[:, rng.integers(0, 37, size=m)]
+    elif kind == "one_class":
+        key = np.repeat(rng.integers(0, INVALID_CANON, size=(limbs, 1)), m, axis=1)
+    else:
+        key = np.zeros((limbs, m), np.int64)
+        key[0] = INVALID_CANON
+    packed = rng.integers(0, 1 << 31, size=m).astype(np.int32)
+    return tuple(np.ascontiguousarray(key[i], dtype=np.int64) for i in range(limbs)), packed
+
+
 LIMB_SPLITS = ("hi", "lo", "both")
 
 
