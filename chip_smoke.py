@@ -5,6 +5,7 @@
     python3 chip_smoke.py --k3-time KINDS    # K3's wrapper alone, see k3_time
     python3 chip_smoke.py --k2-time          # K2's wrapper alone, see k2_vs_plain
     python3 chip_smoke.py --k1-time          # K1's wrapper alone, see k1_vs_plain
+    python3 chip_smoke.py --k4-time [OLDER.cu]  # K4 and its sweep, see k4_time
 
 Phases, in order; any failure raises and the exit code is non-zero:
   1. device: the card's name and power limit, and the peak rates the
@@ -47,7 +48,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      then once at k=33), with the graph stage's steps, LCB and total
      seconds, input Mbp/s and the peak device bytes per position;
  10. streamed graph stage: (a) K4 round_append against its plain version,
-     exact, on hand-laid chunks (tests/torch_cases.py's round_rows) and on
+     exact, on hand-laid chunks (tests/torch_cases.py's round_rows, every
+     kind, one and two limbs, G 1, 8 and 64) and on
      K1's outputs for 2^22-position chunks (one and two limbs; G = 1 and 8
      of 8, and the main paths' shapes at their plans' caps: G = 2 of 8 and
      4 of 4), with times and bounds; (b) examples/large through the pipeline
@@ -69,6 +71,7 @@ its eight timed shapes) and {"ok": true, "device": {...}}.  It
 imports neither jax nor sibeliaz_tpu.
 """
 
+import ctypes
 import functools
 import hashlib
 import json
@@ -106,6 +109,8 @@ SMS, INT32_LANES_PER_SM = 132, 64  # H100 SXM: 64 int32 lanes on each of 132 SMs
 K4_OPS_PER_ROW = 21
 K4_OPS_PER_ROW_WIDE = 29
 K4_OPS_PER_KEPT_ROW = 7
+# clocks the card spins before K4's timed calls (cuda_ms's `ahead`): ~10 ms
+AHEAD_CYCLES = 20_000_000
 # the full-size pairs of phase 10d: bases per copy
 PAIR_512M, PAIR_1100M = 512_000_000, 1_100_000_000
 
@@ -124,17 +129,34 @@ def phase(title):
     print(f"\n== {title} ==", flush=True)
 
 
-def cuda_ms(torch, fn, reps):
-    """Mean milliseconds per call of `fn` on the card, after one warm-up."""
+def cuda_ms(torch, fn, reps, ahead=False):
+    """Mean milliseconds per call of `fn` on the card, after one warm-up.
+    With `ahead`, the card first spins for AHEAD_CYCLES clocks
+    (torch.cuda._sleep) while the host enqueues every call, so that the time
+    is the card's alone and not the host's rate of enqueueing calls shorter
+    than its own overhead; the host's microseconds a call are printed beside
+    it, and a host that did not finish its enqueueing within the spin fails
+    the check."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    spin = torch.cuda.Event(enable_timing=True)
+    if ahead:
+        spin.record()
+        torch.cuda._sleep(AHEAD_CYCLES)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
+    host = time.perf_counter() - t0
     end.record()
     end.synchronize()
+    if ahead:
+        spun = spin.elapsed_time(start)
+        check(host * 1e3 < spun, f"the host took {host * 1e3:.3f} ms to enqueue {reps} calls, "
+                                 f"longer than the card's spin of {spun:.3f} ms")
+        print(f"  (host {host / reps * 1e6:.1f} us a call, card spun {spun:.3f} ms ahead)")
     return start.elapsed_time(end) / reps
 
 
@@ -730,6 +752,8 @@ def print_ptxas(report):
             elif m.group(1) == "poa_dp_kernel" and len(args) == 3:
                 shape = {"10": "chunked", "01": "whole", "00": "ragged"}
                 kernel = f"{m.group(1)}<{args[0]}, {shape[args[1] + args[2]]}>"
+            elif m.group(1) == "round_append_kernel" and len(args) == 1:
+                kernel = f"{m.group(1)}<{args[0]} key limb(s)>"
             elif m.group(1) in ("class_tile_kernel", "front_half_kernel") and len(args) == 2:
                 loads = {"class_tile_kernel": "16-byte", "front_half_kernel": "word"}[m.group(1)]
                 kernel = (f"{m.group(1)}<{args[0]} key limb(s), "
@@ -775,18 +799,19 @@ def synth_pair(alphabet, seed, length):
     return seqs
 
 
-def round_append_vs_plain(torch, kernels, chunks, r0, n_rounds, G, cap):
-    """K4 and its plain version over the same chunks ((keys, packed, gpos0)
-    on the card, appended in turn), each into its own G x cap buffers filled
-    with -7, one run after the other: the max abs difference over the
-    buffers, cursors and flag, and K4's cursors.  Only the first R rows of
-    each round (R: K4's largest cursor, at most cap) are kept for the
-    comparison; a run that wrote a row past them fails the check (its error
-    is the written value's distance from -7), so that buffers of a full-size
-    plan's cap need not be held twice."""
+def round_append_vs_plain(torch, kernels, chunks, r0, n_rounds, G, cap, kernel=None):
+    """K4 (or `kernel`, a function of K4's arguments) and its plain version
+    over the same chunks ((keys, packed, gpos0) on the card, appended in
+    turn), each into its own G x cap buffers filled with -7, one run after
+    the other: the max abs difference over the buffers, cursors and flag,
+    and K4's cursors.  Only the first R rows of each round (R: K4's largest
+    cursor, at most cap) are kept for the comparison; a run that wrote a row
+    past them fails the check (its error is the written value's distance
+    from -7), so that buffers of a full-size plan's cap need not be held
+    twice."""
     limbs, dev = len(chunks[0][0]), chunks[0][1].device
     runs, err = [], 0
-    for fn in (kernels.round_append, kernels.round_append_plain):
+    for fn in (kernel or kernels.round_append, kernels.round_append_plain):
         bufs = [torch.full((G, cap), -7, dtype=torch.int64, device=dev) for _ in range(limbs + 1)]
         cursors = torch.zeros(G, dtype=torch.int64, device=dev)
         overflow = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -810,20 +835,22 @@ def round_append_vs_plain(torch, kernels, chunks, r0, n_rounds, G, cap):
 
 
 def k4_hand_laid(torch, dev, kernels, cases):
-    """K4 against its plain version on hand-laid chunks of T - 1, 3T and
-    T + 5 rows (T = the kernel's tile): every kind of round_rows, one and two
-    limbs, one round of one and G = 8 of 8.  Returns the max abs error."""
+    """K4 against its plain version on hand-laid chunks of T - 1, 3T, T + 5
+    and 11T + 3 rows (T = the kernel's tile): every kind of round_rows, one
+    and two limbs, one round of one, G = 8 of 8 and 64 of 100 (the kinds
+    that lay a round out by tiles lay the pass's first round).  Returns the
+    max abs error."""
     T = kernels.K4_TILE_ROWS
     err = 0
     for kind in cases.ROUND_ROW_KINDS:
         for limbs in (1, 2):
-            chunks, gpos0 = [], 1
-            for c, m in enumerate((T - 1, 3 * T, T + 5)):
-                keys, packed = cases.round_rows(kind, m, limbs, seed=c)
-                chunks.append((tuple(torch.from_numpy(x).to(dev) for x in keys),
-                               torch.from_numpy(packed).to(dev), gpos0))
-                gpos0 += m
             for r0, n_rounds, G in ((0, 1, 1), (0, 8, 8), (30, 100, 64)):
+                chunks, gpos0 = [], 1
+                for c, m in enumerate((T - 1, 3 * T, T + 5, 11 * T + 3)):
+                    keys, packed = cases.round_rows(kind, m, limbs, seed=c, hot=r0, tile=T)
+                    chunks.append((tuple(torch.from_numpy(x).to(dev) for x in keys),
+                                   torch.from_numpy(packed).to(dev), gpos0))
+                    gpos0 += m
                 e, _cur = round_append_vs_plain(torch, kernels, chunks, r0, n_rounds, G, gpos0)
                 check(e == 0, f"round_append differs from its plain version ({kind}, "
                               f"{limbs} limb(s), G={G})")
@@ -833,24 +860,30 @@ def k4_hand_laid(torch, dev, kernels, cases):
     return err
 
 
-def k4_full_size(torch, dev, alphabet, construct, streamed, kernels, peak_ops, ns):
-    """K4 on K1's outputs for a 2^22-position chunk of random codes with N
-    runs (k=25: one limb; k=33: two), as the streamed stage hands them over
-    (window offsets 1..2^22), in four shapes: G=1 (round 3 of 8) and G=8 of
-    8 into buffers with room for two chunks; G=2 of 8 from round 2, the
-    shape of examples/large's streamed passes, and G=4 of 4, the shape of
-    the 2 x 1.1 Gbp pass (one limb) and of the strains' -f 1 pass (two
-    limbs), each with the cap that streamed.plan gives that run (ns: its
-    positions).  Exact against the plain version over two chunks in a row;
-    then its time over 20 launches into buffers with room for all of them,
-    the plain version's, and the bound (every row's keys read once, each
-    kept row's word read and its keys and payload written once; operations:
-    the hash, modulo and keep test a row, the rank and payload a kept row).
-    Returns {label: dict}."""
+# K4's timed shapes (r0, n_rounds, G): G=1 (round 3 of 8), G=8 of 8, G=2 of
+# 8 from round 2 (the shape of examples/large's streamed passes) and G=4 of
+# 4 (the 2 x 1.1 Gbp pass at one limb, the strains' -f 1 pass at two)
+K4_SHAPES = ((3, 8, 1), (0, 8, 8), (2, 8, 2), (0, 4, 4))
+# --k4-time's sweep: csrc/round_append.cu's tile and warp ranking, each
+# built with -D switches into a library of its own
+K4_VARIANTS = {f"tile {tile} x {rows}, {rank} ranks": [
+    f"-DSZ_K4_TILE_ROWS={tile}", f"-DSZ_K4_ROWS={rows}",
+    f"-DSZ_K4_RANK_MATCH={int(rank == 'match')}"]
+    for tile, rows in ((2048, 8), (4096, 8), (4096, 16), (8192, 8), (8192, 16))
+    for rank in ("ballot", "match")}
+# a diagnosis, timed beside them and not held to the plain version: the
+# default build without the look-back (tile t's runs start at row t * cap /
+# tiles: the same bytes, each tile's to places of its own)
+K4_NO_LOOK_BACK = "default without the look-back (wrong output, not checked)"
+
+
+def k4_inputs(torch, dev, alphabet, construct, kernels):
+    """K4's full-size input: K1's outputs for a 2^22-position chunk of random
+    codes with N runs (k=25: one limb; k=33: two), as the streamed stage
+    hands them over (window offsets 1..2^22).  {limbs: (keys, packed)}."""
     m = 1 << 22
     rng = np.random.default_rng(4)
     out = {}
-    torch.cuda.empty_cache()
     for limbs, k in ((1, 25), (2, 33)):
         codes = rng.integers(0, 4, size=m + k + 2).astype(np.uint8)
         for lo in rng.integers(0, m, size=500):
@@ -858,11 +891,43 @@ def k4_full_size(torch, dev, alphabet, construct, streamed, kernels, peak_ops, n
         pk_h, nm_h = construct.pack_codes_host(codes)
         keys, packed = kernels.front_half(torch.from_numpy(pk_h).to(dev),
                                           torch.from_numpy(nm_h).to(dev), m + k + 2, k)
-        keys, packed = tuple(x[1 : m + 1] for x in keys), packed[1 : m + 1]
+        out[limbs] = (tuple(x[1 : m + 1] for x in keys), packed[1 : m + 1])
+    return out
+
+
+def k4_bound(m, kept, limbs, peak_ops):
+    """K4's bound: every row's keys read once, each kept row's word read and
+    its keys and payload written once; operations: the hash, modulo and keep
+    test a row, the rank and payload a kept row.  (ms, which)."""
+    ops = (K4_OPS_PER_ROW if limbs == 1 else K4_OPS_PER_ROW_WIDE) * m + K4_OPS_PER_KEPT_ROW * kept
+    return bound_ms(m * 8 * limbs + kept * (8 * limbs + 12), ops, peak_ops)
+
+
+def k4_timing_buffers(torch, dev, G, limbs, per_launch, reps):
+    """Round buffers with room for a warm-up and `reps` launches that keep at
+    most `per_launch` rows a round, and zeroed cursors and flag."""
+    room = int((reps + 2) * per_launch * 1.05)
+    bufs = [torch.empty((G, room), dtype=torch.int64, device=dev) for _ in range(limbs + 1)]
+    return bufs, torch.zeros(G, dtype=torch.int64, device=dev), \
+        torch.zeros(1, dtype=torch.int32, device=dev)
+
+
+def k4_full_size(torch, dev, alphabet, construct, streamed, kernels, peak_ops, ns):
+    """K4 on k4_inputs' chunks in the four K4_SHAPES, G=1 and G=8 of 8 into
+    buffers with room for two chunks, G=2 of 8 (examples/large's streamed
+    passes) and G=4 of 4 (2 x 1.1 Gbp at one limb, the strains' -f 1 pass at
+    two) each with the cap that streamed.plan gives that run (ns: its
+    positions).  Exact against the plain version over two chunks in a row;
+    then its time over 20 launches into buffers with room for all of them,
+    the plain version's, and the bound (k4_bound).  Returns {label: dict}."""
+    m = 1 << 22
+    out = {}
+    torch.cuda.empty_cache()
+    for limbs, (keys, packed) in k4_inputs(torch, dev, alphabet, construct, kernels).items():
+        k = 25 if limbs == 1 else 33
         g4_path = "2 x 1.1 Gbp" if limbs == 1 else "strains -k 33 -n -f 1"
-        for r0, n_rounds, G, path in ((3, 8, 1, None), (0, 8, 8, None),
-                                      (2, 8, 2, f"examples/large streamed k={k}"),
-                                      (0, 4, 4, g4_path)):
+        paths = (None, None, f"examples/large streamed k={k}", g4_path)
+        for (r0, n_rounds, G), path in zip(K4_SHAPES, paths):
             label = f"{limbs} limb(s) G={G} of {n_rounds}"
             cap = 2 * m if path is None else streamed.plan(ns[path], k, 1 << 22, 1.25, None,
                                                            n_rounds).cap
@@ -871,13 +936,10 @@ def k4_full_size(torch, dev, alphabet, construct, streamed, kernels, peak_ops, n
             check(err == 0, f"round_append differs from its plain version ({label}, cap {cap})")
             kept = int(cursors.sum()) // 2
             reps = 20
-            room = int((reps + 2) * (cursors.max().item() // 2) * 1.05)
-            bufs = [torch.empty((G, room), dtype=torch.int64, device=dev)
-                    for _ in range(limbs + 1)]
-            cur = torch.zeros(G, dtype=torch.int64, device=dev)
-            ovf = torch.zeros(1, dtype=torch.int32, device=dev)
+            bufs, cur, ovf = k4_timing_buffers(torch, dev, G, limbs, int(cursors.max()) // 2, reps)
             ms = cuda_ms(torch, lambda: kernels.round_append(
-                keys, packed, 1, r0, n_rounds, tuple(bufs[:limbs]), bufs[limbs], cur, ovf), reps)
+                keys, packed, 1, r0, n_rounds, tuple(bufs[:limbs]), bufs[limbs], cur, ovf), reps,
+                ahead=True)
             check(int(ovf) == 0, f"round_append timing overflowed ({label})")
             del bufs
             pbufs = [torch.empty((G, m), dtype=torch.int64, device=dev)
@@ -885,9 +947,7 @@ def k4_full_size(torch, dev, alphabet, construct, streamed, kernels, peak_ops, n
             plain_ms = cuda_ms(torch, lambda: (cur.zero_(), kernels.round_append_plain(
                 keys, packed, 1, r0, n_rounds, tuple(pbufs[:limbs]), pbufs[limbs], cur, ovf)), 3)
             del pbufs
-            ops = (K4_OPS_PER_ROW if limbs == 1 else K4_OPS_PER_ROW_WIDE) * m \
-                + K4_OPS_PER_KEPT_ROW * kept
-            bound, by = bound_ms(m * 8 * limbs + kept * (8 * limbs + 12), ops, peak_ops)
+            bound, by = k4_bound(m, kept, limbs, peak_ops)
             print(f"round_append {label} (round {r0} on, cap {cap}"
                   f"{'' if path is None else ': ' + path}), 2^22 rows of K1's k={k} outputs: "
                   f"equal, {kept} kept | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | bound "
@@ -895,6 +955,99 @@ def k4_full_size(torch, dev, alphabet, construct, streamed, kernels, peak_ops, n
             out[label] = {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                           "bound_by": by, "kept": kept, "r0": r0, "cap": cap, "path": path}
     return out
+
+
+def build_k4_libraries(torch, cudabuild, kernels, out_dir, older):
+    """Each K4_VARIANTS build of csrc/round_append.cu and, where `older` names
+    one, an older version of that file (its C interface is the same), each
+    alone into a shared library with nvcc, all started together; their
+    -Xptxas -v reports printed.  {label: a function of K4's arguments that
+    launches that library's kernel}."""
+    sources = {label: (os.path.join(cudabuild.CSRC_DIR, "round_append.cu"), flags)
+               for label, flags in {**K4_VARIANTS,
+                                    K4_NO_LOOK_BACK: ["-DSZ_K4_SKIP_LOOK_BACK=1"]}.items()}
+    if older:
+        sources[f"older kernel {older}"] = (older, [])
+    jobs = {}
+    for j, (label, (src, flags)) in enumerate(sources.items()):
+        lib = os.path.join(out_dir, f"k4_{j}.so")
+        cmd = [cudabuild._nvcc(), *cudabuild.NVCC_FLAGS, *flags, "-shared", "-o", lib, src]
+        jobs[label] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.PIPE, text=True))
+    fns = {}
+    for label, (path, proc) in jobs.items():
+        report = proc.communicate()[1]
+        check(proc.returncode == 0, f"K4 {label} did not build:\n{report}")
+        print(f"K4 {label}:")
+        print_ptxas(report)
+        lib = ctypes.CDLL(path)
+        lib.sz_round_append.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_longlong] + [ctypes.c_void_p] * 7
+        lib.sz_round_scratch_bytes.argtypes = [ctypes.c_longlong, ctypes.c_int]
+        lib.sz_round_scratch_bytes.restype = ctypes.c_longlong
+        fns[label] = functools.partial(k4_library_call, torch, kernels, lib, label)
+    return fns
+
+
+def k4_library_call(torch, kernels, lib, label, keys, packed, gpos0, r0, n_rounds, buf_keys,
+                    buf_payload, cursors, overflow):
+    """One launch of a K4 library built by build_k4_libraries, as
+    kernels.round_append makes it (no argument checks, no count)."""
+    m, (G, cap) = packed.shape[0], buf_payload.shape
+    scratch = torch.empty(lib.sz_round_scratch_bytes(m, G), dtype=torch.uint8,
+                          device=packed.device)
+    two = len(keys) == 2
+    status = lib.sz_round_append(
+        kernels._ptr(keys[0]), kernels._ptr(keys[1]) if two else None, kernels._ptr(packed), m,
+        gpos0, r0, n_rounds, G, cap, kernels._ptr(buf_keys[0]),
+        kernels._ptr(buf_keys[1]) if two else None, kernels._ptr(buf_payload),
+        kernels._ptr(cursors), kernels._ptr(overflow), kernels._ptr(scratch),
+        kernels._stream(packed.device))
+    check(status == 0, f"K4 {label} launch failed: CUDA error {status}")
+
+
+def k4_time(torch, dev, alphabet, construct, kernels, cudabuild, peak_ops, out_dir, older):
+    """--k4-time [OLDER.cu]: K4's wrapper and every K4_VARIANTS build (and an
+    older version of csrc/round_append.cu, where given) against the plain
+    version, exact, over two of k4_inputs' chunks in a row, in the four
+    K4_SHAPES and at G = 64 of 64, one and two limbs; then in each shape
+    their times over 20 launches, in turns: older, wrapper, variants and
+    the K4_NO_LOOK_BACK diagnosis, wrapper, older."""
+    fns = build_k4_libraries(torch, cudabuild, kernels, out_dir, older)
+    older_names = [name for name in fns if name.startswith("older")]
+    variants = [name for name in fns if name not in older_names]
+    m, reps = 1 << 22, 20
+    for limbs, (keys, packed) in k4_inputs(torch, dev, alphabet, construct, kernels).items():
+        for r0, n_rounds, G in K4_SHAPES + ((0, 64, 64),):
+            label = f"{limbs} limb(s) G={G} of {n_rounds}"
+            chunks = [(keys, packed, 1), (keys, packed, 1 + m)]
+            cap = min(2 * m, 4 * m // G)
+            err, cursors = round_append_vs_plain(torch, kernels, chunks, r0, n_rounds, G, cap)
+            check(err == 0, f"round_append differs from its plain version ({label})")
+            for name, fn in fns.items():
+                if name == K4_NO_LOOK_BACK:
+                    continue
+                e, _cur = round_append_vs_plain(torch, kernels, chunks, r0, n_rounds, G, cap,
+                                                kernel=fn)
+                check(e == 0, f"K4 {name} differs from the plain version ({label})")
+            kept = int(cursors.sum()) // 2
+            times = {}
+            for name in older_names + ["wrapper"] + variants + ["wrapper"] + older_names:
+                fn = kernels.round_append if name == "wrapper" else fns[name]
+                bufs, cur, ovf = k4_timing_buffers(torch, dev, G, limbs,
+                                                   int(cursors.max()) // 2, reps)
+                times.setdefault(name, []).append(cuda_ms(torch, lambda: fn(
+                    keys, packed, 1, r0, n_rounds, tuple(bufs[:limbs]), bufs[limbs], cur, ovf),
+                    reps, ahead=True))
+                check(int(ovf) == 0, f"K4 {name} timing overflowed ({label})")
+                del bufs
+            bound, by = k4_bound(m, kept, limbs, peak_ops)
+            print(f"round_append {label} (round {r0} on), 2^22 rows, {kept} kept, every build "
+                  f"but the diagnosis equal to the plain version | bound {bound:.4f} ms by {by} | "
+                  + " | ".join(f"{name} " + " / ".join(f"{t:.4f}" for t in ts) + " ms = "
+                               + " / ".join(f"{100 * bound / t:.2f}" for t in ts) + "%"
+                               for name, ts in times.items()))
 
 
 def streamed_counts(metrics, kernels):
@@ -1168,13 +1321,14 @@ def main(argv):
     replay_dir = time_kinds = None
     k2_time = argv == ["--k2-time"]
     k1_time = argv == ["--k1-time"]
+    k4_time_args = argv[1:] if argv[:1] == ["--k4-time"] and len(argv) <= 2 else None
     if argv[:1] == ["--k3-replay"] and len(argv) == 2:
         replay_dir = argv[1]
     elif argv[:1] == ["--k3-time"] and len(argv) == 2:
         time_kinds = argv[1].split(",")
-    elif argv and not (k2_time or k1_time):
+    elif argv and not (k2_time or k1_time or k4_time_args is not None):
         print("usage: python3 chip_smoke.py [--k3-replay DIR | --k3-time KIND[,KIND...] | "
-              "--k2-time | --k1-time]", file=sys.stderr)
+              "--k2-time | --k1-time | --k4-time [OLDER_ROUND_APPEND.cu]]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is visible", file=sys.stderr)
@@ -1218,6 +1372,12 @@ def main(argv):
     if k2_time:
         k2_vs_plain(torch, kernels, k2_row_sets(torch, dev, alphabet, construct, kernels, fasta),
                     peak_ops)
+        print(smi)
+        return 0
+    if k4_time_args is not None:
+        k4_time(torch, dev, alphabet, construct, kernels, cudabuild, peak_ops, tmp.name,
+                k4_time_args[0] if k4_time_args else None)
+        tmp.cleanup()
         print(smi)
         return 0
 

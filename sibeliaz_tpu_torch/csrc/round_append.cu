@@ -27,45 +27,103 @@
 // What bounds it: device memory. The function reads every row's keys once
 // (8 B a row, 16 B with two limbs) and each kept row's word (4 B), and writes
 // 16 B (24 B) per kept row; a hash, a modulo and a compare per row are far
-// below the card's integer rate for those bytes. Three launches:
-//   1. count: a block takes a tile of kTile rows, each warp 256 consecutive
-//      rows in 8 steps of 32; per step the lanes of one round find each
-//      other with __match_any_sync and the lowest adds their number to the
-//      block's count of that round in shared memory. Out: per tile, per
-//      round counts.
-//   2. scan: one block per round scans its counts over the tiles from the
-//      round's cursor (an exclusive prefix: each tile's first destination
-//      row), then moves the cursor on and sets the overflow flag.
-//   3. scatter: the tile again, each row loaded once and kept in registers;
-//      the warps' counts per round (match, as in 1) give each warp its first
-//      row per round, and each step's lanes of a round take consecutive rows
-//      by their rank in the match mask (a __popc under the lane mask). A
-//      round's rows of one warp step are consecutive in memory, so the
-//      stores of a step fall into few segments.
-// Scratch: per tile and round one int64 first row and one int32 count; no
-// zeroing (every entry is written before it is read). Keys and words are
-// read with scalar loads, so views at any offset work (the stage passes
-// K1's outputs from window offset 1 on).
+// below the card's integer rate for those bytes. The design moves each of
+// those bytes once, in one launch (after a memset of the scratch):
+//   1. A block takes the next tile of kTile rows from a global counter
+//      (never from blockIdx: the look-back below waits on earlier tiles, and
+//      only this order guarantees that they are running or done). Each warp
+//      owns kSteps x 32 consecutive rows, one per lane a step; it loads every
+//      row's key limbs once (a step reads 256 contiguous bytes a limb),
+//      stages them in shared memory in row order, and loads the word of each
+//      kept row alone. Loads are scalar: the stage passes views from window
+//      offset 1 on, which 16-byte loads would not take, and coalesced 8-byte
+//      loads fill whole sectors all the same.
+//   2. A stable multisplit by round inside the tile. Within a warp each kept
+//      row is ranked among the warp's earlier rows of its round: the lanes of
+//      one round find each other with __match_any_sync, the lowest adds their
+//      number to the warp's count of the round in shared memory, and a lane's
+//      rank is that count before the step plus the lanes of its round below
+//      it. (The other way, ceil(log2 G) + 1 ballots ANDed under the lane mask,
+//      the warp-level multisplit of Ashkiani et al., PPoPP 2016, with lane r
+//      counting round r in a register, measured slower at one limb and G = 1,
+//      2, 8; SZ_K4_RANK_MATCH=0 builds it.) A row is held in registers as one
+//      32-bit tag (rank, round) alone. Warp 0 turns the warps' counts into
+//      each warp's first slot per round, rounds laid out one after the other;
+//      each kept row's slot gets its tile-local row, so each round's rows of
+//      the tile leave as one contiguous run, the keys gathered from shared
+//      memory, with coalesced 8-byte stores.
+//   3. A decoupled look-back (Merrill & Garland 2016) over one 64-bit status
+//      word per (tile, round), round-major: flag (2 bits: aggregate or
+//      inclusive) and value (62 bits), written and read whole with relaxed
+//      loads and stores (no other memory is ordered by them, so no fence).
+//      Warp 0 publishes the tile's G aggregates as soon as the warps' counts
+//      are in, and looks back for up to 32 rounds at a time: a round takes a
+//      power of two of lanes, each reading kLookTiles earlier tiles a round
+//      trip (128 tiles a round trip at G = 1, 16 at G = 8), backing off with
+//      __nanosleep while a word it needs is empty. Only warp 0 looks back:
+//      a look-back on every warp ran slower, its spinning slowing the tiles
+//      it waited on. The value of tile 0's inclusive words holds the
+//      round's cursor, so a tile's exclusive prefix is its first destination
+//      row and no other tile reads the cursors.
+//   4. The tile that takes the last counter index writes the cursors and
+//      the overflow flag once its inclusive prefixes are known; nothing
+//      else writes them. Tile 0's read of the cursors reaches that write
+//      through the values of the look-back's chain.
+// What the design does about the kernel it replaced (count, scan, scatter):
+// one launch instead of three; the keys read once, not twice; no serial scan
+// over the tiles; a round's rows of a tile leave as one run instead of a
+// warp step's lanes spread over G buffers; a row held in registers as one
+// 32-bit tag instead of its keys, round and word.
+// What holds it: the look-back's wait for earlier tiles' aggregates, which
+// no polling depth or back-off shortened, and a block's serial load, rank,
+// look-back and store (PERF.md).
+// Scratch: tiles x G status words and the tile counter, zeroed on the stream
+// at each call (sz_round_scratch_bytes).
+// chip_smoke.py --k4-time builds the sweep's other tiles and the ballot ranks
+// from this file with -D switches (SZ_K4_TILE_ROWS, SZ_K4_ROWS,
+// SZ_K4_RANK_MATCH); the defaults are what the sweep chose. It also times a
+// build with SZ_K4_SKIP_LOOK_BACK=1, whose output is wrong (tile t's runs
+// start at row t * (cap / tiles), the same bytes to disjoint places): the
+// time the look-back's wait costs.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#ifndef SZ_K4_TILE_ROWS
+#define SZ_K4_TILE_ROWS 4096
+#endif
+#ifndef SZ_K4_ROWS
+#define SZ_K4_ROWS 8
+#endif
+#ifndef SZ_K4_RANK_MATCH
+#define SZ_K4_RANK_MATCH 1
+#endif
+#ifndef SZ_K4_SKIP_LOOK_BACK  // diagnosis only: wrong output
+#define SZ_K4_SKIP_LOOK_BACK 0
+#endif
+
 namespace {
 
 typedef unsigned long long u64;
 
-constexpr int kThreads = 256;
+constexpr int kTile = SZ_K4_TILE_ROWS;       // rows per tile
+constexpr int kSteps = SZ_K4_ROWS;           // rows per thread, one a warp step
+constexpr int kThreads = kTile / kSteps;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSteps = 8;                    // rows per thread, one a warp step
 constexpr int kWarpRows = 32 * kSteps;       // consecutive rows per warp
-constexpr int kTile = kThreads * kSteps;     // rows per tile
-constexpr int kMaxRounds = 64;               // rounds per launch (shared counters)
-constexpr int kScanThreads = 1024;
+constexpr int kMaxRounds = 64;               // rounds per launch
+constexpr bool kMatch = SZ_K4_RANK_MATCH != 0;
+constexpr bool kSkipLookBack = SZ_K4_SKIP_LOOK_BACK != 0;
 constexpr long long kInvalidCanon = 1LL << 62;
 constexpr u64 kMix = 0x9E3779B97F4A7C15ull;
 constexpr u64 kMix2 = 0xC2B2AE3D27D4EB4Full;
 constexpr unsigned kFull = 0xFFFFFFFFu;
+// status word: flag in bits 0-1, the value in bits 2-63
+constexpr u64 kFlagAggregate = 1, kFlagInclusive = 2;
+constexpr int kLookTiles = 4;  // earlier tiles a look-back lane reads a round trip
+static_assert(kTile % kSteps == 0 && kThreads % 32 == 0 && kThreads <= 1024 && kTile <= 65536,
+              "whole warps, at most 1,024 threads, a tile-local row in 16 bits");
 
 struct Round {
   int r0;
@@ -84,136 +142,275 @@ __device__ __forceinline__ int round_of(long long a, long long b, const Round& r
   return (g >= 0 && g < rd.G) ? g : -1;
 }
 
-template <int LIMBS>
-__global__ void __launch_bounds__(kThreads)
-    round_count_kernel(const long long* __restrict__ k0, const long long* __restrict__ k1,
-                       long long m, Round rd, int* __restrict__ tile_counts) {
-  __shared__ int count[kMaxRounds];
-  for (int g = threadIdx.x; g < rd.G; g += kThreads) count[g] = 0;
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const long long base =
-      static_cast<long long>(blockIdx.x) * kTile + (threadIdx.x >> 5) * kWarpRows + lane;
-#pragma unroll
-  for (int s = 0; s < kSteps; ++s) {
-    const long long i = base + s * 32;
-    int g = -1;
-    if (i < m) g = round_of<LIMBS>(k0[i], LIMBS == 2 ? k1[i] : 0, rd);
-    const unsigned same = __match_any_sync(kFull, g);
-    if (g >= 0 && lane == __ffs(same) - 1) atomicAdd(&count[g], __popc(same));
-  }
-  __syncthreads();
-  for (int g = threadIdx.x; g < rd.G; g += kThreads) {
-    tile_counts[static_cast<long long>(blockIdx.x) * rd.G + g] = count[g];
-  }
+// Status words are read and written relaxed: each carries its flag and
+// value whole, and no other memory is ordered by them (tile 0's read of the
+// cursors reaches the last tile's write of them through the values).
+__device__ __forceinline__ u64 load_relaxed(const u64* p) {
+  u64 v;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
 }
 
-// One block per round: first[t] = cursor + the counts of tiles before t.
-__global__ void __launch_bounds__(kScanThreads)
-    round_scan_kernel(const int* __restrict__ tile_counts, long long tiles, int G, long long cap,
-                      long long* __restrict__ tile_first, long long* __restrict__ cursors,
-                      int* __restrict__ overflow) {
-  __shared__ long long warp_sum[kScanThreads / 32];
-  __shared__ long long carry;
-  const int g = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) carry = cursors[g];
+__device__ __forceinline__ void store_relaxed(u64* p, u64 v) {
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+// One warp of tile `tile` > 0, for its rounds rbase .. rbase + nr - 1 (of
+// G): each round's exclusive prefix over the tiles before it (the value of
+// the nearest inclusive word plus the aggregates after it). A round takes
+// `depth` lanes (a power of two, depth * nr <= 32), each reading kLookTiles
+// consecutive earlier tiles a round trip; lane d of round j reads the tiles
+// d * kLookTiles + k before the window's start. Returns the prefix on lane
+// j < nr (of round rbase + j), with the round in *round (>= G: none).
+__device__ u64 look_back(const u64* status, long long tiles, long long tile, int rbase, int nr,
+                         int G, int lane, int* round) {
+  int depth = 1;
+  while (2 * depth * nr <= 32) depth *= 2;
+  const int j = lane % nr, d = lane / nr;
+  const int r = rbase + j;
+  *round = r;
+  unsigned group = 0;  // the lanes that read round r
+  for (int k = 0; k < depth; ++k) group |= 1u << (k * nr);
+  group <<= j;
+  const u64* words = status + static_cast<long long>(r) * tiles;
+  bool done = !(d < depth && r < G);
+  u64 acc = 0;
+  unsigned sleep_ns = 32;
+  for (long long p = tile - 1 - static_cast<long long>(d) * kLookTiles;;
+       p -= static_cast<long long>(depth) * kLookTiles) {
+    u64 w[kLookTiles];
+    int first;     // the lane's nearest inclusive word (kLookTiles: none)
+    unsigned inc;  // the round's lanes that hold an inclusive word
+    unsigned need;  // the round's lanes up to its nearest inclusive word
+    for (;;) {
+      // words before tile 0 read as an inclusive 0: tile 0 is inclusive,
+      // so none of them is ever summed or waited on
+#pragma unroll
+      for (int k = 0; k < kLookTiles; ++k) {
+        w[k] = (!done && p - k >= 0) ? load_relaxed(words + p - k) : kFlagInclusive;
+      }
+      first = kLookTiles;
+      bool empty = false;  // an empty word at or before `first`
+#pragma unroll
+      for (int k = kLookTiles - 1; k >= 0; --k) {
+        if ((w[k] & 3ull) == kFlagInclusive) first = k;
+      }
+#pragma unroll
+      for (int k = 0; k < kLookTiles; ++k) empty = empty || (k <= first && (w[k] & 3ull) == 0);
+      inc = __ballot_sync(kFull, first < kLookTiles) & group;
+      need = inc ? (((inc & (0u - inc)) << 1) - 1u) & group : group;
+      if (!__any_sync(kFull, !done && empty && ((need >> lane) & 1u))) break;
+      __nanosleep(sleep_ns);  // back off: spinning warps slow the tiles they wait on
+      sleep_ns = sleep_ns < 1024 ? 2 * sleep_ns : sleep_ns;
+    }
+    u64 v = 0;
+    if (!done && ((need >> lane) & 1u)) {
+#pragma unroll
+      for (int k = 0; k < kLookTiles; ++k) v += k <= first ? w[k] >> 2 : 0;
+    }
+    for (int s = depth / 2; s > 0; s >>= 1) v += __shfl_down_sync(kFull, v, s * nr);
+    v = __shfl_sync(kFull, v, j);  // the round's sum over the window
+    if (!done) {
+      acc += v;
+      done = inc != 0;
+    }
+    if (__all_sync(kFull, done)) break;
+  }
+  return acc;
+}
+
+// key1, buf1 are null at LIMBS 1. Dynamic shared memory, kTile x (8 B a
+// limb + 5 B): the tile's keys and word bits in row order, and its kept rows
+// grouped by round as (row, round).
+template <int LIMBS>
+__global__ void __launch_bounds__(kThreads)
+    round_append_kernel(const long long* __restrict__ k0, const long long* __restrict__ k1,
+                        const int32_t* __restrict__ packed, long long m, long long gpos0,
+                        Round rd, long long cap, long long* __restrict__ b0,
+                        long long* __restrict__ b1, long long* __restrict__ payload,
+                        long long* cursors, int* overflow, u64* status, unsigned* counter) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  long long* s_key0 = reinterpret_cast<long long*>(smem);  // [kTile] a limb, row order
+  long long* s_key1 = s_key0 + kTile;                       // LIMBS 2 only
+  auto* s_w12 = reinterpret_cast<uint16_t*>(s_key0 + LIMBS * kTile);  // word & 0xFFF, row order
+  auto* s_row = s_w12 + kTile;                              // a slot's row
+  auto* s_round = reinterpret_cast<uint8_t*>(s_row + kTile);  // a slot's round
+  __shared__ int s_first[kWarps][kMaxRounds];  // a warp's rows of a round, then its first slot
+  __shared__ int s_off[kMaxRounds + 1];          // a round's first slot; [G]: the kept rows
+  __shared__ int s_cnt[kMaxRounds];              // a round's rows of the tile
+  __shared__ long long s_dst[kMaxRounds];        // a round's first destination row
+  __shared__ unsigned s_tile;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = rd.G;
+  if (tid == 0) s_tile = atomicAdd(counter, 1u);
+  if (kMatch) {
+    for (int i = tid; i < kWarps * kMaxRounds; i += kThreads) (&s_first[0][0])[i] = 0;
+  }
   __syncthreads();
-  for (long long t0 = 0; t0 < tiles; t0 += kScanThreads) {
-    const long long t = t0 + threadIdx.x;
-    const long long v = t < tiles ? tile_counts[t * G + g] : 0;
-    long long x = v;  // inclusive scan within the warp
+  const long long tile = s_tile;
+  const long long base = tile * kTile;
+  const int row0 = warp * kWarpRows + lane;  // tile-local row of step 0
+
+  // ---- 1. keys once, staged in row order; the words of kept rows ----
+  int g[kSteps];
+  {
+    long long a[kSteps], b[kSteps];
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      const long long i = base + row0 + s * 32;
+      a[s] = i < m ? k0[i] : kInvalidCanon;
+      b[s] = (LIMBS == 2 && i < m) ? k1[i] : 0;
+    }
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      g[s] = round_of<LIMBS>(a[s], b[s], rd);
+      s_key0[row0 + s * 32] = a[s];
+      if (LIMBS == 2) s_key1[row0 + s * 32] = b[s];
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+    if (g[s] >= 0) s_w12[row0 + s * 32] = packed[base + row0 + s * 32] & 0xFFF;
+  }
+
+  // ---- 2. rank each kept row among the warp's earlier rows of its round ----
+  // tag: rank << 8 | round, or -1 (not kept)
+  const unsigned below = (1u << lane) - 1u;
+  int tag[kSteps];
+  if (kMatch) {
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      const unsigned same = __match_any_sync(kFull, g[s]);
+      const int leader = __ffs(same) - 1;
+      int before = 0;
+      if (g[s] >= 0 && lane == leader) {
+        before = s_first[warp][g[s]];
+        s_first[warp][g[s]] = before + __popc(same);
+      }
+      const int rank = __shfl_sync(kFull, before, leader) + __popc(same & below);
+      tag[s] = g[s] < 0 ? -1 : (rank << 8) | g[s];
+      __syncwarp();
+    }
+  } else {
+    const int bits = 32 - __clz(G - 1);  // bits of a round: 0 at G = 1
+    int c0 = 0, c1 = 0;                   // the warp's rows so far of rounds lane, lane + 32
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      const unsigned kept = __ballot_sync(kFull, g[s] >= 0);
+      unsigned same = kept, q0 = kept, q1 = kept;
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {
+        if (k < bits) {
+          const unsigned bk = __ballot_sync(kFull, (g[s] >> k) & 1);
+          same &= ((g[s] >> k) & 1) ? bk : ~bk;
+          q0 &= ((lane >> k) & 1) ? bk : ~bk;
+          q1 &= (((lane + 32) >> k) & 1) ? bk : ~bk;
+        }
+      }
+      const int from0 = __shfl_sync(kFull, c0, g[s] & 31);
+      const int from1 = __shfl_sync(kFull, c1, g[s] & 31);
+      const int rank = (g[s] < 32 ? from0 : from1) + __popc(same & below);
+      tag[s] = g[s] < 0 ? -1 : (rank << 8) | g[s];
+      c0 += __popc(q0);
+      c1 += __popc(q1);
+    }
+    if (lane < G) s_first[warp][lane] = c0;
+    if (lane + 32 < G) s_first[warp][lane + 32] = c1;
+  }
+  __syncthreads();
+
+  // ---- 3. warp 0: the aggregates (tile 0: the inclusive words), slots ----
+  const long long tiles = gridDim.x;
+  const bool last = tile == tiles - 1;
+  if (warp == 0) {
+    int first[2][kWarps], cnt[2] = {0, 0};  // the tile's rows of rounds lane, lane + 32
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = lane + 32 * j;
+#pragma unroll
+      for (int v = 0; v < kWarps; ++v) {
+        first[j][v] = cnt[j];
+        cnt[j] += r < G ? s_first[v][r] : 0;
+      }
+      // publish first: later tiles wait on these words. Tile 0's inclusive
+      // words hold the cursors.
+      if (r < G) {
+        if (tile == 0) {
+          const long long ex = cursors[r];
+          store_relaxed(status + r * tiles, (u64(ex + cnt[j]) << 2) | kFlagInclusive);
+          s_dst[r] = ex;
+        } else {
+          store_relaxed(status + r * tiles + tile, (u64(cnt[j]) << 2) | kFlagAggregate);
+        }
+        s_cnt[r] = cnt[j];
+      }
+    }
+    int x0 = cnt[0], x1 = cnt[1];  // inclusive scans over the rounds
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
-      const long long y = __shfl_up_sync(kFull, x, d);
-      if (lane >= d) x += y;
-    }
-    if (lane == 31) warp_sum[warp] = x;
-    __syncthreads();
-    if (warp == 0) {
-      long long w = warp_sum[lane];
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const long long y = __shfl_up_sync(kFull, w, d);
-        if (lane >= d) w += y;
+      const int y0 = __shfl_up_sync(kFull, x0, d), y1 = __shfl_up_sync(kFull, x1, d);
+      if (lane >= d) {
+        x0 += y0;
+        x1 += y1;
       }
-      warp_sum[lane] = w;  // inclusive over warps
     }
-    __syncthreads();
-    const long long before = carry + (warp > 0 ? warp_sum[warp - 1] : 0) + x - v;
-    if (t < tiles) tile_first[t * G + g] = before;
-    __syncthreads();
-    if (threadIdx.x == kScanThreads - 1) carry = before + v;
-    __syncthreads();
+    const int sum0 = __shfl_sync(kFull, x0, 31);
+    const int off[2] = {x0 - cnt[0], sum0 + x1 - cnt[1]};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = lane + 32 * j;
+      if (r < G) {
+        s_off[r] = off[j];
+#pragma unroll
+        for (int v = 0; v < kWarps; ++v) s_first[v][r] = off[j] + first[j][v];
+      }
+    }
+    if (lane == 31) s_off[G] = sum0 + x1;
   }
-  if (threadIdx.x == 0) {
-    if (carry > cap) *overflow = 1;
-    cursors[g] = carry;
-  }
-}
+  __syncthreads();
 
-template <int LIMBS>
-__global__ void __launch_bounds__(kThreads)
-    round_scatter_kernel(const long long* __restrict__ k0, const long long* __restrict__ k1,
-                         const int32_t* __restrict__ packed, long long m, long long gpos0,
-                         Round rd, long long cap, const long long* __restrict__ tile_first,
-                         long long* __restrict__ b0, long long* __restrict__ b1,
-                         long long* __restrict__ payload) {
-  __shared__ int count[kWarps][kMaxRounds];
-  __shared__ long long next[kWarps][kMaxRounds];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int g = lane; g < rd.G; g += 32) count[warp][g] = 0;
-  __syncwarp();
-  const long long base =
-      static_cast<long long>(blockIdx.x) * kTile + warp * kWarpRows + lane;
-  int g[kSteps];
-  unsigned same[kSteps];
-  long long a[kSteps], b[kSteps];
-  int32_t w[kSteps];
+  // ---- 4. each kept row's slot, grouped by round; look back ----
 #pragma unroll
   for (int s = 0; s < kSteps; ++s) {
-    const long long i = base + s * 32;
-    g[s] = -1;
-    a[s] = 0;
-    b[s] = 0;
-    w[s] = 0;
-    if (i < m) {
-      a[s] = k0[i];
-      if (LIMBS == 2) b[s] = k1[i];
-      g[s] = round_of<LIMBS>(a[s], b[s], rd);
-      if (g[s] >= 0) w[s] = packed[i];
-    }
-    same[s] = __match_any_sync(kFull, g[s]);
-    if (g[s] >= 0 && lane == __ffs(same[s]) - 1) count[warp][g[s]] += __popc(same[s]);
-    __syncwarp();
-  }
-  __syncthreads();
-  // each warp's first destination row per round: the tile's, plus the rows
-  // of the warps before it
-  for (int r = threadIdx.x; r < rd.G; r += kThreads) {
-    long long at = tile_first[static_cast<long long>(blockIdx.x) * rd.G + r];
-    for (int v = 0; v < kWarps; ++v) {
-      next[v][r] = at;
-      at += count[v][r];
+    if (tag[s] >= 0) {
+      const int r = tag[s] & 63;
+      const int slot = s_first[warp][r] + (tag[s] >> 8);
+      s_row[slot] = static_cast<uint16_t>(row0 + s * 32);
+      s_round[slot] = static_cast<uint8_t>(r);
     }
   }
-  __syncthreads();
-  const unsigned below = (1u << lane) - 1u;
-#pragma unroll
-  for (int s = 0; s < kSteps; ++s) {
-    long long dst = 0;
-    if (g[s] >= 0) {
-      dst = next[warp][g[s]] + __popc(same[s] & below);
-      if (dst < cap) {
-        const long long row = static_cast<long long>(g[s]) * cap + dst;
-        b0[row] = a[s];
-        if (LIMBS == 2) b1[row] = b[s];
-        payload[row] = ((gpos0 + base + s * 32) << 12) | static_cast<long long>(w[s] & 0xFFF);
+  if (kSkipLookBack && tile > 0 && tid < G) s_dst[tid] = tile * (cap / tiles);
+  if (!kSkipLookBack && tile > 0 && warp == 0) {  // one warp: spinning slows the others
+    for (int rbase = 0; rbase < G; rbase += 32) {
+      const int nr = G - rbase < 32 ? G - rbase : 32;
+      int r;
+      const u64 ex = look_back(status, tiles, tile, rbase, nr, G, lane, &r);
+      if (lane < nr) {
+        store_relaxed(status + r * tiles + tile, (u64(ex + s_cnt[r]) << 2) | kFlagInclusive);
+        s_dst[r] = static_cast<long long>(ex);
       }
     }
-    __syncwarp();
-    if (g[s] >= 0 && lane == __ffs(same[s]) - 1) next[warp][g[s]] += __popc(same[s]);
-    __syncwarp();
+  }
+  __syncthreads();
+  if (last && tid < G) {
+    const long long inclusive = s_dst[tid] + s_cnt[tid];
+    cursors[tid] = inclusive;
+    if (inclusive > cap) *overflow = 1;
+  }
+
+  // ---- 5. each round's rows of the tile as one run ----
+  const int kept = s_off[G];
+  for (int i = tid; i < kept; i += kThreads) {
+    const int r = s_round[i];
+    const long long dst = s_dst[r] - s_off[r] + i;
+    if (dst < cap) {
+      const int row = s_row[i];
+      const long long at = r * cap + dst;
+      b0[at] = s_key0[row];
+      if (LIMBS == 2) b1[at] = s_key1[row];
+      payload[at] = ((gpos0 + base + row) << 12) | s_w12[row];
+    }
   }
 }
 
@@ -224,19 +421,27 @@ int launch(const long long* k0, const long long* k1, const int32_t* packed, long
            long long gpos0, Round rd, long long cap, long long* b0, long long* b1,
            long long* payload, long long* cursors, int* overflow, void* scratch,
            cudaStream_t s) {
+  constexpr int smem = kTile * (8 * LIMBS + 5);
+  static bool opted_in = false;  // the shared-memory attributes, once an instance
+  cudaError_t err;
+  if (!opted_in) {
+    err = cudaFuncSetAttribute(round_append_kernel<LIMBS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess) {  // as many blocks an SM as shared memory holds
+      err = cudaFuncSetAttribute(round_append_kernel<LIMBS>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in = true;
+  }
   const long long tiles = tiles_of(m);
-  auto* tile_first = static_cast<long long*>(scratch);
-  auto* tile_counts = reinterpret_cast<int*>(tile_first + tiles * rd.G);
-  const auto grid = static_cast<unsigned>(tiles);
-  round_count_kernel<LIMBS><<<grid, kThreads, 0, s>>>(k0, k1, m, rd, tile_counts);
-  cudaError_t err = cudaGetLastError();
+  auto* status = static_cast<u64*>(scratch);
+  auto* counter = reinterpret_cast<unsigned*>(status + tiles * rd.G);
+  err = cudaMemsetAsync(scratch, 0, (tiles * rd.G + 1) * 8, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  round_scan_kernel<<<rd.G, kScanThreads, 0, s>>>(tile_counts, tiles, rd.G, cap, tile_first,
-                                                  cursors, overflow);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  round_scatter_kernel<LIMBS><<<grid, kThreads, 0, s>>>(k0, k1, packed, m, gpos0, rd, cap,
-                                                        tile_first, b0, b1, payload);
+  round_append_kernel<LIMBS><<<static_cast<unsigned>(tiles), kThreads, smem, s>>>(
+      k0, k1, packed, m, gpos0, rd, cap, b0, b1, payload, cursors, overflow, status, counter);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -248,19 +453,20 @@ extern "C" int sz_round_max_rounds() { return kMaxRounds; }
 // Rows per tile: the card's tests lay their rounds out across tiles by it.
 extern "C" int sz_round_tile_rows() { return kTile; }
 
-// Bytes of scratch sz_round_append takes for m rows and G rounds: an int64
-// first row and an int32 count per tile and round.
+// Bytes of scratch sz_round_append takes for m rows and G rounds: a status
+// word per tile and round, and the tile counter (one word).
 extern "C" long long sz_round_scratch_bytes(long long m, int G) {
-  return tiles_of(m) * G * 12;
+  return (tiles_of(m) * G + 1) * 8;
 }
 
 // key0 (and key1, the low limb of two-limb keys, else null): m int64;
 // packed: m int32; row i at global position gpos0 + i. 0 <= r0 < n_rounds
-// < 2^31, 1 <= G <= sz_round_max_rounds(). buf0 (and buf1) and payload:
-// [G, cap] int64, row-major; cursors: G int64, in and out; overflow: one
-// int32, set to 1 on overflow and never cleared here; scratch:
-// sz_round_scratch_bytes(m, G) bytes, 8-byte aligned. Returns
-// cudaGetLastError() after the first launch that fails, else after the last.
+// < 2^31, 1 <= G <= sz_round_max_rounds(), cursors + m < 2^61 (a
+// status word holds them in 62 bits). buf0 (and buf1) and payload: [G, cap] int64, row-major; cursors: G
+// int64, in and out; overflow: one int32, set to 1 on overflow and never
+// cleared here; scratch: sz_round_scratch_bytes(m, G) bytes, 8-byte aligned,
+// zeroed here. Returns cudaGetLastError() after the launch, or the first
+// error before it.
 extern "C" int sz_round_append(const void* key0, const void* key1, const void* packed,
                                long long m, long long gpos0, int r0, int n_rounds, int G,
                                long long cap, void* buf0, void* buf1, void* payload,

@@ -8,7 +8,8 @@ key-sorted rows into a junction verdict and a class-first position per
 row, in one pass over tiles of K2_TILE_ROWS rows with a decoupled
 look-back.  K4 `round_append` (csrc/round_append.cu), for the streamed
 graph stage, appends one chunk's rows to the round buffers of the rounds
-their classes hash to, in genome order.
+their classes hash to, in genome order, in one pass over tiles of
+K4_TILE_ROWS rows with a decoupled look-back over (tile, round) counts.
 
 Keys are a tuple of int64 tensors, as the JAX package's _prepare_packed
 gives them: one limb for k <= 31, two base-2^62 limbs (hi, lo) for
@@ -248,14 +249,21 @@ def class_analysis(keys_s, packed_s: torch.Tensor, pos_s: torch.Tensor):
 MIX = -7046029254386353131
 MIX2 = -4417276706812531889
 # Rounds one launch appends into at most (csrc/round_append.cu,
-# sz_round_max_rounds): the kernel keeps a counter per round and warp in
-# shared memory.
+# sz_round_max_rounds): the kernel keeps a count per warp and round in
+# shared memory and a status word per tile and round.
 MAX_ROUNDS_PER_LAUNCH = 64
 # Rows per tile of the kernel (sz_round_tile_rows): the tests lay their
 # rounds out across tiles by it.
-K4_TILE_ROWS = 2048
+K4_TILE_ROWS = 4096
 # A payload is gpos << 12 | the 12-bit word; gpos must leave the sign bit.
 _MAX_GPOS = 1 << 51
+
+
+def round_scratch_bytes(m: int, G: int) -> int:
+    """Device bytes of K4's scratch for a chunk of m rows and G rounds
+    (sz_round_scratch_bytes): a 64-bit status word per tile and round, and
+    the tile counter."""
+    return (-(-m // K4_TILE_ROWS) * G + 1) * 8
 
 
 def round_bucket(keys, n_rounds: int) -> torch.Tensor:

@@ -115,9 +115,8 @@ def plan(n: int, k: int, chunk_size: int, round_slack: float, budget: int | None
     limbs = 1 if k <= kernels.ONE_LIMB_MAX_K else 2
     row = 8 * limbs + 8
     epi = EPILOGUE_BYTES_PER_ROW if limbs == 1 else EPILOGUE_BYTES_PER_ROW_WIDE
-    tiles = -(-chunk // kernels.K4_TILE_ROWS)
     fixed = (_padded(n, k, chunk) * 3 // 8 + (chunk + k + 2) * (8 * limbs + 4)
-             + tiles * kernels.MAX_ROUNDS_PER_LAUNCH * 12)
+             + kernels.round_scratch_bytes(chunk, kernels.MAX_ROUNDS_PER_LAUNCH))
     floor = max(1, min(chunk, n // 8))
 
     def cap_of(r: int) -> int:

@@ -288,10 +288,10 @@ def assert_round_append_matches_plain(chunks, r0, n_rounds, G, cap, device, star
     return runs[0][-2], runs[0][-1]
 
 
-def round_chunks(kind, limbs, sizes, gpos0=1):
+def round_chunks(kind, limbs, sizes, gpos0=1, hot=0):
     chunks = []
     for c, m in enumerate(sizes):
-        keys, packed = round_rows(kind, m, limbs, seed=c)
+        keys, packed = round_rows(kind, m, limbs, seed=c, hot=hot, tile=T4)
         chunks.append((keys, packed, gpos0))
         gpos0 += m
     return chunks
@@ -303,11 +303,15 @@ def round_chunks(kind, limbs, sizes, gpos0=1):
                                            (0, 64, 64), (30, 100, 64)])
 def test_round_append_matches_plain(cuda, kind, limbs, r0, n_rounds, G):
     """Every round taking rows (random), one round taking all (one_class),
-    none kept (all_invalid), rounds fed from every tile (repeats); G from 1
-    to the kernel's maximum; chunks one row short of, at, and past tile
-    multiples."""
+    none kept (all_invalid), rounds fed from every tile (repeats), the
+    pass's first round in every 5th tile alone (sparse: the look-back walks
+    past tiles with no kept row) and in runs on tile boundaries and one row
+    either side (tile_runs), every round in every tile (all_rounds); G from
+    1 to the kernel's maximum; chunks one row short of, at, and past tile
+    multiples, and one of 12 tiles."""
     before = kernels.LAUNCHES["round_append"]
-    chunks = round_chunks(kind, limbs, (T4 - 1, 3 * T4, T4 + 5, 1))
+    chunks = round_chunks(kind, limbs, (T4 - 1, T4, T4 + 1, 3 * T4, 3 * T4 + 5, 1, 11 * T4 + 3),
+                          hot=r0)
     cap = sum(len(c[1]) for c in chunks)
     cursors, overflow = assert_round_append_matches_plain(chunks, r0, n_rounds, G, cap, cuda)
     assert kernels.LAUNCHES["round_append"] == before + len(chunks)
@@ -339,6 +343,15 @@ def test_round_append_max_rounds_is_the_kernels(cuda):
     lib = cudabuild.load()
     assert lib.sz_round_max_rounds() == kernels.MAX_ROUNDS_PER_LAUNCH >= 16
     assert lib.sz_round_tile_rows() == T4
+
+
+def test_round_append_scratch_is_the_plans(cuda):
+    """streamed.plan reserves kernels.round_scratch_bytes for K4's scratch:
+    the kernel takes exactly that."""
+    lib = cudabuild.load()
+    for m in (1, T4 - 1, T4, T4 + 1, 3 * T4 + 5, 1 << 22, (1 << 22) + 3):
+        for G in (1, 2, 3, 8, 33, 64):
+            assert lib.sz_round_scratch_bytes(m, G) == kernels.round_scratch_bytes(m, G), (m, G)
 
 
 @pytest.mark.parametrize("limbs", [1, 2])

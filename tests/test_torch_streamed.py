@@ -197,11 +197,12 @@ def append_all(chunks, r0, n_rounds, G, cap, start=0):
 def test_round_append_plain_keeps_genome_order(kind, limbs, r0, n_rounds, G):
     """Three hand-laid chunks, one of them not a tile multiple: each round
     holds its kept rows in ascending global position, exactly the rows the
-    per-row spec keeps."""
+    per-row spec keeps (the kinds that lay a round out by tiles lay the
+    pass's first round)."""
     T = kernels.K4_TILE_ROWS
     chunks, gpos0 = [], 1
     for c, m in enumerate((3 * T, T + 5, 2 * T)):
-        keys, packed = round_rows(kind, m, limbs, seed=c)
+        keys, packed = round_rows(kind, m, limbs, seed=c, hot=r0, tile=T)
         chunks.append((keys, packed, gpos0))
         gpos0 += m
     want = spec_rounds(chunks, r0, n_rounds, G)

@@ -187,10 +187,41 @@ def class_runs(kind, n, tile, seed=0):
     return key, packed.astype(np.int32), pos.astype(np.int32)
 
 
-ROUND_ROW_KINDS = ("random", "repeats", "one_class", "all_invalid")
+ROUND_ROW_KINDS = ("random", "repeats", "one_class", "all_invalid", "sparse", "tile_runs",
+                   "all_rounds")
+# the round hash's multipliers (kernels.MIX, MIX2) as unsigned 64-bit
+# numbers, and the inverse of MIX modulo 2^64
+_MIX, _MIX2 = 0x9E3779B97F4A7C15, 0xC2B2AE3D27D4EB4F
+_MIX_INV = pow(_MIX, -1, 1 << 64)
 
 
-def round_rows(kind, m, limbs, seed=0):
+def keys_of_bucket(values, limbs, rng):
+    """Random valid key limbs whose round hash, before the modulo, is each
+    of `values` (< 2^31): bits 32-62 of key * MIX (two limbs: hi * MIX xor
+    lo * MIX2), so that the round of row i is values[i] % n_rounds.  The
+    product is inverted modulo 2^64, with random other bits, until the
+    (high) limb is a valid key.  Returns a (limbs, len(values)) int64
+    array."""
+    values = np.asarray(values, np.uint64)
+    out = np.zeros((limbs, len(values)), np.int64)
+    todo = np.arange(len(values))
+    while len(todo):
+        h = ((rng.integers(0, 2, size=len(todo)).astype(np.uint64) << np.uint64(63))
+             | (values[todo] << np.uint64(32))
+             | rng.integers(0, 1 << 32, size=len(todo)).astype(np.uint64))
+        lo = rng.integers(0, INVALID_CANON, size=len(todo)).astype(np.uint64)
+        if limbs == 2:
+            h = h ^ (lo * np.uint64(_MIX2))
+        hi = h * np.uint64(_MIX_INV)
+        ok = hi < np.uint64(INVALID_CANON)
+        out[0, todo[ok]] = hi[ok].astype(np.int64)
+        if limbs == 2:
+            out[1, todo[ok]] = lo[ok].astype(np.int64)
+        todo = todo[~ok]
+    return out
+
+
+def round_rows(kind, m, limbs, seed=0, hot=0, tile=None):
     """One chunk's rows for K4 (round_append): `limbs` int64 key limbs and
     an int32 word per row.  `random`: random valid keys, about one row in 16
     invalid (key (INVALID_CANON, 0)); `repeats`: keys drawn from 37 values,
@@ -198,8 +229,22 @@ def round_rows(kind, m, limbs, seed=0):
     throughout, so that one round takes every row; `all_invalid`: no row is
     kept.  Words carry random bits above the 12 the payload keeps.
 
+    Three kinds lay rounds out by the kernel's tile (`tile` rows: pass
+    kernels.K4_TILE_ROWS) and the round hash value `hot` (before the
+    modulo: pass the test's r0, and the hot rows fall in its first round
+    whatever n_rounds is): `sparse`: the
+    hot round's rows (and random ones) in every 5th tile only, every row of
+    the tiles between invalid, so that a look-back walks past tiles with no
+    kept row; `tile_runs`: the hot round's rows in runs around odd tiles,
+    each starting and ending on a tile boundary, one row before it or one
+    row after it, the other rows of hash values hot + 1 .. hot + 4;
+    `all_rounds`: hash values hot .. hot + 63, each in every tile (every
+    round of a pass of G = 64 rounds in every tile).
+
     Returns (tuple of key limbs, packed) as numpy arrays of m rows."""
     rng = np.random.default_rng([seed, ROUND_ROW_KINDS.index(kind), m, limbs])
+    invalid = np.zeros((limbs, 1), np.int64)
+    invalid[0] = INVALID_CANON
     if kind == "random":
         key = rng.integers(0, INVALID_CANON, size=(limbs, m))
         invalid = rng.random(m) < 1 / 16
@@ -209,9 +254,31 @@ def round_rows(kind, m, limbs, seed=0):
         key = rng.integers(0, INVALID_CANON, size=(limbs, 37))[:, rng.integers(0, 37, size=m)]
     elif kind == "one_class":
         key = np.repeat(rng.integers(0, INVALID_CANON, size=(limbs, 1)), m, axis=1)
+    elif kind == "sparse":
+        key = np.repeat(invalid, m, axis=1)
+        hot_keys = keys_of_bucket(np.full(8, hot), limbs, rng)
+        for lo in range(0, m, 5 * tile):
+            n = min(tile, m - lo)
+            rows = rng.integers(0, INVALID_CANON, size=(limbs, n))
+            is_hot = rng.random(n) < 0.5
+            rows[:, is_hot] = hot_keys[:, rng.integers(0, 8, size=int(is_hot.sum()))]
+            rows[:, rng.random(n) < 1 / 16] = invalid
+            key[:, lo : lo + n] = rows
+    elif kind == "tile_runs":
+        others = keys_of_bucket(hot + 1 + np.arange(8) % 4, limbs, rng)
+        key = others[:, rng.integers(0, 8, size=m)]
+        hot_keys = keys_of_bucket(np.full(3, hot), limbs, rng)
+        edges = ((0, 0), (-1, 1), (1, -1), (0, 1), (-1, 0), (1, 0), (0, -1))
+        for j, t in enumerate(range(1, -(-m // tile), 2)):
+            start, end = edges[j % len(edges)]
+            lo, hi = max(0, t * tile + start), min(m, (t + 1) * tile + end)
+            key[:, lo:hi] = hot_keys[:, rng.integers(0, 3, size=hi - lo)]
+    elif kind == "all_rounds":
+        values = np.concatenate([hot + rng.permutation(np.arange(min(tile, m - lo)) % 64)
+                                 for lo in range(0, m, tile)])
+        key = keys_of_bucket(values, limbs, rng)
     else:
-        key = np.zeros((limbs, m), np.int64)
-        key[0] = INVALID_CANON
+        key = np.repeat(invalid, m, axis=1)
     packed = rng.integers(0, 1 << 31, size=m).astype(np.int32)
     return tuple(np.ascontiguousarray(key[i], dtype=np.int64) for i in range(limbs)), packed
 
