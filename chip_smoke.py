@@ -5,7 +5,7 @@
     python3 chip_smoke.py --k3-time KINDS    # K3's wrapper alone, see k3_time
     python3 chip_smoke.py --k2-time          # K2's wrapper alone, see k2_vs_plain
     python3 chip_smoke.py --k1-time          # K1's wrapper alone, see k1_vs_plain
-    python3 chip_smoke.py --k4-time [OLDER.cu]  # K4 and its sweep, see k4_time
+    python3 chip_smoke.py --k4-time [OLDER.cu]  # K4's wrapper (and an older one), see k4_time
 
 Phases, in order; any failure raises and the exit code is non-zero:
   1. device: the card's name and power limit, and the peak rates the
@@ -864,19 +864,6 @@ def k4_hand_laid(torch, dev, kernels, cases):
 # 8 from round 2 (the shape of examples/large's streamed passes) and G=4 of
 # 4 (the 2 x 1.1 Gbp pass at one limb, the strains' -f 1 pass at two)
 K4_SHAPES = ((3, 8, 1), (0, 8, 8), (2, 8, 2), (0, 4, 4))
-# --k4-time's sweep: csrc/round_append.cu's tile and warp ranking, each
-# built with -D switches into a library of its own
-K4_VARIANTS = {f"tile {tile} x {rows}, {rank} ranks": [
-    f"-DSZ_K4_TILE_ROWS={tile}", f"-DSZ_K4_ROWS={rows}",
-    f"-DSZ_K4_RANK_MATCH={int(rank == 'match')}"]
-    for tile, rows in ((2048, 8), (4096, 8), (4096, 16), (8192, 8), (8192, 16))
-    for rank in ("ballot", "match")}
-# a diagnosis, timed beside them and not held to the plain version: the
-# default build without the look-back (tile t's runs start at row t * cap /
-# tiles: the same bytes, each tile's to places of its own)
-K4_NO_LOOK_BACK = "default without the look-back (wrong output, not checked)"
-
-
 def k4_inputs(torch, dev, alphabet, construct, kernels):
     """K4's full-size input: K1's outputs for a 2^22-position chunk of random
     codes with N runs (k=25: one limb; k=33: two), as the streamed stage
@@ -957,84 +944,49 @@ def k4_full_size(torch, dev, alphabet, construct, streamed, kernels, peak_ops, n
     return out
 
 
-def build_k4_libraries(torch, cudabuild, kernels, out_dir, older):
-    """Each K4_VARIANTS build of csrc/round_append.cu and, where `older` names
-    one, an older version of that file (its C interface is the same), each
-    alone into a shared library with nvcc, all started together; their
-    -Xptxas -v reports printed.  {label: a function of K4's arguments that
-    launches that library's kernel}."""
-    sources = {label: (os.path.join(cudabuild.CSRC_DIR, "round_append.cu"), flags)
-               for label, flags in {**K4_VARIANTS,
-                                    K4_NO_LOOK_BACK: ["-DSZ_K4_SKIP_LOOK_BACK=1"]}.items()}
-    if older:
-        sources[f"older kernel {older}"] = (older, [])
-    jobs = {}
-    for j, (label, (src, flags)) in enumerate(sources.items()):
-        lib = os.path.join(out_dir, f"k4_{j}.so")
-        cmd = [cudabuild._nvcc(), *cudabuild.NVCC_FLAGS, *flags, "-shared", "-o", lib, src]
-        jobs[label] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                             stderr=subprocess.PIPE, text=True))
-    fns = {}
-    for label, (path, proc) in jobs.items():
-        report = proc.communicate()[1]
-        check(proc.returncode == 0, f"K4 {label} did not build:\n{report}")
-        print(f"K4 {label}:")
-        print_ptxas(report)
-        lib = ctypes.CDLL(path)
-        lib.sz_round_append.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_longlong] + [ctypes.c_void_p] * 7
-        lib.sz_round_scratch_bytes.argtypes = [ctypes.c_longlong, ctypes.c_int]
-        lib.sz_round_scratch_bytes.restype = ctypes.c_longlong
-        fns[label] = functools.partial(k4_library_call, torch, kernels, lib, label)
-    return fns
-
-
-def k4_library_call(torch, kernels, lib, label, keys, packed, gpos0, r0, n_rounds, buf_keys,
-                    buf_payload, cursors, overflow):
-    """One launch of a K4 library built by build_k4_libraries, as
-    kernels.round_append makes it (no argument checks, no count)."""
-    m, (G, cap) = packed.shape[0], buf_payload.shape
-    scratch = torch.empty(lib.sz_round_scratch_bytes(m, G), dtype=torch.uint8,
-                          device=packed.device)
-    two = len(keys) == 2
-    status = lib.sz_round_append(
-        kernels._ptr(keys[0]), kernels._ptr(keys[1]) if two else None, kernels._ptr(packed), m,
-        gpos0, r0, n_rounds, G, cap, kernels._ptr(buf_keys[0]),
-        kernels._ptr(buf_keys[1]) if two else None, kernels._ptr(buf_payload),
-        kernels._ptr(cursors), kernels._ptr(overflow), kernels._ptr(scratch),
-        kernels._stream(packed.device))
-    check(status == 0, f"K4 {label} launch failed: CUDA error {status}")
+def build_older_k4(cudabuild, kernels, out_dir, older):
+    """An older version of csrc/round_append.cu (with the same C interface),
+    built alone into a shared library with nvcc and bound as the port's
+    library is; its -Xptxas -v report printed.  A function of K4's
+    arguments that launches its kernel."""
+    lib = os.path.join(out_dir, "k4_older.so")
+    proc = subprocess.run([cudabuild._nvcc(), *cudabuild.NVCC_FLAGS, "-shared", "-o", lib, older],
+                          capture_output=True, text=True)
+    check(proc.returncode == 0, f"K4 {older} did not build:\n{proc.stderr}")
+    print(f"K4 {older}:")
+    print_ptxas(proc.stderr)
+    bound = cudabuild.bind(ctypes.CDLL(lib), ("sz_round_scratch_bytes", "sz_round_append"))
+    return functools.partial(kernels.round_append_launch, bound)
 
 
 def k4_time(torch, dev, alphabet, construct, kernels, cudabuild, peak_ops, out_dir, older):
-    """--k4-time [OLDER.cu]: K4's wrapper and every K4_VARIANTS build (and an
-    older version of csrc/round_append.cu, where given) against the plain
-    version, exact, over two of k4_inputs' chunks in a row, in the four
-    K4_SHAPES and at G = 64 of 64, one and two limbs; then in each shape
-    their times over 20 launches, in turns: older, wrapper, variants and
-    the K4_NO_LOOK_BACK diagnosis, wrapper, older."""
-    fns = build_k4_libraries(torch, cudabuild, kernels, out_dir, older)
-    older_names = [name for name in fns if name.startswith("older")]
-    variants = [name for name in fns if name not in older_names]
+    """--k4-time [OLDER.cu]: K4's wrapper (and an older version of
+    csrc/round_append.cu, where given) against the plain version, exact,
+    over two of k4_inputs' chunks in a row, in the four K4_SHAPES and at
+    G = 64 of 64, one and two limbs; then in each shape their times over 20
+    launches, in turns: older, wrapper, wrapper, older."""
+    print("K4 (the port's library):")
+    print_ptxas(cudabuild.build()[1])
+    fns = {"wrapper": kernels.round_append}
+    if older:
+        fns[f"older kernel {older}"] = build_older_k4(cudabuild, kernels, out_dir, older)
+    order = [*fns][::-1] + [*fns]
     m, reps = 1 << 22, 20
     for limbs, (keys, packed) in k4_inputs(torch, dev, alphabet, construct, kernels).items():
         for r0, n_rounds, G in K4_SHAPES + ((0, 64, 64),):
             label = f"{limbs} limb(s) G={G} of {n_rounds}"
             chunks = [(keys, packed, 1), (keys, packed, 1 + m)]
             cap = min(2 * m, 4 * m // G)
-            err, cursors = round_append_vs_plain(torch, kernels, chunks, r0, n_rounds, G, cap)
-            check(err == 0, f"round_append differs from its plain version ({label})")
+            cursors = None
             for name, fn in fns.items():
-                if name == K4_NO_LOOK_BACK:
-                    continue
-                e, _cur = round_append_vs_plain(torch, kernels, chunks, r0, n_rounds, G, cap,
-                                                kernel=fn)
+                e, cur = round_append_vs_plain(torch, kernels, chunks, r0, n_rounds, G, cap,
+                                               kernel=fn)
                 check(e == 0, f"K4 {name} differs from the plain version ({label})")
+                cursors = cur if cursors is None else cursors
             kept = int(cursors.sum()) // 2
             times = {}
-            for name in older_names + ["wrapper"] + variants + ["wrapper"] + older_names:
-                fn = kernels.round_append if name == "wrapper" else fns[name]
+            for name in order:
+                fn = fns[name]
                 bufs, cur, ovf = k4_timing_buffers(torch, dev, G, limbs,
                                                    int(cursors.max()) // 2, reps)
                 times.setdefault(name, []).append(cuda_ms(torch, lambda: fn(
@@ -1044,7 +996,7 @@ def k4_time(torch, dev, alphabet, construct, kernels, cudabuild, peak_ops, out_d
                 del bufs
             bound, by = k4_bound(m, kept, limbs, peak_ops)
             print(f"round_append {label} (round {r0} on), 2^22 rows, {kept} kept, every build "
-                  f"but the diagnosis equal to the plain version | bound {bound:.4f} ms by {by} | "
+                  f"equal to the plain version | bound {bound:.4f} ms by {by} | "
                   + " | ".join(f"{name} " + " / ".join(f"{t:.4f}" for t in ts) + " ms = "
                                + " / ".join(f"{100 * bound / t:.2f}" for t in ts) + "%"
                                for name, ts in times.items()))

@@ -29,7 +29,9 @@
 // 16 B (24 B) per kept row; a hash, a modulo and a compare per row are far
 // below the card's integer rate for those bytes. The design moves each of
 // those bytes once, in one launch (after a memset of the scratch):
-//   1. A block takes the next tile of kTile rows from a global counter
+//   1. A block takes the next tile of kTile = 4,096 rows (512 threads, 8
+//      rows each: the fastest of the sweep over 2,048 to 8,192 rows and 8 or
+//      16 rows a thread that PERF.md records) from a global counter
 //      (never from blockIdx: the look-back below waits on earlier tiles, and
 //      only this order guarantees that they are running or done). Each warp
 //      owns kSteps x 32 consecutive rows, one per lane a step; it loads every
@@ -44,18 +46,20 @@
 //      number to the warp's count of the round in shared memory, and a lane's
 //      rank is that count before the step plus the lanes of its round below
 //      it. (The other way, ceil(log2 G) + 1 ballots ANDed under the lane mask,
-//      the warp-level multisplit of Ashkiani et al., PPoPP 2016, with lane r
-//      counting round r in a register, measured slower at one limb and G = 1,
-//      2, 8; SZ_K4_RANK_MATCH=0 builds it.) A row is held in registers as one
-//      32-bit tag (rank, round) alone. Warp 0 turns the warps' counts into
-//      each warp's first slot per round, rounds laid out one after the other;
-//      each kept row's slot gets its tile-local row, so each round's rows of
-//      the tile leave as one contiguous run, the keys gathered from shared
-//      memory, with coalesced 8-byte stores.
+//      the warp-level multisplit of Ashkiani et al., PPoPP 2016, measured
+//      slower in 49 of the sweep's 50 cells, PERF.md.) A row is held in
+//      registers as one 32-bit tag (rank, round) alone. Warp 0 turns the
+//      warps' counts into each warp's first slot per round, rounds laid out
+//      one after the other; each kept row's slot gets its tile-local row, so
+//      each round's rows of the tile leave as one contiguous run, the keys
+//      gathered from shared memory, with coalesced 8-byte stores.
 //   3. A decoupled look-back (Merrill & Garland 2016) over one 64-bit status
 //      word per (tile, round), round-major: flag (2 bits: aggregate or
 //      inclusive) and value (62 bits), written and read whole with relaxed
-//      loads and stores (no other memory is ordered by them, so no fence).
+//      loads and stores. One word carries all a reader needs, so no other
+//      memory has to be ordered by it and no release or fence is paid; the
+//      one pair of plain locations that the chain orders, the cursors (step
+//      4), is read and written relaxed too, and relaxed accesses do not race.
 //      Warp 0 publishes the tile's G aggregates as soon as the warps' counts
 //      are in, and looks back for up to 32 rounds at a time: a round takes a
 //      power of two of lanes, each reading kLookTiles earlier tiles a round
@@ -67,8 +71,8 @@
 //      row and no other tile reads the cursors.
 //   4. The tile that takes the last counter index writes the cursors and
 //      the overflow flag once its inclusive prefixes are known; nothing
-//      else writes them. Tile 0's read of the cursors reaches that write
-//      through the values of the look-back's chain.
+//      else writes them. Tile 0's read of the cursors comes before that
+//      write through the values of the look-back's chain.
 // What the design does about the kernel it replaced (count, scan, scatter):
 // one launch instead of three; the keys read once, not twice; no serial scan
 // over the tiles; a round's rows of a tile leave as one run instead of a
@@ -79,42 +83,21 @@
 // look-back and store (PERF.md).
 // Scratch: tiles x G status words and the tile counter, zeroed on the stream
 // at each call (sz_round_scratch_bytes).
-// chip_smoke.py --k4-time builds the sweep's other tiles and the ballot ranks
-// from this file with -D switches (SZ_K4_TILE_ROWS, SZ_K4_ROWS,
-// SZ_K4_RANK_MATCH); the defaults are what the sweep chose. It also times a
-// build with SZ_K4_SKIP_LOOK_BACK=1, whose output is wrong (tile t's runs
-// start at row t * (cap / tiles), the same bytes to disjoint places): the
-// time the look-back's wait costs.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
-#ifndef SZ_K4_TILE_ROWS
-#define SZ_K4_TILE_ROWS 4096
-#endif
-#ifndef SZ_K4_ROWS
-#define SZ_K4_ROWS 8
-#endif
-#ifndef SZ_K4_RANK_MATCH
-#define SZ_K4_RANK_MATCH 1
-#endif
-#ifndef SZ_K4_SKIP_LOOK_BACK  // diagnosis only: wrong output
-#define SZ_K4_SKIP_LOOK_BACK 0
-#endif
-
 namespace {
 
 typedef unsigned long long u64;
 
-constexpr int kTile = SZ_K4_TILE_ROWS;       // rows per tile
-constexpr int kSteps = SZ_K4_ROWS;           // rows per thread, one a warp step
+constexpr int kTile = 4096;                  // rows per tile
+constexpr int kSteps = 8;                    // rows per thread, one a warp step
 constexpr int kThreads = kTile / kSteps;
 constexpr int kWarps = kThreads / 32;
 constexpr int kWarpRows = 32 * kSteps;       // consecutive rows per warp
 constexpr int kMaxRounds = 64;               // rounds per launch
-constexpr bool kMatch = SZ_K4_RANK_MATCH != 0;
-constexpr bool kSkipLookBack = SZ_K4_SKIP_LOOK_BACK != 0;
 constexpr long long kInvalidCanon = 1LL << 62;
 constexpr u64 kMix = 0x9E3779B97F4A7C15ull;
 constexpr u64 kMix2 = 0xC2B2AE3D27D4EB4Full;
@@ -142,9 +125,9 @@ __device__ __forceinline__ int round_of(long long a, long long b, const Round& r
   return (g >= 0 && g < rd.G) ? g : -1;
 }
 
-// Status words are read and written relaxed: each carries its flag and
-// value whole, and no other memory is ordered by them (tile 0's read of the
-// cursors reaches the last tile's write of them through the values).
+// Status words and the cursors are read and written relaxed: a status word
+// carries its flag and value whole, and tile 0's read of the cursors comes
+// before the last tile's write of them through the status words' values.
 __device__ __forceinline__ u64 load_relaxed(const u64* p) {
   u64 v;
   asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
@@ -244,9 +227,7 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int G = rd.G;
   if (tid == 0) s_tile = atomicAdd(counter, 1u);
-  if (kMatch) {
-    for (int i = tid; i < kWarps * kMaxRounds; i += kThreads) (&s_first[0][0])[i] = 0;
-  }
+  for (int i = tid; i < kWarps * kMaxRounds; i += kThreads) (&s_first[0][0])[i] = 0;
   __syncthreads();
   const long long tile = s_tile;
   const long long base = tile * kTile;
@@ -278,45 +259,18 @@ __global__ void __launch_bounds__(kThreads)
   // tag: rank << 8 | round, or -1 (not kept)
   const unsigned below = (1u << lane) - 1u;
   int tag[kSteps];
-  if (kMatch) {
 #pragma unroll
-    for (int s = 0; s < kSteps; ++s) {
-      const unsigned same = __match_any_sync(kFull, g[s]);
-      const int leader = __ffs(same) - 1;
-      int before = 0;
-      if (g[s] >= 0 && lane == leader) {
-        before = s_first[warp][g[s]];
-        s_first[warp][g[s]] = before + __popc(same);
-      }
-      const int rank = __shfl_sync(kFull, before, leader) + __popc(same & below);
-      tag[s] = g[s] < 0 ? -1 : (rank << 8) | g[s];
-      __syncwarp();
+  for (int s = 0; s < kSteps; ++s) {
+    const unsigned same = __match_any_sync(kFull, g[s]);
+    const int leader = __ffs(same) - 1;
+    int before = 0;
+    if (g[s] >= 0 && lane == leader) {
+      before = s_first[warp][g[s]];
+      s_first[warp][g[s]] = before + __popc(same);
     }
-  } else {
-    const int bits = 32 - __clz(G - 1);  // bits of a round: 0 at G = 1
-    int c0 = 0, c1 = 0;                   // the warp's rows so far of rounds lane, lane + 32
-#pragma unroll
-    for (int s = 0; s < kSteps; ++s) {
-      const unsigned kept = __ballot_sync(kFull, g[s] >= 0);
-      unsigned same = kept, q0 = kept, q1 = kept;
-#pragma unroll
-      for (int k = 0; k < 6; ++k) {
-        if (k < bits) {
-          const unsigned bk = __ballot_sync(kFull, (g[s] >> k) & 1);
-          same &= ((g[s] >> k) & 1) ? bk : ~bk;
-          q0 &= ((lane >> k) & 1) ? bk : ~bk;
-          q1 &= (((lane + 32) >> k) & 1) ? bk : ~bk;
-        }
-      }
-      const int from0 = __shfl_sync(kFull, c0, g[s] & 31);
-      const int from1 = __shfl_sync(kFull, c1, g[s] & 31);
-      const int rank = (g[s] < 32 ? from0 : from1) + __popc(same & below);
-      tag[s] = g[s] < 0 ? -1 : (rank << 8) | g[s];
-      c0 += __popc(q0);
-      c1 += __popc(q1);
-    }
-    if (lane < G) s_first[warp][lane] = c0;
-    if (lane + 32 < G) s_first[warp][lane + 32] = c1;
+    const int rank = __shfl_sync(kFull, before, leader) + __popc(same & below);
+    tag[s] = g[s] < 0 ? -1 : (rank << 8) | g[s];
+    __syncwarp();
   }
   __syncthreads();
 
@@ -337,7 +291,8 @@ __global__ void __launch_bounds__(kThreads)
       // words hold the cursors.
       if (r < G) {
         if (tile == 0) {
-          const long long ex = cursors[r];
+          const auto ex =
+              static_cast<long long>(load_relaxed(reinterpret_cast<const u64*>(cursors + r)));
           store_relaxed(status + r * tiles, (u64(ex + cnt[j]) << 2) | kFlagInclusive);
           s_dst[r] = ex;
         } else {
@@ -380,8 +335,7 @@ __global__ void __launch_bounds__(kThreads)
       s_round[slot] = static_cast<uint8_t>(r);
     }
   }
-  if (kSkipLookBack && tile > 0 && tid < G) s_dst[tid] = tile * (cap / tiles);
-  if (!kSkipLookBack && tile > 0 && warp == 0) {  // one warp: spinning slows the others
+  if (tile > 0 && warp == 0) {  // one warp: spinning slows the others
     for (int rbase = 0; rbase < G; rbase += 32) {
       const int nr = G - rbase < 32 ? G - rbase : 32;
       int r;
@@ -395,7 +349,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   if (last && tid < G) {
     const long long inclusive = s_dst[tid] + s_cnt[tid];
-    cursors[tid] = inclusive;
+    store_relaxed(reinterpret_cast<u64*>(cursors + tid), static_cast<u64>(inclusive));
     if (inclusive > cap) *overflow = 1;
   }
 
@@ -422,19 +376,16 @@ int launch(const long long* k0, const long long* k1, const int32_t* packed, long
            long long* payload, long long* cursors, int* overflow, void* scratch,
            cudaStream_t s) {
   constexpr int smem = kTile * (8 * LIMBS + 5);
-  static bool opted_in = false;  // the shared-memory attributes, once an instance
-  cudaError_t err;
-  if (!opted_in) {
+  // set at every launch: the attributes belong to the current device's
+  // context, and a host call costs little beside the kernel
+  cudaError_t err = cudaFuncSetAttribute(round_append_kernel<LIMBS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) {  // as many blocks an SM as shared memory holds
     err = cudaFuncSetAttribute(round_append_kernel<LIMBS>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err == cudaSuccess) {  // as many blocks an SM as shared memory holds
-      err = cudaFuncSetAttribute(round_append_kernel<LIMBS>,
-                                 cudaFuncAttributePreferredSharedMemoryCarveout,
-                                 cudaSharedmemCarveoutMaxShared);
-    }
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in = true;
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   const long long tiles = tiles_of(m);
   auto* status = static_cast<u64*>(scratch);
   auto* counter = reinterpret_cast<unsigned*>(status + tiles * rd.G);
@@ -461,12 +412,12 @@ extern "C" long long sz_round_scratch_bytes(long long m, int G) {
 
 // key0 (and key1, the low limb of two-limb keys, else null): m int64;
 // packed: m int32; row i at global position gpos0 + i. 0 <= r0 < n_rounds
-// < 2^31, 1 <= G <= sz_round_max_rounds(), cursors + m < 2^61 (a
-// status word holds them in 62 bits). buf0 (and buf1) and payload: [G, cap] int64, row-major; cursors: G
-// int64, in and out; overflow: one int32, set to 1 on overflow and never
-// cleared here; scratch: sz_round_scratch_bytes(m, G) bytes, 8-byte aligned,
-// zeroed here. Returns cudaGetLastError() after the launch, or the first
-// error before it.
+// < 2^31, 1 <= G <= sz_round_max_rounds(), cursors + m < 2^61 (a status
+// word holds them in 62 bits). buf0 (and buf1) and payload: [G, cap] int64,
+// row-major; cursors: G int64, in and out; overflow: one int32, set to 1 on
+// overflow and never cleared here; scratch: sz_round_scratch_bytes(m, G)
+// bytes, 8-byte aligned, zeroed here. Returns cudaGetLastError() after the
+// launch, or the first error before it.
 extern "C" int sz_round_append(const void* key0, const void* key1, const void* packed,
                                long long m, long long gpos0, int r0, int n_rounds, int G,
                                long long cap, void* buf0, void* buf1, void* payload,

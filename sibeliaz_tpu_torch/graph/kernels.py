@@ -354,8 +354,21 @@ def round_append(keys, packed, gpos0: int, r0: int, n_rounds: int, buf_keys, buf
                                   cursors, overflow)
     if m == 0:
         return None
+    round_append_launch(cudabuild.load(), keys, packed, gpos0, r0, n_rounds, buf_keys,
+                        buf_payload, cursors, overflow)
+    LAUNCHES["round_append"] += 1
+    return None
+
+
+def round_append_launch(lib, keys, packed, gpos0, r0, n_rounds, buf_keys, buf_payload,
+                        cursors, overflow) -> None:
+    """One launch of `lib`'s sz_round_append on round_append's arguments,
+    checked by it, with its scratch; raises on a CUDA error.  `lib` is a
+    library bound by cudabuild.bind: the port's, or (to time it against the
+    port's) one built alone from another version of csrc/round_append.cu
+    with the same C interface."""
+    m, (G, cap) = packed.shape[0], buf_payload.shape
     dev = packed.device
-    lib = cudabuild.load()
     scratch = torch.empty(lib.sz_round_scratch_bytes(m, G), dtype=torch.uint8, device=dev)
     _check(
         lib.sz_round_append(
@@ -366,5 +379,3 @@ def round_append(keys, packed, gpos0: int, r0: int, n_rounds: int, buf_keys, buf
         ),
         "round_append",
     )
-    LAUNCHES["round_append"] += 1
-    return None

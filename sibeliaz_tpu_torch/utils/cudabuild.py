@@ -88,33 +88,40 @@ def build() -> tuple[str, str]:
     return lib, report
 
 
+_vp, _i64, _i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# The C interface of csrc/*.cu: each function's argument types; the return
+# type is int but where _RESTYPES says otherwise.
+SIGNATURES = {
+    "sz_front_half": [_vp, _vp, _i64, _i32, _vp, _vp, _vp, _vp],
+    "sz_front_half_tile_positions": [],
+    "sz_class_tile_rows": [],
+    "sz_class_scratch_bytes": [_i64],
+    "sz_class_analysis": [_vp, _vp, _vp, _vp, _i64, _vp, _vp, _vp, _vp],
+    "sz_poa_dp_tb": ([_vp] * 7 + [_i32] * 5 + [_vp, _vp, _i32] + [_vp] * 5
+                     + [_i32, _vp] + [_i32] * 3
+                     + [ctypes.POINTER(ctypes.c_float), _vp]),
+    "sz_poa_chain_probe": [_i32, _i32, _vp, _vp],
+    "sz_round_max_rounds": [],
+    "sz_round_tile_rows": [],
+    "sz_round_scratch_bytes": [_i64, _i32],
+    "sz_round_append": [_vp, _vp, _vp, _i64, _i64, _i32, _i32, _i32, _i64] + [_vp] * 7,
+}
+_RESTYPES = {"sz_class_scratch_bytes": _i64, "sz_round_scratch_bytes": _i64}
+
+
+def bind(lib: ctypes.CDLL, names=None) -> ctypes.CDLL:
+    """Give `lib`'s functions `names` (all of SIGNATURES by default) their
+    argument and return types."""
+    for name in names or SIGNATURES:
+        fn = getattr(lib, name)
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(build()[0])
-    vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    signatures = {
-        "sz_front_half": [vp, vp, i64, i32, vp, vp, vp, vp],
-        "sz_front_half_tile_positions": [],
-        "sz_class_tile_rows": [],
-        "sz_class_scratch_bytes": [i64],
-        "sz_class_analysis": [vp, vp, vp, vp, i64, vp, vp, vp, vp],
-        "sz_poa_dp_tb": ([vp] * 7 + [i32] * 5 + [vp, vp, i32] + [vp] * 5
-                         + [i32, vp] + [i32] * 3
-                         + [ctypes.POINTER(ctypes.c_float), vp]),
-        "sz_poa_chain_probe": [i32, i32, vp, vp],
-        "sz_round_max_rounds": [],
-        "sz_round_tile_rows": [],
-        "sz_round_scratch_bytes": [i64, i32],
-        "sz_round_append": [vp, vp, vp, i64, i64, i32, i32, i32, i64] + [vp] * 7,
-    }
-    for name, argtypes in signatures.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.sz_class_scratch_bytes.restype = i64
-    lib.sz_round_scratch_bytes.restype = i64
-    _lib = lib
-    return lib
+    if _lib is None:
+        _lib = bind(ctypes.CDLL(build()[0]))
+    return _lib
