@@ -62,7 +62,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
      4 passes) against monolithic, and 2 x 1.1 Gbp at k=25 (2.2e9
      positions, past 2^31), which routes to the streamed stage by itself,
      each with its stage seconds, passes, rounds, junctions and peak bytes
-     per position.
+     per position; (e) past 2^32 positions: examples/large's eight
+     chromosomes, one of 2^32 N and the eight again (4.32e9 positions)
+     through construct.build_junctions, which routes them to the resident
+     rounds, both copies' records equal to the monolithic records of
+     examples/large alone (the ids keep their ranks: every class's first
+     occurrence stays in the first copy) and the filler's empty, with the
+     host's available memory; (f) a class that outgrows every round:
+     examples/large and a 24 Mbp (CATTC)n array at k=25, through the
+     resident rounds from 8 rounds, which overflow up to 512 and hand over
+     to the host-bucketed rounds, and through the host-bucketed rounds
+     alone at 512 (K4 not launched), both equal to the monolithic records.
 The last two lines are a JSON summary of the kernels (time, plain time,
 bound, launches per main path; K1's and K2's "ms" are their one-limb
 instances' and "by_limbs" holds both instances'; K4's "ms" is its shape on
@@ -113,6 +123,11 @@ K4_OPS_PER_KEPT_ROW = 7
 AHEAD_CYCLES = 20_000_000
 # the full-size pairs of phase 10d: bases per copy
 PAIR_512M, PAIR_1100M = 512_000_000, 1_100_000_000
+# phase 10e: the all-N chromosome between the two copies of examples/large
+FILLER_N = 1 << 32
+# phase 10f: the satellite array after examples/large, (CATTC)n like the
+# human satellite III, and the round count its resident rounds start from
+SATELLITE_UNIT, SATELLITE_BP, SATELLITE_ROUNDS = b"CATTC", 24_000_000, 8
 
 
 # the graph kernels of the monolithic stage's path (K4 runs on the streamed
@@ -1012,7 +1027,8 @@ def streamed_counts(metrics, kernels):
             stages[t["stage"]] = stages.get(t["stage"], 0.0) + t["seconds"]
     return ({key: int(c.get(key, -1)) for key in ("graph_passes", "graph_rounds",
                                                   "graph_rounds_per_pass", "graph_round_retries",
-                                                  "graph_positions", "graph_junctions")},
+                                                  "graph_host_rounds", "graph_positions",
+                                                  "graph_junctions")},
             stages, dict(kernels.LAUNCHES))
 
 
@@ -1042,7 +1058,7 @@ def epilogue_peak(torch, streamed, seqs, k):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
-    streamed._round_junctions(buf_keys, buf_payload, 0, live[0])
+    streamed._junction_rows([buf[0, : live[0]] for buf in buf_keys], buf_payload[0, : live[0]])
     per_row = (torch.cuda.max_memory_allocated() - before) / live[0]
     limit = p.epilogue_bytes
     check(per_row <= limit, f"epilogue peak {per_row:.2f} B/row at k={k}, above {limit}")
@@ -1177,6 +1193,103 @@ def streamed_full_size(torch, alphabet, construct, streamed, kernels, metrics, l
     return launches
 
 
+def host_available_gb():
+    """The host's available memory, GB (/proc/meminfo's MemAvailable)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 1e6
+    raise RuntimeError("chip_smoke: no MemAvailable in /proc/meminfo")
+
+
+def same_records(a, b):
+    return len(a) == len(b) and all(
+        np.array_equal(x.pos, y.pos) and np.array_equal(x.ids, y.ids) for x, y in zip(a, b))
+
+
+def streamed_past_2_32(torch, construct, kernels, metrics, seqs, label):
+    """Phase 10e: examples/large's eight chromosomes, one of 2^32 N and the
+    eight again (4.32e9 positions, the second copy wholly past 2^32) through
+    construct.build_junctions, which routes them to the resident rounds.
+    Doubling every occurrence keeps each class's extension sets and boundary
+    bits, each class's first occurrence stays in the first copy (so the ids
+    keep their ranks), and the N chromosome has no valid window: both
+    copies' records must equal the monolithic records of examples/large
+    alone, and the filler's must be empty.  Returns the launches."""
+    name = "examples/large, 2^32 N, examples/large"
+    mono = construct.build_junctions(seqs, 25, "cuda")
+    big = [*seqs, np.full(FILLER_N, ord("N"), np.uint8), *seqs]
+    n = 1 + sum(len(s) + 1 for s in big)
+    second = 1 + sum(len(s) + 1 for s in big[: len(seqs) + 1])  # the second copy's start
+    check(second > 1 << 32, f"{name}: the second copy starts at {second}")
+    avail = host_available_gb()
+    torch.cuda.empty_cache()
+    mem0 = fresh_run(torch, metrics, kernels)
+    t0 = time.time()
+    got = construct.build_junctions(big, 25, "cuda")
+    secs = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() - mem0
+    counts, stages, launched = streamed_counts(metrics, kernels)
+    check("graph_scan" in stages and counts["graph_positions"] == n
+          and counts["graph_round_retries"] == 0 and counts["graph_host_rounds"] == -1,
+          f"{name}: {counts}")
+    all_launched(launched, name)
+    check(same_records(got[: len(seqs)], mono) and same_records(got[len(seqs) + 1 :], mono)
+          and len(got[len(seqs)].pos) == 0,
+          f"{name}: the copies' records differ from the monolithic examples/large records")
+    print(f"{name} k=25: {n} positions (second copy from {second}), both copies' records "
+          f"equal to the monolithic ones ({sum(len(r.pos) for r in mono)} junctions a copy), "
+          f"the filler's empty, in {secs:.2f} s | host memory available before: {avail:.1f} GB "
+          f"| {counts} | peak {peak} B = {peak / n:.4f} B/position | launches {launched} | "
+          + " | ".join(f"{s} {v:.4f} s" for s, v in stages.items()) + f" {label}")
+    return launched
+
+
+def streamed_outgrown_class(torch, construct, streamed, kernels, metrics, seqs, label):
+    """Phase 10f: examples/large and a 24 Mbp (CATTC)n array as a ninth
+    chromosome, k=25.  Each of the array's five classes holds ~4.8 M rows,
+    more than a round's floor of min(chunk, n // 8) = 4,194,304, so the
+    resident rounds from 8 overflow up to 512 and hand over to the
+    host-bucketed rounds; then the host-bucketed rounds alone at 512 rounds
+    (K4 not launched).  Both against the monolithic records of the same
+    input.  Returns the launches of both."""
+    unit = SATELLITE_UNIT
+    seqs = [*seqs, np.frombuffer(unit * (SATELLITE_BP // len(unit)), np.uint8).copy()]
+    mono = construct.build_junctions(seqs, 25, "cuda")
+    grown = SATELLITE_ROUNDS * streamed.MAX_ROUND_GROWTH
+    launches = {}
+    for name, run in (
+            ("class outgrowing every round", lambda: streamed.build_junctions_streamed_resident(
+                seqs, 25, "cuda", n_rounds=SATELLITE_ROUNDS)),
+            ("host-bucketed rounds", lambda: streamed.build_junctions_streamed(
+                seqs, 25, "cuda", n_rounds=grown))):
+        torch.cuda.empty_cache()
+        mem0 = fresh_run(torch, metrics, kernels)
+        t0 = time.time()
+        got = run()
+        secs = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() - mem0
+        counts, stages, launched = streamed_counts(metrics, kernels)
+        n = counts["graph_positions"]
+        check(counts["graph_host_rounds"] == grown
+              and launched["front_half"] > 0 and launched["class_analysis"] > 0,
+              f"{name}: {counts}, launches {launched}")
+        if name == "host-bucketed rounds":
+            check(launched["round_append"] == 0 and "graph_scan" not in stages,
+                  f"{name}: the resident rounds ran: launches {launched}")
+        else:
+            check(launched["round_append"] > 0 and counts["graph_round_retries"] == 6,
+                  f"{name}: {counts}, launches {launched}")
+        check(same_records(got, mono), f"{name}: records differ from the monolithic ones")
+        print(f"examples/large + {SATELLITE_BP // 10**6} Mbp ({unit.decode()})n k=25, {name}: "
+              f"records equal to the monolithic ones ({sum(len(r.pos) for r in got)} "
+              f"junctions) in {secs:.2f} s | {counts} | peak {peak} B = {peak / n:.4f} "
+              f"B/position | launches {launched} | "
+              + " | ".join(f"{s} {v:.4f} s" for s, v in stages.items()) + f" {label}")
+        launches[name] = launched
+    return launches
+
+
 def streamed_phase(torch, dev, mods, tmp_dir, large_fa, large_golden, bench_fa, mono_k33_gff,
                    peak_ops, label):
     """Phase 10: returns K4's max abs error on the hand-laid chunks, its
@@ -1198,11 +1311,18 @@ def streamed_phase(torch, dev, mods, tmp_dir, large_fa, large_golden, bench_fa, 
     strains = streamed_cli_strains(torch, cli, metrics, kernels, bench_fa, mono_k33_gff,
                                    os.path.join(tmp_dir, "strains_f1"), label)
     full = streamed_full_size(torch, alphabet, construct, streamed, kernels, metrics, label)
+    large_seqs = [r.seq for r in large_recs]
+    past = streamed_past_2_32(torch, construct, kernels, metrics, large_seqs, label)
+    outgrown = streamed_outgrown_class(torch, construct, streamed, kernels, metrics, large_seqs,
+                                       label)
     return k4_err, k4, {"examples/large streamed k=25": large[25],
                         "examples/large streamed k=33": large[33],
                         "strains -k 33 -n -f 1": strains,
                         "2 x 512 Mbp streamed": full["2 x 512 Mbp"],
-                        "2 x 1.1 Gbp streamed": full["2 x 1.1 Gbp"]}
+                        "2 x 1.1 Gbp streamed": full["2 x 1.1 Gbp"],
+                        "past 2^32 positions": past,
+                        "class outgrowing every round": outgrown["class outgrowing every round"],
+                        "host-bucketed rounds": outgrown["host-bucketed rounds"]}
 
 
 def int32_peak():
@@ -1481,8 +1601,10 @@ def main(argv):
     # examples/ (phase 7), and the same two stages on examples/large through
     # the library (phase 8)
     # and the streamed stage's (phase 10): examples/large through the
-    # pipeline at k=25 and k=33, the strains' -k 33 -n -f 1 CLI run, and
-    # the two full-size inputs
+    # pipeline at k=25 and k=33, the strains' -k 33 -n -f 1 CLI run, the
+    # two full-size inputs, the input past 2^32 positions, and the class
+    # that outgrows every round (the hand-over, and the host-bucketed
+    # rounds alone)
     paths = {"examples/large -n": large_launches_by_k[25],
              "examples/large -k 33 -n": large_launches_by_k[33],
              "examples/ --align-engine tpu": maf_launches,

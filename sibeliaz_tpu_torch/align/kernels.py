@@ -9,7 +9,8 @@ traceback with one warp per block.  It takes and returns what
 
 The wrapper routes by the device of the tensors it is given: a CPU tensor
 goes to the plain PyTorch version beside it, a CUDA tensor launches the
-kernel (or raises), anything else raises.  The plain version is the CPU
+kernel (or raises) with its device made current (torch.cuda.device),
+anything else raises.  The plain version is the CPU
 path of the device engine and the spec the kernel is tested against.
 LAUNCHES counts kernel launches; the plain version does not count.
 
@@ -207,9 +208,10 @@ def chain_probe(threads: int, iters: int, device="cuda") -> None:
     threads, the least one rank of K3's serial rank loop can cost.  The
     caller times it (chip_smoke.py's chain floor)."""
     out = torch.empty(threads, dtype=torch.int32, device=device)
-    status = cudabuild.load().sz_poa_chain_probe(
-        threads, iters, ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_void_p(torch.cuda.current_stream(out.device).cuda_stream))
+    with torch.cuda.device(out.device):
+        status = cudabuild.load().sz_poa_chain_probe(
+            threads, iters, ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(torch.cuda.current_stream(out.device).cuda_stream))
     if status != 0:
         raise RuntimeError(f"chain probe launch failed: CUDA error {status}")
 
@@ -269,14 +271,15 @@ def poa_dp_tb(seq0p, seq_len, node_char, pred_idx, pred_ok, sink_mask,
     lib = cudabuild.load()
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())  # noqa: E731
     parts = (ctypes.c_float * 3)() if split_ms is not None else None
-    status = lib.sz_poa_dp_tb(
-        ptr(seq0p), ptr(seq_len), ptr(node_char), ptr(pred_idx),
-        ptr(pred_ok), ptr(sink_mask), ptr(off),
-        B, n_max, W, P, seq0p.shape[1],
-        ptr(H), ptr(dirs), stride, ptr(out_r), ptr(out_i), ptr(tcount), ptr(best_sc),
-        ptr(meta), n_pad, ptr(aux), cfg["cols"], cfg["threads"], cfg["depth"],
-        parts, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
-    )
+    with torch.cuda.device(dev):
+        status = lib.sz_poa_dp_tb(
+            ptr(seq0p), ptr(seq_len), ptr(node_char), ptr(pred_idx),
+            ptr(pred_ok), ptr(sink_mask), ptr(off),
+            B, n_max, W, P, seq0p.shape[1],
+            ptr(H), ptr(dirs), stride, ptr(out_r), ptr(out_i), ptr(tcount), ptr(best_sc),
+            ptr(meta), n_pad, ptr(aux), cfg["cols"], cfg["threads"], cfg["depth"],
+            parts, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        )
     if status != 0:
         raise RuntimeError(f"poa_dp_tb launch failed: CUDA error {status} ({cfg})")
     LAUNCHES["poa_dp_tb"] += 1

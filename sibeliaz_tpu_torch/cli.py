@@ -8,11 +8,12 @@ The port runs FASTA -> GFF with the native LCB engine, and then, unless
 device DP on the card; the name is the JAX package's, so that the same
 command lines run on both).  An input whose monolithic graph stage does not
 fit the card (or the `-f` budget), or that has 2^31 positions or more, runs
-the streamed graph stage, in rounds, with the same records.  It refuses, and
+the streamed graph stage, in rounds resident on the card, with the same
+records, up to 2^51 positions; a vertex class that outgrows every round
+finishes in host-bucketed rounds, as in the JAX package.  It refuses, and
 never falls back, for: no CUDA card under the default `--device cuda`; an
-`--lcb-engine` other than native (ROADMAP.md items A7 and A9); an input of
-2^32 positions or more (item A4).  k is odd, 3 to 61, as in the JAX
-package.
+`--lcb-engine` other than native (ROADMAP.md items A7 and A9).  k is odd, 3
+to 61, as in the JAX package.
 """
 
 from __future__ import annotations

@@ -18,7 +18,10 @@ each limb count.
 
 Each wrapper routes by the device of the tensors it is given: a CPU tensor
 goes to the plain PyTorch version beside it, a CUDA tensor launches the
-kernel (or raises), anything else raises.  The plain versions are the CPU
+kernel (or raises), anything else raises.  A launch makes the tensors'
+device current (torch.cuda.device) around its scratch and the C call, so
+that it goes to that device's current stream whichever device the caller
+made current.  The plain versions are the CPU
 path and the spec the kernels are tested against.  LAUNCHES counts kernel
 launches per wrapper; the plain versions do not count.
 """
@@ -157,13 +160,14 @@ def front_half(codes2: torch.Tensor, nmask: torch.Tensor, n: int, k: int):
     keys = tuple(torch.empty(n, dtype=torch.int64, device=codes2.device) for _ in range(limbs))
     packed = torch.empty(n, dtype=torch.int32, device=codes2.device)
     lib = cudabuild.load()
-    _check(
-        lib.sz_front_half(
-            _ptr(codes2), _ptr(nmask), n, k, _ptr(keys[0]),
-            _ptr(keys[1]) if limbs == 2 else None, _ptr(packed), _stream(codes2.device),
-        ),
-        "front_half",
-    )
+    with torch.cuda.device(codes2.device):
+        _check(
+            lib.sz_front_half(
+                _ptr(codes2), _ptr(nmask), n, k, _ptr(keys[0]),
+                _ptr(keys[1]) if limbs == 2 else None, _ptr(packed), _stream(codes2.device),
+            ),
+            "front_half",
+        )
     LAUNCHES["front_half"] += 1
     return keys, packed
 
@@ -228,15 +232,16 @@ def class_analysis(keys_s, packed_s: torch.Tensor, pos_s: torch.Tensor):
     if n == 0:
         return junction_s, first_s
     lib = cudabuild.load()
-    scratch = torch.empty(lib.sz_class_scratch_bytes(n), dtype=torch.uint8, device=dev)
-    _check(
-        lib.sz_class_analysis(
-            _ptr(keys_s[0]), _ptr(keys_s[1]) if len(keys_s) == 2 else None,
-            _ptr(packed_s), _ptr(pos_s), n,
-            _ptr(junction_s), _ptr(first_s), _ptr(scratch), _stream(dev),
-        ),
-        "class_analysis",
-    )
+    with torch.cuda.device(dev):
+        scratch = torch.empty(lib.sz_class_scratch_bytes(n), dtype=torch.uint8, device=dev)
+        _check(
+            lib.sz_class_analysis(
+                _ptr(keys_s[0]), _ptr(keys_s[1]) if len(keys_s) == 2 else None,
+                _ptr(packed_s), _ptr(pos_s), n,
+                _ptr(junction_s), _ptr(first_s), _ptr(scratch), _stream(dev),
+            ),
+            "class_analysis",
+        )
     LAUNCHES["class_analysis"] += 1
     return junction_s, first_s
 
@@ -369,13 +374,14 @@ def round_append_launch(lib, keys, packed, gpos0, r0, n_rounds, buf_keys, buf_pa
     with the same C interface."""
     m, (G, cap) = packed.shape[0], buf_payload.shape
     dev = packed.device
-    scratch = torch.empty(lib.sz_round_scratch_bytes(m, G), dtype=torch.uint8, device=dev)
-    _check(
-        lib.sz_round_append(
-            _ptr(keys[0]), _ptr(keys[1]) if len(keys) == 2 else None, _ptr(packed), m,
-            gpos0, r0, n_rounds, G, cap, _ptr(buf_keys[0]),
-            _ptr(buf_keys[1]) if len(keys) == 2 else None, _ptr(buf_payload),
-            _ptr(cursors), _ptr(overflow), _ptr(scratch), _stream(dev),
-        ),
-        "round_append",
-    )
+    with torch.cuda.device(dev):
+        scratch = torch.empty(lib.sz_round_scratch_bytes(m, G), dtype=torch.uint8, device=dev)
+        _check(
+            lib.sz_round_append(
+                _ptr(keys[0]), _ptr(keys[1]) if len(keys) == 2 else None, _ptr(packed), m,
+                gpos0, r0, n_rounds, G, cap, _ptr(buf_keys[0]),
+                _ptr(buf_keys[1]) if len(keys) == 2 else None, _ptr(buf_payload),
+                _ptr(cursors), _ptr(overflow), _ptr(scratch), _stream(dev),
+            ),
+            "round_append",
+        )

@@ -1,44 +1,64 @@
 """The streamed graph stage: junction enumeration in rounds, for inputs whose
 monolithic graph stage (construct.py) does not fit the card.
 
-The port of sibeliaz_tpu/graph/streamed.py::build_junctions_streamed_resident
-(device-resident rounds, TwoPaCo's multiple rounds on the card):
+Two routes, the JAX package's two (sibeliaz_tpu/graph/streamed.py), with
+the same records as construct.build_junctions'.  Both upload the genome
+once, joined with a leading 'N' and one after each sequence, packed on the
+host into 2-bit codes and a validity bitmap (0.375 B/position on the
+device) and padded with BAD_CODE so that the last chunk's window lies
+inside it; both split the vertex classes into rounds by a hash of the
+canonical key (kernels.round_bucket), so that a class lies whole in one
+round; and both end on the host: the junction rows in genome order, the
+class-first positions ranked into ids, the records split per chromosome
+(`_assemble`).
 
-  1. the genome, joined with a leading 'N' and one after each sequence, is
-     packed on the host into 2-bit codes and a validity bitmap and uploaded
-     once, padded with BAD_CODE so that the last chunk's window lies inside
-     it;
-  2. the vertex classes are split into n_rounds rounds by a hash of the
-     canonical key (kernels.round_bucket), so that a class lies whole in one
-     round.  A pass over the stream fills G round buffers at once: per
-     chunk, K1 front_half on the chunk's window, then K4 round_append, which
-     appends the rows of rounds r0 .. r0 + G - 1 in genome order.  The host
-     reads the cursors and the overflow flag once per pass;
-  3. per round (the epilogue): a stable sort of its live rows by key, K2
-     class_analysis with each row's insertion rank as its position (so K2
-     keeps int32 positions while global ones pass 2^31), the verdicts and
-     class-first ranks scattered back to insertion order, and the junction
-     rows' global position, class-first position and orientation copied to
-     the host;
-  4. on the host: the junction rows in genome order, the class-first
-     positions ranked into ids, the records split per chromosome.
+build_junctions_streamed_resident, the device-resident rounds (TwoPaCo's
+multiple rounds on the card):
+
+  1. a pass over the stream fills G round buffers at once: per chunk, K1
+     front_half on the chunk's window, then K4 round_append, which appends
+     the rows of rounds r0 .. r0 + G - 1 in genome order.  The host reads
+     the cursors and the overflow flag once per pass;
+  2. per round (the epilogue, `_junction_rows`): a stable sort of its live
+     rows by key, K2 class_analysis with each row's insertion rank as its
+     position (so K2 keeps int32 positions while global ones pass 2^32),
+     the verdicts and class-first ranks scattered back to insertion order
+     (construct.class_verdicts), and the junction rows' global position,
+     class-first position and orientation copied to the host.
 
 A round buffer that overflows makes the stage double n_rounds and run
-again.  Device memory is the packed stream (0.375 B/position), one chunk's
-K1 outputs, G round buffers and one round's epilogue at a time; n_rounds and
-G come from the memory budget (`plan`).  Each pass is a metrics stage
-`graph_scan` and its epilogues one `graph_round_epilogue`; the counters
-`graph_passes`, `graph_rounds`, `graph_rounds_per_pass` and
-`graph_round_retries` say how the input was cut.
+again.  Device memory is the packed stream, one chunk's K1 outputs, G round
+buffers and one round's epilogue at a time; n_rounds and G come from the
+memory budget (`plan`).  Global positions are int64 throughout, and K4's
+payload (gpos << 12 | the 12-bit word) holds them below 2^51: that is the
+stage's only bound on the input's length.
 
-Left out of the JAX package's function, which carried them for the TPU:
+build_junctions_streamed, the host-bucketed rounds, for a class that
+outgrows every round: a round buffer never falls below min(chunk, n // 8)
+rows, and a class never splits, so a k-mer with more occurrences than that
+overflows at any round count.  After MAX_ROUND_GROWTH times the initial
+round count the resident rounds hand over to it, as the JAX package's do.
+Pass 1 runs K1 per chunk and copies each chunk's valid rows (key limbs and
+payload), sorted by round, to the host once, into one bucket per round;
+pass 2 uploads each round's bucket whole, whatever its size, and runs the
+same epilogue on it.
+
+Metrics stages: `graph_upload`; per pass of the resident rounds
+`graph_scan`, and pass 1 of the host-bucketed rounds `graph_bucket`; the
+epilogues `graph_round_epilogue`; `graph_assemble`.  Counters:
+`graph_positions`, `graph_passes`, `graph_rounds`,
+`graph_rounds_per_pass` and `graph_round_retries` say how the resident
+rounds cut the input, `graph_host_rounds` the host-bucketed round count
+where that route ran, and `graph_junctions`.
+
+Left out of the JAX package's functions, which carried them for the TPU:
 the u32 split of int64 carries, flat round buffers, the cap - chunk write
-headroom, the narrow/wide payload split (one int64 payload, gpos << 12 | the
-12-bit word, serves every input), the epilogue's output cap, and the
-segmentation of a pass into dispatches with its environment knobs.  Where
-the JAX package gives way to its host-bucketed path (2^32 - chunk positions
-and more, or rounds that still overflow at 64 times the initial count), the
-port refuses (ROADMAP.md queue A item 4).
+headroom, the narrow/wide payload split (one int64 payload serves every
+input), the epilogue's output cap, the segmentation of a pass into
+dispatches with its environment knobs, the hand-over of 2^32 - chunk
+positions and more to the host-bucketed rounds (the u32 payload's bound;
+the resident rounds take them), the host route's padding of a round to a
+power of two and its SZ_STREAM_STATS printing.
 """
 
 from __future__ import annotations
@@ -68,10 +88,10 @@ EPILOGUE_BYTES_PER_ROW_WIDE = 77
 # K2 takes int32 positions (here insertion ranks), so a round holds fewer
 # than 2^31 rows.
 MAX_ROUND_ROWS = (1 << 31) - 1
-# Overflow retries end at this many times the initial round count: a class
-# with more rows than a round's floor never splits (streamed.py:751-758).
+# The resident rounds' overflow retries end at this many times the initial
+# round count, and hand over to the host-bucketed rounds: a class with more
+# rows than a round's floor never splits (sibeliaz_tpu/graph/streamed.py:751-758).
 MAX_ROUND_GROWTH = 64
-QUEUE_A4 = "ROADMAP.md queue A item 4 (the host-bucketed streamed stage)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +114,12 @@ class Plan:
         return self.fixed_bytes + self.cap * (self.G * self.row_bytes + self.epilogue_bytes)
 
 
+def _chunk(n: int, chunk_size: int) -> int:
+    """Positions a chunk: chunk_size, or the whole input (a multiple of 8)
+    where it is shorter."""
+    return min(chunk_size, -(-(n - 2) // 8) * 8)
+
+
 def _padded(n: int, k: int, chunk: int) -> int:
     """Positions of the uploaded stream: every chunk's window inside it, a
     multiple of 8."""
@@ -104,14 +130,15 @@ def _padded(n: int, k: int, chunk: int) -> int:
 def plan(n: int, k: int, chunk_size: int, round_slack: float, budget: int | None,
          n_rounds: int | None = None) -> Plan:
     """Cut n joined positions into rounds within `budget` device bytes (None:
-    no limit).  A chunk is chunk_size positions, or the whole input where it
-    is shorter.  A round buffer holds n * round_slack / n_rounds rows, never
-    fewer than the floor min(chunk, n // 8) (which is what lets the overflow
-    retry end: more rounds stop shrinking it).  n_rounds, unless given, is the
-    least power of two whose round fits the budget with its epilogue; G is as
-    many round buffers as the rest holds, at most n_rounds and
-    kernels.MAX_ROUNDS_PER_LAUNCH.  Raises MemoryError where no round fits."""
-    chunk = min(chunk_size, -(-(n - 2) // 8) * 8)
+    no limit).  A chunk is `_chunk(n, chunk_size)` positions.  A round
+    buffer holds n * round_slack / n_rounds rows, never fewer than the floor
+    min(chunk, n // 8) (which is what lets the overflow retry end: more
+    rounds stop shrinking it).  n_rounds, unless given, is the least power of
+    two whose round holds at most MAX_ROUND_ROWS and fits the budget with its
+    epilogue; G is as many round buffers as the rest holds, at most n_rounds
+    and kernels.MAX_ROUNDS_PER_LAUNCH.  Raises MemoryError where no round
+    fits."""
+    chunk = _chunk(n, chunk_size)
     limbs = 1 if k <= kernels.ONE_LIMB_MAX_K else 2
     row = 8 * limbs + 8
     epi = EPILOGUE_BYTES_PER_ROW if limbs == 1 else EPILOGUE_BYTES_PER_ROW_WIDE
@@ -146,14 +173,14 @@ def plan(n: int, k: int, chunk_size: int, round_slack: float, budget: int | None
     return Plan(chunk, n_rounds, cap, G, fixed, row, epi)
 
 
-def _round_junctions(buf_keys, buf_payload, g: int, live: int):
-    """Round g's junction rows: (global position, class-first position,
-    orientation) as host arrays, in genome order."""
-    payload = buf_payload[g, :live]
-    # rows of a class lie in genome order in the buffer, so the class's
-    # least insertion rank is its first occurrence
-    isj, first_rank = construct.class_verdicts(
-        [buf[g, :live] for buf in buf_keys], (payload & 0xFFF).to(torch.int32))
+def _junction_rows(keys, payload):
+    """The junction rows of one round: `keys`, a list of its rows' key limbs
+    (taken, as construct.sort_keys takes it), and `payload`, gpos << 12 |
+    the 12-bit word, in genome order.  Returns (global position, class-first
+    position, orientation) as host arrays, in genome order."""
+    # rows of a class lie in genome order, so the class's least insertion
+    # rank is its first occurrence
+    isj, first_rank = construct.class_verdicts(keys, (payload & 0xFFF).to(torch.int32))
     rows = torch.nonzero(isj).squeeze(1)
     row_payload = payload[rows]
     first = payload[first_rank[rows].long()] >> 12
@@ -172,25 +199,30 @@ def _upload(seqs, n: int, k: int, chunk: int, device):
     return torch.from_numpy(pk_host).to(device), torch.from_numpy(nm_host).to(device)
 
 
+def _chunk_rows(codes2, nmask, lo: int, chunk: int, k: int):
+    """K1 on the window of the chunk whose rows are positions lo + 1 ..
+    lo + chunk: the rows' key limbs and words (window offset q + 1 is the
+    chunk's row q)."""
+    win = chunk + k + 2
+    keys, packed = kernels.front_half(
+        codes2[lo // 4 : (lo + win + 3) // 4], nmask[lo // 8 : (lo + win + 7) // 8], win, k)
+    return tuple(key[1 : chunk + 1] for key in keys), packed[1 : chunk + 1]
+
+
 def _scan_pass(codes2, nmask, n: int, k: int, p: Plan, r0: int, G: int):
     """One pass over the stream into the buffers of rounds r0 .. r0 + G - 1:
     (key buffers, payload buffer, each round's live rows, overflowed)."""
     device = codes2.device
-    chunk = p.chunk
     limbs = 1 if k <= kernels.ONE_LIMB_MAX_K else 2
-    win = chunk + k + 2
     buf_keys = tuple(torch.empty((G, p.cap), dtype=torch.int64, device=device)
                      for _ in range(limbs))
     buf_payload = torch.empty((G, p.cap), dtype=torch.int64, device=device)
     cursors = torch.zeros(G, dtype=torch.int64, device=device)
     overflow = torch.zeros(1, dtype=torch.int32, device=device)
-    for lo in range(0, n - 2, chunk):  # lo: the window's first position, chunk start - 1
-        # local position q of the chunk is window offset q + 1
-        keys, packed = kernels.front_half(
-            codes2[lo // 4 : (lo + win + 3) // 4], nmask[lo // 8 : (lo + win + 7) // 8], win, k)
-        kernels.round_append(
-            tuple(key[1 : chunk + 1] for key in keys), packed[1 : chunk + 1], lo + 1,
-            r0, p.n_rounds, buf_keys, buf_payload, cursors, overflow)
+    for lo in range(0, n - 2, p.chunk):
+        keys, packed = _chunk_rows(codes2, nmask, lo, p.chunk, k)
+        kernels.round_append(keys, packed, lo + 1, r0, p.n_rounds, buf_keys, buf_payload,
+                             cursors, overflow)
         del keys, packed
     *live, overflowed = torch.cat([cursors, overflow.long()]).tolist()
     return buf_keys, buf_payload, live, bool(overflowed)
@@ -211,62 +243,88 @@ def _run_rounds(codes2, nmask, n: int, k: int, p: Plan):
         with construct._step("graph_round_epilogue", device):
             for g, rows in enumerate(live):
                 if rows:
-                    out.append(_round_junctions(buf_keys, buf_payload, g, rows))
+                    out.append(_junction_rows([buf[g, :rows] for buf in buf_keys],
+                                              buf_payload[g, :rows]))
             del buf_keys, buf_payload
     return out
 
 
-def build_junctions_streamed_resident(
-    seqs: Sequence[np.ndarray],
-    k: int,
-    device: str | torch.device = "cuda",
-    chunk_size: int = 1 << 22,
-    n_rounds: int | None = None,
-    round_slack: float = 1.25,
-    memory_budget_bytes: int | None = None,
-) -> List[JunctionChr]:
-    """Junction records equal to construct.build_junctions', in rounds.
+def _bucket_pass(codes2, nmask, n: int, k: int, chunk: int, n_rounds: int):
+    """Pass 1 of the host-bucketed rounds: per chunk, K1, then its valid rows
+    sorted stably by round and copied to the host once, as the rounds' end
+    rows and a [limbs + 1, rows] int64 block (the key limbs, then the
+    payload gpos << 12 | word); each round's run of the block is appended to
+    its bucket, so a bucket holds its rows in genome order.  The device
+    sorts and copies chunk i + 1 while the host buckets chunk i.  Returns
+    (buckets, rows per round)."""
+    device = codes2.device
+    limbs = 1 if k <= kernels.ONE_LIMB_MAX_K else 2
+    buckets = [[] for _ in range(n_rounds)]
+    sizes = np.zeros(n_rounds, np.int64)
+    bounds = torch.arange(1, n_rounds + 1, device=device)
 
-    chunk_size: positions a chunk (a multiple of 8; at most the input);
-    n_rounds: the initial round count (default: the least the budget
-    holds); round_slack: a round buffer's rows over the input's positions
-    per round; memory_budget_bytes: device bytes the stage may use
-    (default: the card's free memory; no limit on the CPU)."""
-    device = torch.device(device)
-    construct.check_k(k)
-    if chunk_size < 8 or chunk_size % 8:
-        raise ValueError(f"chunk_size must be a positive multiple of 8, got {chunk_size}")
-    if not seqs:
-        return []
-    lengths = [len(s) for s in seqs]
-    n = 1 + sum(L + 1 for L in lengths)
-    if n >= (1 << 32) - chunk_size:
-        raise NotImplementedError(
-            f"{n} positions: the resident rounds take fewer than 2^32 - chunk_size; larger "
-            f"inputs are {QUEUE_A4}")
-    if n < k + 2:
-        return [JunctionChr(pos=np.zeros(0, np.uint32), ids=np.zeros(0, np.int64))
-                for _ in seqs]
-    budget = construct.device_budget(device, memory_budget_bytes)
-    p = plan(n, k, chunk_size, round_slack, budget, n_rounds)
+    def absorb(host, done):
+        if done is not None:
+            done.synchronize()
+        ends = host[:n_rounds].numpy()
+        # out of the copy's staging buffer: the buckets keep their own
+        block = host[n_rounds:].numpy().reshape(limbs + 1, -1).copy()
+        counts = np.diff(ends, prepend=0)
+        sizes[:] += counts
+        for r in np.flatnonzero(counts):
+            buckets[r].append(block[:, ends[r] - counts[r] : ends[r]])
 
-    with construct._step("graph_upload", device):
-        codes2, nmask = _upload(seqs, n, k, p.chunk, device)
+    pending = None
+    for lo in range(0, n - 2, chunk):
+        keys, packed = _chunk_rows(codes2, nmask, lo, chunk, k)
+        rows = torch.nonzero(keys[0] != kernels.INVALID_CANON).squeeze(1)
+        kept = tuple(key[rows] for key in keys)
+        rnd, order = torch.sort(kernels.round_bucket(kept, n_rounds), stable=True)
+        rows = rows[order]
+        flat = torch.cat([torch.searchsorted(rnd, bounds), *(key[order] for key in kept),
+                          ((lo + 1 + rows) << 12) | (packed[rows].long() & 0xFFF)])
+        del keys, packed, kept, rnd, order, rows
+        if device.type == "cuda":
+            host, done = flat.to("cpu", non_blocking=True), torch.cuda.Event()
+            done.record(torch.cuda.current_stream(device))
+        else:
+            host, done = flat, None
+        if pending is not None:
+            absorb(*pending)
+        pending = (host, done)
+    if pending is not None:
+        absorb(*pending)
+    return buckets, sizes
 
-    initial, retries = p.n_rounds, 0
-    while (parts := _run_rounds(codes2, nmask, n, k, p)) is None:
-        if p.n_rounds >= MAX_ROUND_GROWTH * initial:
-            raise NotImplementedError(
-                f"round buffers still overflow at {p.n_rounds} rounds ({MAX_ROUND_GROWTH} times "
-                f"the initial {initial}): a class outgrows a round; such inputs are {QUEUE_A4}")
-        retries += 1
-        p = plan(n, k, chunk_size, round_slack, budget, 2 * p.n_rounds)
-    del codes2, nmask
-    metrics.set("graph_rounds", p.n_rounds)
-    metrics.set("graph_rounds_per_pass", p.G)
-    metrics.set("graph_round_retries", retries)
-    metrics.set("graph_positions", n)
 
+def _host_rounds(codes2, nmask, n: int, k: int, chunk: int, n_rounds: int, lengths):
+    """The host-bucketed rounds on the uploaded stream: pass 1
+    (_bucket_pass), then per round its bucket uploaded whole and its
+    junction rows (_junction_rows); the records."""
+    device = codes2.device
+    with construct._step("graph_bucket", device):
+        buckets, sizes = _bucket_pass(codes2, nmask, n, k, chunk, n_rounds)
+    if sizes.max() > MAX_ROUND_ROWS:
+        raise ValueError(
+            f"a round of {sizes.max()} rows in {n_rounds} rounds: K2 takes at most "
+            f"{MAX_ROUND_ROWS} rows a round; raise n_rounds")
+    metrics.set("graph_host_rounds", n_rounds)
+    parts = []
+    with construct._step("graph_round_epilogue", device):
+        for r in range(n_rounds):
+            if buckets[r]:
+                block = torch.from_numpy(np.concatenate(buckets[r], axis=1)).to(device)
+                buckets[r] = None
+                parts.append(_junction_rows(list(block[:-1]), block[-1]))
+                del block
+    return _assemble(parts, lengths)
+
+
+def _assemble(parts, lengths) -> List[JunctionChr]:
+    """The records from the rounds' junction rows ((global position,
+    class-first position, orientation) each, in genome order): the rows
+    merged by position, ids ranked from the class-first positions, the
+    records split per chromosome."""
     with metrics.stage("graph_assemble"):
         if parts:
             gpos, first, positive = (np.concatenate(x) for x in zip(*parts))
@@ -278,3 +336,85 @@ def build_junctions_streamed_resident(
         records = split_chromosomes(gpos, assign_ids(first, positive), lengths, lead_sep=1)
     metrics.set("graph_junctions", len(gpos))
     return records
+
+
+def _joined(seqs, k: int, chunk_size: int):
+    """Checks k and chunk_size; returns the positions of the joined genome
+    (a leading N, one after each sequence) and the sequences' lengths."""
+    construct.check_k(k)
+    if chunk_size < 8 or chunk_size % 8:
+        raise ValueError(f"chunk_size must be a positive multiple of 8, got {chunk_size}")
+    lengths = [len(s) for s in seqs]
+    return 1 + sum(L + 1 for L in lengths), lengths
+
+
+def build_junctions_streamed_resident(
+    seqs: Sequence[np.ndarray],
+    k: int,
+    device: str | torch.device = "cuda",
+    chunk_size: int = 1 << 22,
+    n_rounds: int | None = None,
+    round_slack: float = 1.25,
+    memory_budget_bytes: int | None = None,
+) -> List[JunctionChr]:
+    """Junction records equal to construct.build_junctions', in rounds
+    resident on the device; inputs of fewer than 2^51 positions.
+
+    chunk_size: positions a chunk (a multiple of 8; at most the input);
+    n_rounds: the initial round count (default: the least the budget
+    holds); round_slack: a round buffer's rows over the input's positions
+    per round; memory_budget_bytes: device bytes the stage may use
+    (default: the card's free memory; no limit on the CPU).  Where the
+    round buffers still overflow at MAX_ROUND_GROWTH times the initial
+    round count, the host-bucketed rounds finish the stage on the uploaded
+    stream with the last round count (build_junctions_streamed's)."""
+    device = torch.device(device)
+    n, lengths = _joined(seqs, k, chunk_size)
+    if n < k + 2:
+        return _assemble([], lengths)
+    budget = construct.device_budget(device, memory_budget_bytes)
+    p = plan(n, k, chunk_size, round_slack, budget, n_rounds)
+
+    with construct._step("graph_upload", device):
+        codes2, nmask = _upload(seqs, n, k, p.chunk, device)
+    metrics.set("graph_positions", n)
+
+    initial, retries = p.n_rounds, 0
+    while ((parts := _run_rounds(codes2, nmask, n, k, p)) is None
+           and p.n_rounds < MAX_ROUND_GROWTH * initial):
+        retries += 1
+        p = plan(n, k, chunk_size, round_slack, budget, 2 * p.n_rounds)
+    metrics.set("graph_round_retries", retries)
+    if parts is None:  # a class outgrows every round
+        return _host_rounds(codes2, nmask, n, k, p.chunk, p.n_rounds, lengths)
+    del codes2, nmask
+    metrics.set("graph_rounds", p.n_rounds)
+    metrics.set("graph_rounds_per_pass", p.G)
+    return _assemble(parts, lengths)
+
+
+def build_junctions_streamed(
+    seqs: Sequence[np.ndarray],
+    k: int,
+    device: str | torch.device = "cuda",
+    chunk_size: int = 1 << 22,
+    n_rounds: int = 4,
+) -> List[JunctionChr]:
+    """Junction records equal to construct.build_junctions', in n_rounds
+    host-bucketed rounds: device memory is the packed stream, one chunk's
+    scan and one round's rows with their epilogue, each round sized by its
+    own rows; host memory 16 B per valid position (24 with two-limb keys).
+    Raises ValueError where a round holds more than MAX_ROUND_ROWS rows.
+
+    chunk_size: positions a chunk (a multiple of 8; at most the input)."""
+    device = torch.device(device)
+    n, lengths = _joined(seqs, k, chunk_size)
+    if not 1 <= n_rounds < 1 << 31:
+        raise ValueError(f"n_rounds must lie in [1, 2^31), got {n_rounds}")
+    if n < k + 2:
+        return _assemble([], lengths)
+    chunk = _chunk(n, chunk_size)
+    with construct._step("graph_upload", device):
+        codes2, nmask = _upload(seqs, n, k, chunk, device)
+    metrics.set("graph_positions", n)
+    return _host_rounds(codes2, nmask, n, k, chunk, n_rounds, lengths)

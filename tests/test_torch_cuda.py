@@ -15,6 +15,7 @@ from sibeliaz_tpu_torch.align import kernels as align_kernels
 from sibeliaz_tpu_torch.core import alphabet
 from sibeliaz_tpu_torch.graph import construct, kernels, oracle, streamed
 from sibeliaz_tpu_torch.utils import cudabuild
+from sibeliaz_tpu_torch.utils.metrics import GLOBAL as metrics
 
 from torch_cases import (CLASS_RUN_KINDS, K1_KINDS, LIMB_SPLITS, ROUND_ROW_KINDS, class_case,
                          class_runs, codes_with_n_runs, edge_band_round, k1_case, poa_case,
@@ -405,6 +406,71 @@ def test_streamed_stage_cuda_matches_cpu(cuda, k, kw):
     for a, b in zip(got, want):
         assert np.array_equal(a.pos, b.pos) and np.array_equal(a.ids, b.ids)
     for a, b in zip(want, construct.build_junctions(seqs, k, "cpu")):
+        assert np.array_equal(a.pos, b.pos) and np.array_equal(a.ids, b.ids)
+
+
+@pytest.mark.parametrize("limbs", [1, 2])
+@pytest.mark.parametrize("kind", ["random", "tile_runs"])
+def test_round_append_past_2_32(cuda, kind, limbs):
+    """Chunks whose global positions straddle 2^32: the payloads keep every
+    bit of the position, as the plain version's do."""
+    m = 3 * T4 + 5
+    chunks = round_chunks(kind, limbs, (m, T4 + 1), gpos0=(1 << 32) - m // 2)
+    cap = sum(len(c[1]) for c in chunks)
+    assert_round_append_matches_plain(chunks, 0, 4, 4, cap, cuda)
+
+
+def poly_a_seq():
+    """tests/test_torch_streamed.py's class that outgrows every round: a
+    poly-A run of 5,000 bases after 3,000 random ones."""
+    rng = np.random.default_rng(3)
+    seq = alphabet.decode(rng.integers(0, 4, size=3000).astype(np.uint8))
+    return [np.concatenate([seq, np.full(5000, ord("A"), np.uint8)])]
+
+
+@pytest.mark.parametrize("k", [15, 33])
+def test_host_rounds_cuda_matches_cpu(cuda, k):
+    """The host-bucketed rounds on the card against their CPU run: K1 and K2
+    launched, K4 not."""
+    seqs = streamed_seqs()
+    before = dict(kernels.LAUNCHES)
+    got = streamed.build_junctions_streamed(seqs, k, cuda, chunk_size=4096, n_rounds=5)
+    launched = {name: kernels.LAUNCHES[name] - before[name] for name in before}
+    assert launched["front_half"] > 0 and launched["class_analysis"] > 0
+    assert launched["round_append"] == 0
+    want = streamed.build_junctions_streamed(seqs, k, "cpu", chunk_size=4096, n_rounds=5)
+    for a, b in zip(got, want):
+        assert np.array_equal(a.pos, b.pos) and np.array_equal(a.ids, b.ids)
+    for a, b in zip(want, construct.build_junctions(seqs, k, "cpu")):
+        assert np.array_equal(a.pos, b.pos) and np.array_equal(a.ids, b.ids)
+
+
+def test_overflow_hand_over_cuda_matches_cpu(cuda):
+    """A class that outgrows every round: the resident rounds hand over to
+    the host-bucketed rounds at 64 rounds on the card as on the CPU."""
+    kw = {"chunk_size": 1024, "n_rounds": 1, "round_slack": 0.5}
+    metrics.counters.clear()
+    got = streamed.build_junctions_streamed_resident(poly_a_seq(), 15, cuda, **kw)
+    assert metrics.counters["graph_host_rounds"] == 64
+    want = streamed.build_junctions_streamed_resident(poly_a_seq(), 15, "cpu", **kw)
+    for a, b in zip(got, want):
+        assert np.array_equal(a.pos, b.pos) and np.array_equal(a.ids, b.ids)
+
+
+def test_launches_go_to_the_tensors_device(cuda):
+    """K1, K2 and K4 on cuda:1 while cuda:0 is current: the streamed stage's
+    records equal its CPU run's."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    seqs = streamed_seqs()
+    before = dict(kernels.LAUNCHES)
+    with torch.cuda.device(0):
+        got = streamed.build_junctions_streamed_resident(
+            seqs, 15, torch.device("cuda:1"), chunk_size=4096, n_rounds=3)
+    assert all(kernels.LAUNCHES[name] > before[name] for name in before)
+    want = streamed.build_junctions_streamed_resident(seqs, 15, "cpu", chunk_size=4096,
+                                                      n_rounds=3)
+    for a, b in zip(got, want):
         assert np.array_equal(a.pos, b.pos) and np.array_equal(a.ids, b.ids)
 
 

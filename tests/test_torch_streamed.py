@@ -1,9 +1,14 @@
-"""The port's streamed graph stage (CPU path: K1's and K4's plain versions)
-against the JAX package's build_junctions_streamed_resident on the resident
-cases of tests/test_streamed.py, with the same seeds and arguments; K4's
-plain version and the round hash against the JAX package's and a per-row
-spec; the routing from build_junctions and the refusals that name ROADMAP.md
-queue A item 4."""
+"""The port's streamed graph stage (CPU path: K1's, K2's and K4's plain
+versions) against the JAX package: the resident rounds against its
+build_junctions_streamed_resident on the resident cases of
+tests/test_streamed.py, the host-bucketed rounds against its
+build_junctions_streamed on that file's host-path cases, and a class that
+outgrows every round through both packages' hand-over, with the same seeds
+and arguments; K4's plain version and the round hash against the JAX
+package's and a per-row spec; positions past 2^32 (plan, K4's payload, the
+epilogue) without scanning them; the routing from build_junctions."""
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +21,8 @@ from sibeliaz_tpu_torch.graph import construct, kernels, streamed
 from sibeliaz_tpu_torch.utils.metrics import GLOBAL as metrics
 
 from torch_cases import ROUND_ROW_KINDS, round_rows
+
+BEYOND_2_32 = (1 << 32) + 10**6
 
 
 def assert_same(a, b):
@@ -276,27 +283,202 @@ def test_build_junctions_routes_to_the_streamed_stage(k):
     assert_same(want, got)
 
 
-def test_positions_past_the_resident_rounds_are_queue_a4():
-    """2^32 - chunk positions and more go to the JAX package's host-bucketed
-    path; the port refuses them before it reads a byte (the sequence is a
-    zero-stride view)."""
+class Uploaded(Exception):
+    pass
+
+
+@pytest.mark.parametrize("route", ["resident", "host", "build_junctions"])
+def test_inputs_past_2_32_positions_reach_the_upload(monkeypatch, route):
+    """A zero-stride view of 2^32 bases (never read): each route takes it,
+    plans it and reaches the upload with every position, where a stub stops
+    it; build_junctions routes its two sequences to the resident rounds."""
+    seen = []
+
+    def stub(seqs, n, k, chunk, device):
+        seen.append(n)
+        raise Uploaded
+
+    monkeypatch.setattr(streamed, "_upload", stub)
     big = np.broadcast_to(np.uint8(ord("A")), (1 << 32,))
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        streamed.build_junctions_streamed_resident([big], 25, "cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        construct.build_junctions([big[: (1 << 32) - (1 << 21)], big[:100]], 25, "cpu")
+    with pytest.raises(Uploaded):
+        if route == "resident":
+            streamed.build_junctions_streamed_resident([big], 25, "cpu")
+        elif route == "host":
+            streamed.build_junctions_streamed([big], 25, "cpu")
+        else:
+            construct.build_junctions([big[: (1 << 32) - (1 << 21)], big[:100]], 25, "cpu")
+    want = (1 << 32) + 2 if route != "build_junctions" else (1 << 32) - (1 << 21) + 103
+    assert seen == [want]
 
 
-def test_rounds_that_keep_overflowing_are_queue_a4():
+@pytest.mark.parametrize("k", [25, 33])
+@pytest.mark.parametrize("budget", [None, 80 << 30])
+def test_plan_past_2_32_positions(k, budget):
+    """n = 2^32 + 10^6: the least power of two of rounds whose rows K2 takes
+    (and whose buffers and epilogue fit the budget), the uploaded stream
+    holding the last chunk's window, the stream counted in the fixed
+    bytes."""
+    n, chunk = BEYOND_2_32, 1 << 22
+    p = streamed.plan(n, k, chunk, 1.25, budget)
+    assert p.chunk == chunk and p.cap == math.ceil(n * 1.25 / p.n_rounds)
+    assert p.cap <= streamed.MAX_ROUND_ROWS
+    if budget is None:
+        assert (p.n_rounds, p.G) == (4, 4)
+        assert math.ceil(n * 1.25 / 2) > streamed.MAX_ROUND_ROWS
+    else:
+        assert p.n_rounds == 8 and 1 <= p.G < 8 and p.peak_bytes <= budget
+        half = streamed.plan(n, k, chunk, 1.25, None, 4)
+        assert half.fixed_bytes + half.cap * (half.row_bytes + half.epilogue_bytes) > budget
+    padded = streamed._padded(n, k, chunk)
+    last = (n - 3) // chunk * chunk  # the last chunk's window starts here
+    assert padded % 8 == 0 and last + chunk + k + 2 <= padded < n + chunk + k + 10
+    assert padded * 3 // 8 < p.fixed_bytes < padded * 3 // 8 + (200 << 20)
+
+
+@pytest.mark.parametrize("limbs", [1, 2])
+def test_round_append_and_epilogue_past_2_32(limbs):
+    """A chunk whose rows straddle 2^32: K4's plain payloads equal the
+    per-row spec with every bit of the position, and each round's junction
+    rows (the epilogue) equal those of the same rows at position 1, shifted
+    by the base."""
+    m = 3 * kernels.K4_TILE_ROWS + 5
+    keys, packed = round_rows("repeats", m, limbs)
+    base = (1 << 32) - m // 2
+    junctions = {}
+    for gpos0 in (1, base):
+        chunks = [(keys, packed, gpos0)]
+        want = spec_rounds(chunks, 0, 3, 3)
+        buf_keys, buf_payload, cursors, overflow = append_all(chunks, 0, 3, 3, m)
+        assert int(overflow) == 0 and cursors.tolist() == [len(w) for w in want]
+        junctions[gpos0] = []
+        for g in range(3):
+            live = len(want[g])
+            got = list(zip((buf_payload[g, :live] >> 12).tolist(),
+                           *(b[g, :live].tolist() for b in buf_keys),
+                           (buf_payload[g, :live] & 0xFFF).tolist()))
+            assert got == want[g]
+            junctions[gpos0].append(streamed._junction_rows(
+                [b[g, :live] for b in buf_keys], buf_payload[g, :live]))
+    high = np.concatenate([j[0] for j in junctions[base]])
+    assert high.min() < 1 << 32 <= high.max()
+    for (g1, f1, o1), (g2, f2, o2) in zip(junctions[1], junctions[base]):
+        assert len(g1) > 0
+        assert np.array_equal(g2, g1 + base - 1) and np.array_equal(f2, f1 + base - 1)
+        assert np.array_equal(o2, o1)
+
+
+@pytest.mark.parametrize("k", [15, 33])
+def test_bucket_pass_holds_each_rounds_rows_in_genome_order(k):
+    """Pass 1 of the host-bucketed rounds against K1 on the whole stream at
+    once: each round's bucket holds exactly the valid rows whose key hashes
+    to it, in ascending position, with their key limbs and 12-bit words,
+    and the rows per round count them."""
+    seqs = resident_seqs()
+    n = 1 + sum(len(s) + 1 for s in seqs)
+    chunk, n_rounds = 4096, 5
+    codes2, nmask = streamed._upload(seqs, n, k, chunk, "cpu")
+    buckets, sizes = streamed._bucket_pass(codes2, nmask, n, k, chunk, n_rounds)
+    keys, packed = kernels.front_half(codes2, nmask, n, k)
+    valid = keys[0] != kernels.INVALID_CANON
+    rnd = kernels.round_bucket(keys, n_rounds)
+    for r in range(n_rounds):
+        rows = torch.nonzero(valid & (rnd == r)).squeeze(1)
+        block = np.concatenate(buckets[r], axis=1)
+        assert sizes[r] == len(rows) == block.shape[1]
+        assert np.array_equal(block[-1] >> 12, rows.numpy())
+        assert np.array_equal(block[-1] & 0xFFF, (packed[rows] & 0xFFF).numpy())
+        for got, key in zip(block[:-1], keys):
+            assert np.array_equal(got, key[rows].numpy())
+
+
+def test_host_rounds_refuse_what_k2_does_not_take(monkeypatch):
+    """A host-bucketed round of 2^31 rows (a stub's count: no row is made)
+    holds more than K2's int32 ranks: a ValueError that names n_rounds; one
+    row fewer runs.  n_rounds must be at least 1."""
+    sizes = np.array([5, 1 << 31, 0, 7])
+    monkeypatch.setattr(streamed, "_bucket_pass", lambda *a: ([[] for _ in sizes], sizes))
+    with pytest.raises(ValueError, match="n_rounds"):
+        streamed.build_junctions_streamed(resident_seqs(), 15, "cpu", n_rounds=4)
+    sizes[1] = streamed.MAX_ROUND_ROWS
+    got = streamed.build_junctions_streamed(resident_seqs(), 15, "cpu", n_rounds=4)
+    assert [len(r.pos) for r in got] == [0, 0, 0]
+    with pytest.raises(ValueError, match="n_rounds"):
+        streamed.build_junctions_streamed(resident_seqs(), 15, "cpu", n_rounds=0)
+
+
+def genomes(seed, n_chr=3, lo=500, hi=3000, n_prob=0.0):
+    """tests/test_streamed.py::genomes."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_chr):
+        L = int(rng.integers(lo, hi))
+        s = alphabet.decode(rng.integers(0, 4, size=L).astype(np.uint8))
+        if n_prob:
+            s[rng.random(L) < n_prob] = ord("N")
+        out.append(s)
+    return out
+
+
+def host(seqs, k, **kw):
+    metrics.counters.clear()
+    return streamed.build_junctions_streamed(seqs, k, "cpu", **kw)
+
+
+@pytest.mark.parametrize("seed,k,chunk,rounds", [
+    (0, 15, 1 << 10, 4),
+    (1, 11, 777, 3),
+    (2, 7, 1 << 12, 1),
+    (3, 15, 1 << 9, 8),
+])
+def test_host_rounds_equal_jax(seed, k, chunk, rounds):
+    """tests/test_streamed.py::test_streamed_matches_monolithic's cases:
+    the host-bucketed rounds against the JAX package's, with the same
+    arguments, but for the port's chunks, which start on a byte of the
+    validity bitmap: 777 runs as 776 (still no power of two, chunks still
+    crossing chromosomes)."""
+    seqs = genomes(seed, n_prob=0.01 if seed % 2 else 0.0)
+    want = jax_streamed.build_junctions_streamed(seqs, k, chunk_size=chunk, n_rounds=rounds)
+    assert_same(want, host(seqs, k, chunk_size=chunk - chunk % 8, n_rounds=rounds))
+    assert metrics.counters["graph_host_rounds"] == rounds
+
+
+def test_host_rounds_related_equal_jax():
+    """::test_streamed_related's genomes: a base, a 1% mutant and the
+    base's reverse complement."""
+    rng = np.random.default_rng(9)
+    base = alphabet.decode(rng.integers(0, 4, size=4000).astype(np.uint8))
+    g2 = base.copy()
+    for p in np.flatnonzero(rng.random(len(g2)) < 0.01):
+        g2[p] = alphabet.decode(np.uint8(rng.integers(0, 4)))
+    seqs = [base, g2, alphabet.reverse_complement(base)]
+    want = jax_streamed.build_junctions_streamed(seqs, 15, chunk_size=1000, n_rounds=5)
+    assert sum(len(w.pos) for w in want) > 0
+    assert_same(want, host(seqs, 15, chunk_size=1000, n_rounds=5))
+
+
+@pytest.mark.parametrize("k", [33, 61])
+def test_host_rounds_two_limbs_equal_jax(k):
+    """::test_streamed_wide_k_two_limb_bit_equal's host-path half."""
+    seqs = wide_k_seqs()
+    want = jax_streamed.build_junctions_streamed(seqs, k, chunk_size=4096, n_rounds=3)
+    assert sum(len(w.pos) for w in want) > 0
+    assert_same(want, host(seqs, k, chunk_size=4096, n_rounds=3))
+
+
+def test_class_that_outgrows_every_round_equal_jax():
     """One class of ~5,000 rows (a poly-A run) outgrows every round (slack
-    0.5, floor 1,000 rows): after 64 times the initial rounds the stage
-    refuses."""
+    0.5, floor 1,000 rows): after 64 times the initial rounds the resident
+    rounds hand over to the host-bucketed rounds, as the JAX package's do,
+    with the same records."""
     rng = np.random.default_rng(3)
     seq = alphabet.decode(rng.integers(0, 4, size=3000).astype(np.uint8))
     seq = np.concatenate([seq, np.full(5000, ord("A"), np.uint8)])
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        port([seq], 15, chunk_size=1024, n_rounds=1, round_slack=0.5)
+    want = jax_streamed.build_junctions_streamed_resident(
+        [seq], 15, chunk_size=1024, n_rounds=1, round_slack=0.5)
+    assert_same(want, port([seq], 15, chunk_size=1024, n_rounds=1, round_slack=0.5))
     assert metrics.counters["graph_passes"] == 7  # 1, 2, 4, ..., 64 rounds
+    assert metrics.counters["graph_round_retries"] == 6
+    assert metrics.counters["graph_host_rounds"] == 64
 
 
 def test_chunk_size_must_be_a_multiple_of_8():
