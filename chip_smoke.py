@@ -72,7 +72,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
      examples/large and a 24 Mbp (CATTC)n array at k=25, through the
      resident rounds from 8 rounds, which overflow up to 512 and hand over
      to the host-bucketed rounds, and through the host-bucketed rounds
-     alone at 512 (K4 not launched), both equal to the monolithic records.
+     alone at 512 (K4 not launched), both equal to the monolithic records;
+ 11. the host LCB oracle engine, the bundle list and the tools: (a) the CLI
+     with --lcb-engine oracle -n on examples/ (k=15), byte-equal to the
+     golden GFF, a main-path run whose K1 and K2 launches count, with the
+     lcb_engine seconds; (b) on examples/ (k=15) and examples/large (k=25),
+     make_bundles_device's list with its sort on the card equal to its CPU
+     run's and to LcbEngine.make_bundles, field by field and in order, the
+     rows sorted, the sort's ms and each route's seconds, and on examples/
+     LcbEngine.run on the card's list giving the golden GFF; (c) the tools
+     on phase 7's MAF: maf2gfa then glue giving the input genomes, maf2xmfa
+     one section per block, synteny -b 5000 on examples/' GFF writing its
+     files.
 The last two lines are a JSON summary of the kernels (time, plain time,
 bound, launches per main path; K1's and K2's "ms" are their one-limb
 instances' and "by_limbs" holds both instances'; K4's "ms" is its shape on
@@ -81,9 +92,11 @@ its eight timed shapes) and {"ok": true, "device": {...}}.  It
 imports neither jax nor sibeliaz_tpu.
 """
 
+import contextlib
 import ctypes
 import functools
 import hashlib
+import io
 import json
 import os
 import re
@@ -1325,6 +1338,105 @@ def streamed_phase(torch, dev, mods, tmp_dir, large_fa, large_golden, bench_fa, 
                         "host-bucketed rounds": outgrown["host-bucketed rounds"]}
 
 
+def tool_output(tools, argv):
+    """`python -m sibeliaz_tpu_torch.tools ARGV`'s standard output."""
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        check(tools.main(argv) == 0, f"tools {argv} failed")
+    return out.getvalue()
+
+
+def lcb_phase(torch, mods, maf_path, large_fa, out_dir, label):
+    """Phase 11: (a) the oracle LCB engine through the CLI on examples/,
+    (b) the bundle list with its sort on the card against the CPU's and the
+    oracle's, and the oracle's run on the card's list, (c) the tools on
+    phase 7's MAF.  Returns the launches of K1 and K2 in the CLI run."""
+    (cases, cli, pipeline, _device_poa, _msa, _poa_ref, kernels, align_kernels, Config,
+     alphabet, fasta, metrics) = mods
+    from sibeliaz_tpu_torch import tools
+    from sibeliaz_tpu_torch.lcb import device_bundles
+    from sibeliaz_tpu_torch.lcb.oracle import LcbEngine
+    from sibeliaz_tpu_torch.output import gff, trim
+
+    fas = [os.path.join(EXAMPLES, "genome1.fa"), os.path.join(EXAMPLES, "genome2.fa")]
+    with open(os.path.join(EXAMPLES, "sibeliaz_out", "blocks_coords.gff")) as f:
+        golden = f.read()
+
+    phase(f"11a the oracle LCB engine through the CLI, examples/ k=15 {label}")
+    metrics.timings.clear()
+    metrics.counters.clear()
+    kernels.reset_launches()
+    align_kernels.reset_launches()
+    wall = run_cli(cli, ["-k", "15", "-n", "--lcb-engine", "oracle", "-o",
+                         os.path.join(out_dir, "oracle"), *fas])
+    launches = {**kernels.LAUNCHES, **align_kernels.LAUNCHES}
+    with open(os.path.join(out_dir, "oracle", "blocks_coords.gff")) as f:
+        check(f.read() == golden, "examples/ GFF of --lcb-engine oracle differs from the golden")
+    check(all(launches[name] > 0 for name in MONOLITHIC_KERNELS)
+          and launches["round_append"] == 0 and launches["poa_dp_tb"] == 0,
+          f"launches of the --lcb-engine oracle -n run: {launches}")
+    stages = {t["stage"]: t["seconds"] for t in metrics.timings}
+    print(f"examples/ --lcb-engine oracle -n: GFF byte-equal to the golden | lcb_engine "
+          f"{stages['lcb_engine']:.4f} s | CLI wall {wall:.4f} s | launches {launches} {label}")
+
+    phase(f"11b the bundle list with its sort on the card {label}")
+    for where, paths, k in (("examples/", fas, 15), ("examples/large", large_fa, 25)):
+        recs = fasta.read_many(paths)
+        seqs, names = [r.seq for r in recs], [r.name for r in recs]
+        cfg = Config(k=k)
+        table = pipeline.build_table(seqs, names, cfg, device="cuda")
+        t0 = time.perf_counter()
+        got = device_bundles.make_bundles_device(table, "cuda")
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_cpu = device_bundles.make_bundles_device(table, "cpu")
+        cpu_s = time.perf_counter() - t0
+        check(cases.bundle_fields(got) == cases.bundle_fields(on_cpu),
+              f"{where}: the card's bundle list differs from the CPU's")
+        t0 = time.perf_counter()
+        eng = LcbEngine(table, cfg.min_block_size, cfg.max_branch_size, cfg.flanking,
+                        cfg.looking_depth)
+        host = eng.make_bundles()
+        host_s = time.perf_counter() - t0
+        check(cases.bundle_fields(got) == cases.bundle_fields(host),
+              f"{where}: the card's bundle list differs from LcbEngine.make_bundles")
+        rows = torch.from_numpy(device_bundles.bundle_rows(table)).to("cuda")
+        sort_ms = cuda_ms(torch, lambda: device_bundles.sort_rows(rows), 20)
+        del rows
+        print(f"{where} k={k}: {len(got)} bundles equal to the CPU's and to "
+              f"LcbEngine.make_bundles | rows sorted {2 * len(table.occ_chr)} | sort + gather "
+              f"{sort_ms:.4f} ms | make_bundles_device {card_s:.4f} s on the card, "
+              f"{cpu_s:.4f} s on the CPU | LcbEngine.make_bundles {host_s:.4f} s {label}")
+        if where == "examples/":
+            lengths = [len(x) for x in seqs]
+            blocks, _ = trim.trim_blocks(eng.run(bundles=got), lengths, cfg.min_block_size)
+            check(gff.render_gff(blocks, names, lengths) == golden,
+                  "examples/: LcbEngine.run on the card's bundle list misses the golden GFF")
+            print("examples/: LcbEngine.run(bundles=<the card's list>) gives the golden GFF")
+
+    phase("11c the tools on phase 7's MAF")
+    graph = os.path.join(out_dir, "examples.gfa")
+    with open(graph, "w") as f:
+        f.write(tool_output(tools, ["maf2gfa", maf_path, *fas]))
+    glued = tool_output(tools, ["glue", graph])
+    want = "".join(f">{r.name}\n{alphabet.seq_to_str(r.seq)}\n" for r in fasta.read_many(fas))
+    check(glued == want, "glue on maf2gfa's GFA does not give the input genomes")
+    with open(maf_path) as f:
+        n_blocks = sum(line.rstrip("\n") == "a" for line in f)
+    xmfa = tool_output(tools, ["maf2xmfa", maf_path])
+    sections = xmfa.count("=\n")
+    check(xmfa.startswith("#FormatVersion Mauve1\n") and sections == n_blocks,
+          f"maf2xmfa wrote {sections} sections for {n_blocks} blocks")
+    syn = os.path.join(out_dir, "synteny")
+    tool_output(tools, ["synteny", os.path.join(EXAMPLES, "sibeliaz_out", "blocks_coords.gff"),
+                        "-o", syn, "-b", "5000"])
+    written = sorted(os.listdir(os.path.join(syn, "5000")))
+    check(written == ["blocks_coords.txt", "coverage_report.txt", "genomes_permutations.txt"],
+          f"synteny wrote {written}")
+    print(f"maf2gfa + glue: the genomes round-trip | maf2xmfa: {n_blocks} sections | "
+          f"synteny -b 5000: {written}")
+    return launches
+
+
 def int32_peak():
     """The card's peak 32-bit integer rate, operations per second: 132 SMs x
     64 int32 lanes x the highest SM clock nvidia-smi reports."""
@@ -1593,6 +1705,8 @@ def main(argv):
     k4_err, k4, stream_paths = streamed_phase(
         torch, dev, mods, tmp.name, large_fa, large_golden, bench_fa,
         os.path.join(tmp.name, "bench3", "blocks_coords.gff"), peak_ops, label)
+    oracle_launches = lcb_phase(torch, mods, os.path.join(tmp.name, "maf", "tpu", "alignment.maf"),
+                                large_fa, os.path.join(tmp.name, "lcb"), label)
     tmp.cleanup()
 
     src = "sibeliaz_tpu_torch/csrc/"
@@ -1604,12 +1718,13 @@ def main(argv):
     # pipeline at k=25 and k=33, the strains' -k 33 -n -f 1 CLI run, the
     # two full-size inputs, the input past 2^32 positions, and the class
     # that outgrows every round (the hand-over, and the host-bucketed
-    # rounds alone)
+    # rounds alone), and the oracle LCB engine's CLI run (phase 11)
     paths = {"examples/large -n": large_launches_by_k[25],
              "examples/large -k 33 -n": large_launches_by_k[33],
              "examples/ --align-engine tpu": maf_launches,
              "examples/large --align-engine tpu": large_launches,
-             **stream_paths}
+             **stream_paths,
+             "examples/ --lcb-engine oracle -n": oracle_launches}
 
     def by_path(kernel):
         return {path: counts.get(kernel, 0) for path, counts in paths.items()}

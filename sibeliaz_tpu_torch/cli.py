@@ -2,7 +2,9 @@
 (`python -m sibeliaz_tpu_torch [-k -b -m -a -t -f -o -n] <fasta...>`), plus
 `--device {cuda,cpu}`.
 
-The port runs FASTA -> GFF with the native LCB engine, and then, unless
+The port runs FASTA -> GFF with the native LCB engine, or the host oracle
+engine under `--lcb-engine oracle` (the same GFF, for small inputs: it is
+the LCB stage's executable specification, in Python), and then, unless
 `-n` is given, the alignment stage -> MAF with either POA engine:
 `--align-engine native` (host C++) or `--align-engine tpu` (the batched
 device DP on the card; the name is the JAX package's, so that the same
@@ -11,9 +13,11 @@ fit the card (or the `-f` budget), or that has 2^31 positions or more, runs
 the streamed graph stage, in rounds resident on the card, with the same
 records, up to 2^51 positions; a vertex class that outgrows every round
 finishes in host-bucketed rounds, as in the JAX package.  It refuses, and
-never falls back, for: no CUDA card under the default `--device cuda`; an
-`--lcb-engine` other than native (ROADMAP.md items A7 and A9).  k is odd, 3
-to 61, as in the JAX package.
+never falls back, for: no CUDA card under the default `--device cuda`;
+`--lcb-engine tpu-fused` (the fused device engine, ROADMAP.md item A9) and
+`--lcb-engine tpu` (the resident device engine, under ROADMAP.md's "Do not
+port").  k is odd, 3 to 61, as in the JAX package.  The post-processing
+tools run as `python -m sibeliaz_tpu_torch.tools`.
 """
 
 from __future__ import annotations
@@ -64,7 +68,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument(
         "--lcb-engine", choices=("native", "oracle", "tpu", "tpu-fused"),
         default="native",
-        help="LCB exploration engine (the port runs native only)",
+        help="LCB exploration engine (the port runs native and oracle; "
+        "tpu and tpu-fused are refused)",
     )
     p.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",

@@ -1,10 +1,12 @@
 """End-to-end pipeline orchestration (the reference's bash driver, as a
 library; SibeliaZ-LCB/sibeliaz:138-152).
 
-Stages: graph construction (device) -> junction table -> native LCB engine
--> trim/renumber -> GFF; the CLI then runs the alignment stage
-(align/msa.py: POA per block -> MAF).  The device LCB engines are not
-ported yet (ROADMAP.md queue A)."""
+Stages: graph construction (device) -> junction table -> LCB engine (the
+native C++ engine, or the host oracle engine `lcb/oracle.py`) ->
+trim/renumber -> GFF; the CLI then runs the alignment stage (align/msa.py:
+POA per block -> MAF).  Of the JAX package's device LCB engines, the fused
+engine is not ported yet (ROADMAP.md item A9) and the resident one is not
+to be ported (ROADMAP.md, "Do not port")."""
 
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from sibeliaz_tpu_torch.io.dbg import JunctionChr
 from sibeliaz_tpu_torch.junctions.table import JunctionTable
 from sibeliaz_tpu_torch.lcb.blocks import Block
 from sibeliaz_tpu_torch.lcb.engine import run_native
+from sibeliaz_tpu_torch.lcb.oracle import LcbEngine
 from sibeliaz_tpu_torch.output import gff as gff_mod
 from sibeliaz_tpu_torch.output import trim as trim_mod
 from sibeliaz_tpu_torch.utils.metrics import GLOBAL as metrics
@@ -51,14 +54,17 @@ def build_table(
 
 
 def check_engine(engine: str) -> None:
-    if engine != "native":
-        # the fused device engine is its own item; the others run on the
-        # oracle engine (sibeliaz_tpu/pipeline.py:57-68)
-        item = "A9" if engine == "tpu-fused" else "A7"
-        raise NotImplementedError(
-            f"--lcb-engine {engine}: the port runs the native LCB engine "
-            f"only; this engine is ROADMAP.md item {item}"
-        )
+    if engine in ("native", "oracle"):
+        return
+    why = {
+        "tpu-fused": "the fused device engine is ROADMAP.md item A9",
+        "tpu": "the resident device engine (run_resident) is listed under "
+        'ROADMAP.md\'s "Do not port"',
+    }.get(engine, "there is no such engine")
+    raise NotImplementedError(
+        f"--lcb-engine {engine}: the port runs the native and oracle LCB "
+        f"engines; {why}"
+    )
 
 
 def find_blocks(
@@ -75,14 +81,23 @@ def find_blocks(
     metrics.set("vertices", table.n_vertices)
     metrics.set("junction_records", int(sum(len(p) for p in table.jpos)))
     with metrics.stage("lcb_engine", engine=engine):
-        raw = run_native(
-            table,
-            min_block_size=cfg.min_block_size,
-            max_branch_size=cfg.max_branch_size,
-            max_flanking_size=cfg.flanking,
-            looking_depth=cfg.looking_depth,
-            threads=cfg.threads,
-        )
+        if engine == "oracle":
+            raw = LcbEngine(
+                table,
+                min_block_size=cfg.min_block_size,
+                max_branch_size=cfg.max_branch_size,
+                max_flanking_size=cfg.flanking,
+                looking_depth=cfg.looking_depth,
+            ).run()
+        else:
+            raw = run_native(
+                table,
+                min_block_size=cfg.min_block_size,
+                max_branch_size=cfg.max_branch_size,
+                max_flanking_size=cfg.flanking,
+                looking_depth=cfg.looking_depth,
+                threads=cfg.threads,
+            )
     chr_lengths = [len(s) for s in seqs]
     with metrics.stage("trim_and_render"):
         blocks, n_found = trim_mod.trim_blocks(raw, chr_lengths, cfg.min_block_size)

@@ -10,16 +10,20 @@ import numpy as np
 import pytest
 import torch
 
+from sibeliaz_tpu_torch import pipeline
 from sibeliaz_tpu_torch.align import device_poa, poa_ref
 from sibeliaz_tpu_torch.align import kernels as align_kernels
+from sibeliaz_tpu_torch.config import Config
 from sibeliaz_tpu_torch.core import alphabet
 from sibeliaz_tpu_torch.graph import construct, kernels, oracle, streamed
+from sibeliaz_tpu_torch.lcb.device_bundles import make_bundles_device
 from sibeliaz_tpu_torch.utils import cudabuild
 from sibeliaz_tpu_torch.utils.metrics import GLOBAL as metrics
 
-from torch_cases import (CLASS_RUN_KINDS, K1_KINDS, LIMB_SPLITS, ROUND_ROW_KINDS, class_case,
-                         class_runs, codes_with_n_runs, edge_band_round, k1_case, poa_case,
-                         poa_round, rand_block, round_rows, split_limbs, spread_slots)
+from torch_cases import (BUNDLE_CASES, CLASS_RUN_KINDS, K1_KINDS, LIMB_SPLITS, ROUND_ROW_KINDS,
+                         bundle_fields, class_case, class_runs, codes_with_n_runs,
+                         edge_band_round, k1_case, poa_case, poa_round, rand_block,
+                         related_genomes, round_rows, split_limbs, spread_slots, tied_table)
 
 pytestmark = pytest.mark.gpu
 
@@ -567,3 +571,18 @@ def test_poa_dp_tb_window_wider_than_one_chunk(cuda):
     want = align_kernels.poa_dp_tb_plain(*args)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", [*range(len(BUNDLE_CASES)), "ties"])
+def test_bundles_cuda_matches_cpu(cuda, case):
+    """make_bundles_device's sort on the card gives the CPU's bundle list,
+    field by field and in order, on tests/test_device_bundles.py's four
+    seeded tables and on the hand-laid table with tied keys."""
+    if case == "ties":
+        table = tied_table(0)
+    else:
+        seed, kwargs = BUNDLE_CASES[case]
+        seqs, names = related_genomes(seed, **kwargs)
+        table = pipeline.build_table(seqs, names, Config(k=15), device="cpu")
+    got = bundle_fields(make_bundles_device(table, "cuda"))
+    assert got and got == bundle_fields(make_bundles_device(table, "cpu"))

@@ -1,6 +1,7 @@
 """The port runs where JAX is absent: it imports neither jax nor the
-sibeliaz_tpu package, and its CLI reproduces the golden GFF and MAF in a
-process in which both imports fail."""
+sibeliaz_tpu package, and its CLI (native and oracle LCB engines)
+reproduces the golden GFF and MAF, and its tools round-trip the golden
+MAF, in a process in which both imports fail."""
 
 import ast
 import glob
@@ -24,7 +25,24 @@ sys.exit(rc)
 """
 
 
-@pytest.mark.parametrize("flags", [["-n"], []], ids=["noalign", "maf"])
+_TOOLS_CHILD = """
+import contextlib, io, sys
+sys.modules["jax"] = None
+sys.modules["sibeliaz_tpu"] = None
+from sibeliaz_tpu_torch.tools import main
+maf, graph, *fastas = sys.argv[1:]
+with contextlib.redirect_stdout(io.StringIO()) as out:
+    assert main(["maf2gfa", maf, *fastas]) == 0
+with open(graph, "w") as f:
+    f.write(out.getvalue())
+rc = main(["glue", graph])
+assert sys.modules["jax"] is None and sys.modules["sibeliaz_tpu"] is None
+sys.exit(rc)
+"""
+
+
+@pytest.mark.parametrize("flags", [["-n"], [], ["-n", "--lcb-engine", "oracle"]],
+                         ids=["noalign", "maf", "oracle"])
 def test_cli_runs_without_jax(tmp_path, flags):
     out = tmp_path / "out"
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -45,6 +63,29 @@ def test_cli_runs_without_jax(tmp_path, flags):
         assert drop((out / "alignment.maf").read_text()) == drop(open(golden).read())
 
 
+def test_tools_run_without_jax(tmp_path):
+    """maf2gfa on the golden MAF and the FASTAs, then glue on the GFA that
+    the port wrote, in a process where jax and sibeliaz_tpu fail to import:
+    the glued genomes are the inputs."""
+    fastas = [os.path.join(EXAMPLES, f"genome{g}.fa") for g in (1, 2)]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", _TOOLS_CHILD,
+         os.path.join(EXAMPLES, "sibeliaz_out", "alignment.maf"), str(tmp_path / "g.gfa"),
+         *fastas],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert (tmp_path / "g.gfa").read_text().startswith("H\t")
+    glued = dict(rec.split("\n", 1) for rec in proc.stdout[1:].rstrip("\n").split("\n>"))
+    want = {}
+    for path in fastas:
+        for rec in open(path).read().split(">")[1:]:
+            name, *lines = rec.split("\n")
+            want[name.split()[0]] = "".join(lines).upper()
+    assert glued == want
+
+
 def test_chip_smoke_refuses_without_card(tmp_path):
     import torch
 
@@ -62,6 +103,10 @@ def test_no_module_imports_jax_or_the_jax_package():
     files = glob.glob(os.path.join(REPO, "sibeliaz_tpu_torch", "**", "*.py"),
                       recursive=True)
     files.append(os.path.join(REPO, "chip_smoke.py"))
+    rel = {os.path.relpath(f, REPO) for f in files}
+    for module in ("tools.py", "lcb/oracle.py", "lcb/device_bundles.py", "postprocess/maf.py",
+                   "postprocess/gfa.py", "postprocess/xmfa.py", "postprocess/synteny.py"):
+        assert os.path.join("sibeliaz_tpu_torch", module) in rel
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

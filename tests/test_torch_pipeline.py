@@ -120,7 +120,7 @@ def test_cli_help(capsys):
 @pytest.mark.parametrize(
     "extra,message",
     [
-        (["-n", "--lcb-engine", "oracle"], "item A7"),
+        (["-n", "--lcb-engine", "tpu"], '"Do not port"'),
         (["-n", "--lcb-engine", "tpu-fused"], "item A9"),
     ],
 )

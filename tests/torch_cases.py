@@ -473,3 +473,74 @@ def poa_round(blocks, graph_cls, extract, plan, band_S=None):
         states, range(len(states)), L, n_max, 1 << 62, plan, extract)
     assert len(plans) == len(blocks), "a block fell back"
     return arrays, n_max, W, P, [p[4] for p in plans]
+
+
+# tests/test_device_bundles.py's four seeded inputs (seed + 400 and the
+# keyword arguments of reference_oracle.random_related_genomes), at k=15
+BUNDLE_CASES = (
+    (400, dict(length=2000, mut=0.02)),
+    (401, dict(length=1500, mut=0.05, rearrange=True)),
+    (402, dict(length=2500, mut=0.01, n_genomes=3)),
+    (403, dict(length=1000, mut=0.03, n_chr=2, n_prob=0.01)),
+)
+
+
+def bundle_fields(bundles):
+    """A bundle list as the tuples compared exactly: (vid, ch, count, rank,
+    resolve), in order."""
+    return [(b.vid, b.ch, b.count, b.rank, b.resolve) for b in bundles]
+
+
+def related_genomes(seed, n_genomes=2, n_chr=1, length=3000, mut=0.01,
+                    rearrange=False, n_prob=0.0):
+    """reference_oracle.random_related_genomes through the port's alphabet
+    (the same draws, the same genomes), for where JAX is absent."""
+    from sibeliaz_tpu_torch.core import alphabet
+
+    rng = np.random.default_rng(seed)
+    ancestors = [alphabet.decode(rng.integers(0, 4, size=length).astype(np.uint8))
+                 for _ in range(n_chr)]
+    flat, names = [], []
+    for g in range(n_genomes):
+        for c, anc in enumerate(ancestors):
+            seq = anc.copy()
+            for p in np.flatnonzero(rng.random(len(seq)) < mut):
+                seq[p] = alphabet.decode(np.uint8(rng.integers(0, 4)))
+            if rearrange and g > 0:
+                lo = int(rng.integers(0, len(seq) // 2))
+                hi = lo + int(rng.integers(len(seq) // 4, len(seq) // 2))
+                seq[lo:hi] = alphabet.reverse_complement(seq[lo:hi])
+            if n_prob:
+                seq[rng.random(len(seq)) < n_prob] = ord("N")
+            flat.append(seq)
+            names.append(f"Genome{g + 1}.Chr{c + 1}")
+    return flat, names
+
+
+def tied_table(seed, n_chr=2, length=2000, n_vertices=40, k=15):
+    """A hand-laid junction table whose bundle list has ties in (count,
+    rank, resolve), so that the bundle sort takes its gxx_sort branch.
+
+    Every junction record comes twice, at one position with one signed id;
+    the first copy's out-char is A and its in-char G, the second's C and T.
+    So each vertex's A and C bundles have the same occurrences' chromosomes
+    in the same order (equal count and rank) and the same positive-strand
+    positions (equal resolve).  No graph stage makes such a table."""
+    from sibeliaz_tpu_torch.core import alphabet
+    from sibeliaz_tpu_torch.io.dbg import JunctionChr
+    from sibeliaz_tpu_torch.junctions.table import JunctionTable
+
+    rng = np.random.default_rng(seed)
+    seqs = [alphabet.decode(rng.integers(0, 4, size=length).astype(np.uint8))
+            for _ in range(n_chr)]
+    records = []
+    for _ in range(n_chr):
+        pos = np.sort(rng.choice(np.arange(1, length - k - 1), size=length // 20, replace=False))
+        ids = rng.integers(1, n_vertices, size=len(pos)) * rng.choice([-1, 1], size=len(pos))
+        records.append(JunctionChr(pos=np.repeat(pos, 2).astype(np.uint32),
+                                   ids=np.repeat(ids, 2).astype(np.int64)))
+    table = JunctionTable.build(records, seqs, [f"chr{c}" for c in range(n_chr)], k, 1 << 30)
+    second = table.occ_idx % 2 == 1
+    table.occ_ch[:] = np.where(second, ord("C"), ord("A"))
+    table.occ_revch[:] = np.where(second, ord("T"), ord("G"))
+    return table
