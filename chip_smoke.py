@@ -6,6 +6,7 @@
     python3 chip_smoke.py --k2-time          # K2's wrapper alone, see k2_vs_plain
     python3 chip_smoke.py --k1-time          # K1's wrapper alone, see k1_vs_plain
     python3 chip_smoke.py --k4-time [OLDER.cu]  # K4's wrapper (and an older one), see k4_time
+    python3 chip_smoke.py --sharded          # phase 12 alone, see sharded_phase
 
 Phases, in order; any failure raises and the exit code is non-zero:
   1. device: the card's name and power limit, and the peak rates the
@@ -83,7 +84,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
      LcbEngine.run on the card's list giving the golden GFF; (c) the tools
      on phase 7's MAF: maf2gfa then glue giving the input genomes, maf2xmfa
      one section per block, synteny -b 5000 on examples/' GFF writing its
-     files.
+     files;
+ 12. the sharded graph stage (parallel/sharded.py, parallel/multihost.py):
+     examples/large at k=25 and 33, the strains at k=15 and 2 x 256 Mbp at
+     k=25, each through 4 in-process shards on cuda:0 and through an NCCL
+     group of world size 1 (the card's machine has one card: no traffic
+     between cards runs), records equal to the monolithic stage's of the
+     same run, the peak within the memory guard's bound, the stage seconds
+     beside the monolithic stage's; the examples/large GFFs through the
+     native LCB engine from the sharded records equal to the goldens; the
+     device POA engine with each dispatch spread over ["cuda:0",
+     "cuda:0"] on examples/' blocks, MSAs equal to its one-device run's and
+     the native engine's.  `--sharded` runs phases 1, 2 and 12 alone.
 The last two lines are a JSON summary of the kernels (time, plain time,
 bound, launches per main path; K1's and K2's "ms" are their one-limb
 instances' and "by_limbs" holds both instances'; K4's "ms" is its shape on
@@ -141,6 +153,11 @@ FILLER_N = 1 << 32
 # phase 10f: the satellite array after examples/large, (CATTC)n like the
 # human satellite III, and the round count its resident rounds start from
 SATELLITE_UNIT, SATELLITE_BP, SATELLITE_ROUNDS = b"CATTC", 24_000_000, 8
+
+
+# phase 12: the shards of the in-process sharded runs (all on cuda:0), the
+# chromosome-scale pair's bases per copy, and its seed
+SHARDS, PAIR_256M, PAIR_256M_SEED = 4, 256_000_000, 12
 
 
 # the graph kernels of the monolithic stage's path (K4 runs on the streamed
@@ -1437,6 +1454,124 @@ def lcb_phase(torch, mods, maf_path, large_fa, out_dir, label):
     return launches
 
 
+def sharded_run(torch, metrics, kernels, mono, run, n, need, what, label):
+    """One sharded graph stage run on the card, held to the monolithic
+    records `mono` and its peak to the memory guard's bound `need`; prints
+    its stage seconds and returns (records, launches)."""
+    torch.cuda.empty_cache()
+    mem0 = fresh_run(torch, metrics, kernels)
+    t0 = time.time()
+    got = run()
+    secs = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() - mem0
+    _counts, stages, launched = streamed_counts(metrics, kernels)
+    check(same_records(got, mono), f"{what}: records differ from the monolithic stage's")
+    check(launched["front_half"] > 0 and launched["class_analysis"] > 0
+          and launched["round_append"] == 0, f"{what}: launches {launched}")
+    check(peak <= need, f"{what}: peak {peak} B above the memory guard's {need} B")
+    print(f"{what}: records equal to the monolithic stage's in {secs:.4f} s | peak {peak} B = "
+          f"{peak / n:.4f} B/position (guard {need / n:.2f}) | launches {launched} | "
+          + " | ".join(f"{s} {v:.4f} s" for s, v in stages.items()) + f" {label}")
+    return got, launched
+
+
+def sharded_phase(torch, mods, tmp_dir, large_fa, large_golden, bench_fa, label):
+    """Phase 12: (a) the sharded graph stage on examples/large at k=25 and
+    33, the strains at k=15 and 2 x 256 Mbp at k=25, each through SHARDS
+    in-process shards on cuda:0 and through an NCCL group of world size 1,
+    records equal to the monolithic stage's of the same run, the
+    examples/large GFFs through the native LCB engine from the sharded
+    records equal to the goldens; (b) the device POA engine with each
+    dispatch spread over ["cuda:0", "cuda:0"] on examples/' blocks, MSAs
+    equal to its one-device run's and the native engine's.  Returns the
+    launches of each run."""
+    (_cases, _cli, pipeline, device_poa, msa, _poa_ref, kernels, align_kernels, Config,
+     alphabet, fasta, metrics) = mods
+    import torch.distributed as dist
+    from sibeliaz_tpu_torch.graph import construct
+    from sibeliaz_tpu_torch.parallel import multihost, sharded
+
+    phase(f"12 sharded graph stage, NCCL world size 1, the POA spread {label}")
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp_dir, "nccl"), 1),
+                            world_size=1, rank=0)
+    launches = {}
+    try:
+        large = fasta.read_many(large_fa)
+        inputs = (("examples/large", [r.seq for r in large], [r.name for r in large],
+                   {25: large_golden, 33: LARGE_K33_GFF_SHA}),
+                  ("strains", [r.seq for r in fasta.read_many([bench_fa])], None, {15: None}),
+                  ("2 x 256 Mbp", synth_pair(alphabet, PAIR_256M_SEED, PAIR_256M), None,
+                   {25: None}))
+        for name, seqs, names, goldens in inputs:
+            n = 1 + sum(len(s) + 1 for s in seqs)
+            bounds = sharded.shard_bounds(n, SHARDS)
+            local = [bounds[s + 1] - bounds[s] for s in range(SHARDS)]
+            for k, golden in goldens.items():
+                torch.cuda.empty_cache()
+                mem0 = fresh_run(torch, metrics, kernels)
+                t0 = time.time()
+                mono = construct.build_junctions(seqs, k, "cuda")
+                secs = time.time() - t0
+                peak = torch.cuda.max_memory_allocated() - mem0
+                _counts, stages, _launched = streamed_counts(metrics, kernels)
+                check("graph_scan" not in stages, f"{name} k={k}: the monolithic stage streamed")
+                print(f"{name} k={k} monolithic: {sum(len(r.pos) for r in mono)} junctions in "
+                      f"{secs:.4f} s | peak {peak / (n - 2):.4f} B/position | "
+                      + " | ".join(f"{s} {v:.4f} s" for s, v in stages.items()) + f" {label}")
+                runs = (
+                    (f"{SHARDS} in-process shards on cuda:0",
+                     lambda: sharded.build_junctions_sharded(seqs, k, ["cuda:0"] * SHARDS),
+                     sharded.need_bytes([x + k + 2 for x in local], n, k)),
+                    ("NCCL world size 1",
+                     lambda: multihost.build_junctions_multihost(seqs, k, device="cuda:0"),
+                     sharded.need_bytes([n + k + 2], n, k)))
+                for how, run, need in runs:
+                    what = f"{name} k={k} sharded, {how}"
+                    got, launches[f"{name} k={k} {how}"] = sharded_run(
+                        torch, metrics, kernels, mono, run, n, need, what, label)
+                    if golden is not None and how != "NCCL world size 1":
+                        res = pipeline.find_blocks(seqs, names, Config(k=k, threads=4),
+                                                   records=got)
+                        digest = hashlib.sha256(res.gff.encode()).hexdigest()
+                        check(digest == golden, f"{what}: GFF SHA-256 {digest}, not the golden")
+                        print(f"{what}: GFF through the native LCB engine equal to the golden "
+                              f"({res.blocks_found} blocks)")
+                    del got
+                del mono
+    finally:
+        dist.destroy_process_group()
+
+    fas = [os.path.join(EXAMPLES, "genome1.fa"), os.path.join(EXAMPLES, "genome2.fa")]
+    recs = fasta.read_many(fas)
+    seqs = [r.seq for r in recs]
+    res = pipeline.find_blocks(seqs, [r.name for r in recs], Config(k=15), device="cuda")
+    blocks_seqs = [[msa.copy_sequence(b, seqs) for b in grp]
+                   for _bid, grp in msa.block_copies(res.blocks)]
+    t0 = time.time()
+    one = device_poa.poa_msa_batch_tpu(blocks_seqs, device="cuda")
+    secs_one = time.time() - t0
+    metrics.counters.clear()
+    align_kernels.reset_launches()
+    t0 = time.time()
+    spread = device_poa.poa_msa_batch_tpu(blocks_seqs, devices=["cuda:0", "cuda:0"])
+    secs = time.time() - t0
+    counts = align_counts(metrics)
+    slices = int(metrics.counters["poa_device_slices"])
+    launched = dict(align_kernels.LAUNCHES)
+    native = msa.poa_msa_batch(blocks_seqs, threads=os.cpu_count() or 1)
+    check(all(m is not None for m in spread), "the POA spread fell back on an examples/ block")
+    check(spread == one, "the POA spread's MSAs differ from the one-device run's")
+    check(spread == native, "the POA spread's MSAs differ from the native engine's")
+    check(launched["poa_dp_tb"] == slices > counts["poa_dispatches"],
+          f"the POA spread: {slices} slices, {counts}, launches {launched}")
+    print(f"examples/ POA over [cuda:0, cuda:0]: MSAs of all {len(blocks_seqs)} blocks equal "
+          f"the one-device run's ({secs_one:.4f} s) and the native engine's in {secs:.4f} s | "
+          f"{slices} slices | "
+          f"launches {launched} | {counts} {label}")
+    launches["examples/ POA spread over 2 devices"] = launched
+    return launches
+
+
 def int32_peak():
     """The card's peak 32-bit integer rate, operations per second: 132 SMs x
     64 int32 lanes x the highest SM clock nvidia-smi reports."""
@@ -1506,13 +1641,15 @@ def main(argv):
     k2_time = argv == ["--k2-time"]
     k1_time = argv == ["--k1-time"]
     k4_time_args = argv[1:] if argv[:1] == ["--k4-time"] and len(argv) <= 2 else None
+    sharded_only = argv == ["--sharded"]
     if argv[:1] == ["--k3-replay"] and len(argv) == 2:
         replay_dir = argv[1]
     elif argv[:1] == ["--k3-time"] and len(argv) == 2:
         time_kinds = argv[1].split(",")
-    elif argv and not (k2_time or k1_time or k4_time_args is not None):
+    elif argv and not (k2_time or k1_time or sharded_only or k4_time_args is not None):
         print("usage: python3 chip_smoke.py [--k3-replay DIR | --k3-time KIND[,KIND...] | "
-              "--k2-time | --k1-time | --k4-time [OLDER_ROUND_APPEND.cu]]", file=sys.stderr)
+              "--k2-time | --k1-time | --k4-time [OLDER_ROUND_APPEND.cu] | --sharded]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is visible", file=sys.stderr)
@@ -1581,6 +1718,17 @@ def main(argv):
             alphabet, fasta, metrics)
     if replay_dir is not None:
         k3_replay(torch, dev, mods, replay_dir, peak_ops, tmp.name)
+        tmp.cleanup()
+        print(smi)
+        return 0
+    if sharded_only:
+        large_fa = regenerate_large(alphabet, fasta, tmp.name)
+        with open(os.path.join(EXAMPLES, "large", "sibeliaz_out", "blocks_coords.gff"),
+                  "rb") as g:
+            large_golden = hashlib.sha256(g.read()).hexdigest()
+        bench_fa = os.path.join(tmp.name, "strains.fa")
+        fasta.write_fasta(bench_fa, bench_strains(alphabet, fasta))
+        sharded_phase(torch, mods, tmp.name, large_fa, large_golden, bench_fa, label)
         tmp.cleanup()
         print(smi)
         return 0
@@ -1707,6 +1855,7 @@ def main(argv):
         os.path.join(tmp.name, "bench3", "blocks_coords.gff"), peak_ops, label)
     oracle_launches = lcb_phase(torch, mods, os.path.join(tmp.name, "maf", "tpu", "alignment.maf"),
                                 large_fa, os.path.join(tmp.name, "lcb"), label)
+    shard_paths = sharded_phase(torch, mods, tmp.name, large_fa, large_golden, bench_fa, label)
     tmp.cleanup()
 
     src = "sibeliaz_tpu_torch/csrc/"
@@ -1718,13 +1867,15 @@ def main(argv):
     # pipeline at k=25 and k=33, the strains' -k 33 -n -f 1 CLI run, the
     # two full-size inputs, the input past 2^32 positions, and the class
     # that outgrows every round (the hand-over, and the host-bucketed
-    # rounds alone), and the oracle LCB engine's CLI run (phase 11)
+    # rounds alone), and the oracle LCB engine's CLI run (phase 11), and
+    # the sharded graph stage's runs and the POA spread (phase 12)
     paths = {"examples/large -n": large_launches_by_k[25],
              "examples/large -k 33 -n": large_launches_by_k[33],
              "examples/ --align-engine tpu": maf_launches,
              "examples/large --align-engine tpu": large_launches,
              **stream_paths,
-             "examples/ --lcb-engine oracle -n": oracle_launches}
+             "examples/ --lcb-engine oracle -n": oracle_launches,
+             **shard_paths}
 
     def by_path(kernel):
         return {path: counts.get(kernel, 0) for path, counts in paths.items()}

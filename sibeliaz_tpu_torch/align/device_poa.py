@@ -360,6 +360,7 @@ def poa_msa_batch_tpu(
     device="cuda",
     band: bool = True,
     band_min: int = 256,
+    devices=None,
 ) -> List[Optional[List[bytes]]]:
     """MSA per block computed with the device DP; None for blocks that fell
     back (caller should route those to the native engine).
@@ -367,11 +368,17 @@ def poa_msa_batch_tpu(
     Blocks are bucketed by padded sequence length so a 100 bp block never
     pays a 16 kbp block's (L, n_max) pad, and each bucket's dispatches are
     capped so the per-block H + dirs scratch fits `budget_bytes` (default:
-    default_budget(device))."""
+    default_budget of the device, the least over `devices`).
+
+    devices: a list of devices (one may repeat) to spread each dispatch's
+    batch over, in contiguous slices, one K3 launch a slice on its device
+    (the counterpart of tpu_poa.py's mesh=); blocks are independent, so the
+    MSAs are the one-device run's.  None: `device` alone."""
     if not blocks_seqs:
         return []
-    device = torch.device(device)
-    budget = default_budget(device) if budget_bytes is None else budget_bytes
+    devices = [torch.device(d) for d in (devices or [device])]
+    budget = (min(default_budget(d) for d in dict.fromkeys(devices))
+              if budget_bytes is None else budget_bytes)
     t0 = time.perf_counter()
     all_states = [_BlockState([np.asarray(s, dtype=np.uint8) for s in seqs])
                   for seqs in blocks_seqs]
@@ -414,7 +421,7 @@ def poa_msa_batch_tpu(
             else:
                 keep.append(b)
         if keep:
-            _run_bucket(all_states, keep, L, n_max, budget, device,
+            _run_bucket(all_states, keep, L, n_max, budget, devices,
                         band, band_min)
     t0 = time.perf_counter()
     out = [None if st.fallback else st.graph.msa() for st in all_states]
@@ -502,9 +509,11 @@ def assemble_round(states: List[_BlockState], waiting: Sequence[int], L: int,
 
 
 def _run_bucket(states: List[_BlockState], members: List[int], L: int,
-                n_max: int, budget: int, device: torch.device,
+                n_max: int, budget: int, devices: List[torch.device],
                 band: bool, band_min: int) -> None:
-    """Drive one (L, n_max) bucket's blocks to completion."""
+    """Drive one (L, n_max) bucket's blocks to completion, each dispatch's
+    batch cut into contiguous slices over `devices` (one K3 launch a
+    non-empty slice, launched on every device before any is read back)."""
     plan = functools.partial(_plan_windows, band=band, band_min=band_min)
     while any(not states[b].done for b in members):
         active = [b for b in members if not states[b].done]
@@ -513,32 +522,36 @@ def _run_bucket(states: List[_BlockState], members: List[int], L: int,
             continue
         plans, host, W, P = rnd
         t2 = time.perf_counter()
-        seq_b, len_b, char_b, pi_b, po_b, sink_b, off_b = (
-            torch.from_numpy(a).to(device) for a in host
-        )
-        if device.type == "cuda":
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-        out_r, out_i, tcount, best_sc = kernels.poa_dp_tb(
-            seq_b, len_b, char_b, pi_b, po_b, sink_b, n_max, W, P, off_b,
-        )
-        if device.type == "cuda":
-            ev[1].record()
+        edges = np.linspace(0, len(plans), len(devices) + 1).round().astype(int)
+        launched = []
+        for dev, lo, hi in zip(devices, edges[:-1], edges[1:]):
+            if lo == hi:
+                continue
+            args = [torch.from_numpy(a[lo:hi]).to(dev) for a in host]
+            ev = None
+            if dev.type == "cuda":
+                with torch.cuda.device(dev):
+                    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                    ev[0].record()
+            out = kernels.poa_dp_tb(*args[:6], n_max, W, P, args[6])
+            if ev is not None:
+                with torch.cuda.device(dev):
+                    ev[1].record()
+            launched.append((out, ev))
+        metrics.count("poa_device_slices", len(launched))
         # fetch the traceback registers only up to the longest USED path:
         # P = L + n_max + 2 rows are allocated but paths use ~L(1+overlap)
-        tcount = tcount.cpu().numpy()
+        tcount = np.concatenate([out[2].cpu().numpy() for out, _ev in launched])
         t_used = int(tcount.max())
-        if 0 < t_used < P:
-            T_pad = min(P, _round_pow2(t_used, 128))
-            out_r = out_r[:, :T_pad]
-            out_i = out_i[:, :T_pad]
-        out_r = out_r.cpu().numpy()
-        out_i = out_i.cpu().numpy()
-        best_sc = best_sc.cpu().numpy()
+        T_pad = min(P, _round_pow2(t_used, 128)) if 0 < t_used < P else P
+        out_r = np.concatenate([out[0][:, :T_pad].cpu().numpy() for out, _ev in launched])
+        out_i = np.concatenate([out[1][:, :T_pad].cpu().numpy() for out, _ev in launched])
+        best_sc = np.concatenate([out[3].cpu().numpy() for out, _ev in launched])
         t3 = time.perf_counter()
         metrics.count("poa_dispatch_s", t3 - t2)
-        if device.type == "cuda":
-            metrics.count("poa_kernel_s", ev[0].elapsed_time(ev[1]) / 1e3)
+        if all(ev is not None for _out, ev in launched):
+            metrics.count("poa_kernel_s",
+                          sum(ev[0].elapsed_time(ev[1]) for _out, ev in launched) / 1e3)
         metrics.count("poa_dispatches")
         metrics.count("poa_blocks_dispatched", len(plans))
         for j, (b, (topo, *_rest), off, _w, S0) in enumerate(plans):

@@ -15,15 +15,18 @@ from sibeliaz_tpu_torch.align import device_poa, poa_ref
 from sibeliaz_tpu_torch.align import kernels as align_kernels
 from sibeliaz_tpu_torch.config import Config
 from sibeliaz_tpu_torch.core import alphabet
+from sibeliaz_tpu_torch.dryrun import dryrun_inputs
 from sibeliaz_tpu_torch.graph import construct, kernels, oracle, streamed
 from sibeliaz_tpu_torch.lcb.device_bundles import make_bundles_device
+from sibeliaz_tpu_torch.parallel import multihost, sharded
 from sibeliaz_tpu_torch.utils import cudabuild
 from sibeliaz_tpu_torch.utils.metrics import GLOBAL as metrics
 
 from torch_cases import (BUNDLE_CASES, CLASS_RUN_KINDS, K1_KINDS, LIMB_SPLITS, ROUND_ROW_KINDS,
-                         bundle_fields, class_case, class_runs, codes_with_n_runs,
-                         edge_band_round, k1_case, poa_case, poa_round, rand_block,
-                         related_genomes, round_rows, split_limbs, spread_slots, tied_table)
+                         SHARD_EDGE_KINDS, bundle_fields, class_case, class_runs,
+                         codes_with_n_runs, edge_band_round, k1_case, poa_case, poa_round,
+                         rand_block, related_genomes, round_rows, shard_edge_case, split_limbs,
+                         spread_slots, tied_table)
 
 pytestmark = pytest.mark.gpu
 
@@ -586,3 +589,68 @@ def test_bundles_cuda_matches_cpu(cuda, case):
         table = pipeline.build_table(seqs, names, Config(k=15), device="cpu")
     got = bundle_fields(make_bundles_device(table, "cuda"))
     assert got and got == bundle_fields(make_bundles_device(table, "cpu"))
+
+
+def assert_same_records(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert np.array_equal(a.pos, b.pos) and np.array_equal(a.ids, b.ids)
+
+
+@pytest.mark.parametrize("k", [15, 33])
+@pytest.mark.parametrize("kind", [*SHARD_EDGE_KINDS, "related"])
+def test_sharded_cuda_matches_cpu(cuda, kind, k):
+    """The sharded graph stage with every shard on cuda:0 (one shard a list
+    entry): the monolithic stage's records on the CPU, through K1 and K2."""
+    if kind == "related":
+        seqs, n = related_genomes(5, n_genomes=3, n_chr=2, length=1500, rearrange=True)[0], 4
+    else:
+        seqs, n, _junction = shard_edge_case(kind)
+    before = dict(kernels.LAUNCHES)
+    got = sharded.build_junctions_sharded(seqs, k, ["cuda:0"] * n)
+    assert kernels.LAUNCHES["front_half"] == before["front_half"] + n
+    # K2 launches on each owner that receives rows (none where no window fits)
+    assert (kernels.LAUNCHES["class_analysis"] > before["class_analysis"]) == (
+        max(len(s) for s in seqs) >= k)
+    assert_same_records(got, construct.build_junctions(seqs, k, "cpu"))
+
+
+def test_sharded_nccl_world_size_1(cuda, tmp_path):
+    """build_junctions_multihost over an NCCL group of one rank (its own
+    file store): the exchange and the gather through NCCL, the monolithic
+    records at k=15 and 33."""
+    import torch.distributed as dist
+
+    seqs = related_genomes(5, n_genomes=3, n_chr=2, length=1500, rearrange=True)[0]
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            world_size=1, rank=0)
+    try:
+        for k in (15, 33):
+            got = multihost.build_junctions_multihost(seqs, k, device="cuda:0")
+            assert_same_records(got, construct.build_junctions(seqs, k, "cpu"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_poa_spread_cuda_matches_one_device(cuda):
+    """The dry run's seeded blocks, each dispatch cut over [cuda:0, cuda:0]:
+    the one-device run's MSAs and poa_ref's."""
+    _seqs, blocks = dryrun_inputs(4)
+    before = align_kernels.LAUNCHES["poa_dp_tb"]
+    one = device_poa.poa_msa_batch_tpu(blocks, device="cuda")
+    mid = align_kernels.LAUNCHES["poa_dp_tb"]
+    spread = device_poa.poa_msa_batch_tpu(blocks, devices=["cuda:0", "cuda:0"])
+    assert align_kernels.LAUNCHES["poa_dp_tb"] - mid == 2 * (mid - before)
+    assert spread == one
+    assert all(m == poa_ref.poa_msa(rows) for rows, m in zip(blocks, spread))
+
+
+def test_sharded_on_two_cards(cuda):
+    """Shards on cuda:0 and cuda:1 (the rows cross by peer copies): the
+    monolithic records."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    seqs = related_genomes(5, n_genomes=3, n_chr=2, length=1500, rearrange=True)[0]
+    for devices in (["cuda:0", "cuda:1"], ["cuda:0", "cuda:1"] * 2):
+        assert_same_records(sharded.build_junctions_sharded(seqs, 15, devices),
+                            construct.build_junctions(seqs, 15, "cpu"))

@@ -1,7 +1,8 @@
 """The port runs where JAX is absent: it imports neither jax nor the
 sibeliaz_tpu package, and its CLI (native and oracle LCB engines)
-reproduces the golden GFF and MAF, and its tools round-trip the golden
-MAF, in a process in which both imports fail."""
+reproduces the golden GFF and MAF, its tools round-trip the golden MAF,
+and its multi-device dry run passes its graph and POA stages, in a
+process in which both imports fail."""
 
 import ast
 import glob
@@ -86,6 +87,34 @@ def test_tools_run_without_jax(tmp_path):
     assert glued == want
 
 
+_DRYRUN_CHILD = """
+import runpy, sys
+sys.modules["jax"] = None
+sys.modules["sibeliaz_tpu"] = None
+sys.argv = ["sibeliaz_tpu_torch.dryrun", *sys.argv[1:]]
+try:
+    runpy.run_module("sibeliaz_tpu_torch.dryrun", run_name="__main__")
+finally:
+    assert sys.modules["jax"] is None and sys.modules["sibeliaz_tpu"] is None
+"""
+
+
+def test_dryrun_runs_without_jax(tmp_path):
+    """python -m sibeliaz_tpu_torch.dryrun --devices cpu,cpu where jax and
+    sibeliaz_tpu fail to import: stages 1 and 3 pass, stage 2 waits on A9."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", _DRYRUN_CHILD, "--devices", "cpu,cpu"],
+        cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    lines = proc.stdout.splitlines()
+    assert any(line.startswith("[dryrun] PASS stage1") for line in lines), proc.stdout
+    assert any(line.startswith("[dryrun] PASS stage3") for line in lines), proc.stdout
+    assert any(line.startswith("[dryrun] NOT PORTED stage2") and "A9" in line
+               for line in lines), proc.stdout
+
+
 def test_chip_smoke_refuses_without_card(tmp_path):
     import torch
 
@@ -105,7 +134,8 @@ def test_no_module_imports_jax_or_the_jax_package():
     files.append(os.path.join(REPO, "chip_smoke.py"))
     rel = {os.path.relpath(f, REPO) for f in files}
     for module in ("tools.py", "lcb/oracle.py", "lcb/device_bundles.py", "postprocess/maf.py",
-                   "postprocess/gfa.py", "postprocess/xmfa.py", "postprocess/synteny.py"):
+                   "postprocess/gfa.py", "postprocess/xmfa.py", "postprocess/synteny.py",
+                   "parallel/sharded.py", "parallel/multihost.py", "dryrun.py"):
         assert os.path.join("sibeliaz_tpu_torch", module) in rel
     for path in files:
         with open(path) as f:

@@ -544,3 +544,67 @@ def tied_table(seed, n_chr=2, length=2000, n_vertices=40, k=15):
     table.occ_ch[:] = np.where(second, ord("C"), ord("A"))
     table.occ_revch[:] = np.where(second, ord("T"), ord("G"))
     return table
+
+
+SHARD_EDGE_KINDS = ("n_on_edges", "separator_on_edges", "edge_before_junction",
+                    "edge_on_junction", "edge_after_junction", "class_on_every_shard",
+                    "poly_a_skew", "shorter_than_k", "more_shards_than_positions",
+                    "all_n_shards")
+
+
+def shard_edge_case(kind, seed=0):
+    """(seqs as ASCII uint8 arrays, n_shards, junction) laid out against the
+    sharded graph stage's shard edges (parallel/sharded.shard_bounds: shard
+    s of n starts at s * n_total // n in 'N' + seq_0 + 'N' + ... + 'N', so
+    chromosome position p of one chromosome is global position p + 1).
+    `junction` is a chromosome-0 position that must be a junction, or None.
+
+    n_on_edges: 'N' at the first shard edge and one byte either side of the
+    others; separator_on_edges: chromosome separators on two edges;
+    edge_before/on/after_junction: a 64 bp unit copied twice into random
+    flanks whose last bases differ, so that the window at the second copy's
+    start is a junction, with a shard edge one position before it, on it,
+    or one after it; class_on_every_shard: the unit copied
+    into each quarter (the last copy reverse-complemented); poly_a_skew: a
+    3 kbp poly-A and a (CATTC)n array, so that one owner gets most rows;
+    shorter_than_k: 8 shards of ~5 positions; more_shards_than_positions:
+    8 shards of 7 positions in all; all_n_shards: two whole shards of
+    'N'."""
+    rng = np.random.default_rng(seed)
+
+    def rand(n):
+        return np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=n)]
+
+    if kind == "n_on_edges":  # n_total 401: edges 100, 200, 300
+        seq = rand(399)
+        seq[[99, 198, 300]] = ord("N")
+        return [seq], 4, None
+    if kind == "separator_on_edges":  # separators at 100, 200 (and 400)
+        return [rand(99), rand(99), rand(199)], 4, None
+    unit = rand(64)
+    if kind.startswith("edge_"):
+        d = {"edge_before_junction": -1, "edge_on_junction": 0, "edge_after_junction": 1}[kind]
+        r1, r2 = rand(200), rand(200)
+        r1[-1], r2[-1] = ord("A"), ord("C")  # two left extensions of the unit's first window
+        u1 = len(r1) + len(unit) + len(r2)  # the second copy's start
+        # two shards: the edge n_total // 2 at global u1 + 1 + d
+        seq = np.concatenate([r1, unit, r2, unit, rand(u1 + 2 * d - len(unit))])
+        return [seq], 2, u1
+    if kind == "class_on_every_shard":
+        rc = np.frombuffer(b"TGCA", np.uint8)[
+            np.searchsorted(np.frombuffer(b"ACGT", np.uint8), unit)][::-1]
+        parts = []
+        for q in range(4):
+            parts += [rand(200 + 7 * q), unit if q < 3 else rc, rand(236 - 7 * q)]
+        return [np.concatenate(parts)], 4, None
+    if kind == "poly_a_skew":
+        return [np.concatenate([rand(500), np.full(3000, ord("A"), np.uint8), rand(500),
+                                np.frombuffer(b"CATTC" * 300, np.uint8), rand(300)])], 4, None
+    if kind == "shorter_than_k":
+        base = rand(20)
+        return [np.concatenate([base, base[:14], rand(6)])], 8, None
+    if kind == "more_shards_than_positions":
+        return [rand(5)], 8, None
+    if kind == "all_n_shards":  # n_total 1202: shards [300, 601), [601, 901) all N
+        return [np.concatenate([rand(250), np.full(700, ord("N"), np.uint8), rand(250)])], 4, None
+    raise ValueError(kind)
