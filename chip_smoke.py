@@ -7,6 +7,7 @@
     python3 chip_smoke.py --k1-time          # K1's wrapper alone, see k1_vs_plain
     python3 chip_smoke.py --k4-time [OLDER.cu]  # K4's wrapper (and an older one), see k4_time
     python3 chip_smoke.py --sharded          # phase 12 alone, see sharded_phase
+    python3 chip_smoke.py --fused            # phase 13 alone, see fused_phase
 
 Phases, in order; any failure raises and the exit code is non-zero:
   1. device: the card's name and power limit, and the peak rates the
@@ -95,7 +96,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
      native LCB engine from the sharded records equal to the goldens; the
      device POA engine with each dispatch spread over ["cuda:0",
      "cuda:0"] on examples/' blocks, MSAs equal to its one-device run's and
-     the native engine's.  `--sharded` runs phases 1, 2 and 12 alone.
+     the native engine's.  `--sharded` runs phases 1, 2 and 12 alone;
+ 13. the fused LCB engine (lcb/fused.py): (a) the CLI with --lcb-engine
+     tpu-fused -n on examples/ (k=15), byte-equal to the golden GFF, a
+     main-path run whose K1 and K2 launches count (once each), with its
+     lcb_engine seconds beside the native engine's, its outer steps, host
+     syncs per step and counters; (b) examples/' first phase (256 bundles)
+     on the card equal to the same on the CPU and to eng.process, bundle by
+     bundle; (c) examples/large at k=25, its first four phases (1,024
+     bundles) on the card through LcbEngine.run's commit loop, each bundle
+     equal to eng.process, with the seconds of each phase and the
+     extrapolated full run.  `--fused` runs phases 1, 2 and 13 alone.
 The last two lines are a JSON summary of the kernels (time, plain time,
 bound, launches per main path; K1's and K2's "ms" are their one-limb
 instances' and "by_limbs" holds both instances'; K4's "ms" is its shape on
@@ -158,6 +169,10 @@ SATELLITE_UNIT, SATELLITE_BP, SATELLITE_ROUNDS = b"CATTC", 24_000_000, 8
 # phase 12: the shards of the in-process sharded runs (all on cuda:0), the
 # chromosome-scale pair's bases per copy, and its seed
 SHARDS, PAIR_256M, PAIR_256M_SEED = 4, 256_000_000, 12
+
+
+# phase 13c: the phases of examples/large run on the card
+FUSED_LARGE_PHASES = 4
 
 
 # the graph kernels of the monolithic stage's path (K4 runs on the streamed
@@ -1572,6 +1587,120 @@ def sharded_phase(torch, mods, tmp_dir, large_fa, large_golden, bench_fa, label)
     return launches
 
 
+def fused_counters(metrics):
+    """The fused LCB engine's counters of the last run, as ints or seconds."""
+    return {k: (round(v, 4) if k.endswith("_s") else int(v))
+            for k, v in sorted(metrics.counters.items()) if k.startswith("fused_")}
+
+
+def instance_keys(results):
+    return [[(x.c, x.s, x.fi, x.bi, x.fdist, x.bdist, x.cmp, x.ffin, x.bfin) for x in insts]
+            for insts in results]
+
+
+def fused_phase(torch, mods, tmp_dir, large_fa, label):
+    """Phase 13: (a) the CLI with --lcb-engine tpu-fused -n on examples/
+    (k=15), byte-equal to the golden GFF, beside the native engine's run;
+    (b) examples/' first phase on the card, on the CPU and through
+    eng.process, bundle by bundle; (c) examples/large at k=25, the first
+    FUSED_LARGE_PHASES phases on the card through LcbEngine.run's commit
+    loop, each bundle equal to eng.process.  Returns the launches of the
+    CLI run."""
+    (_cases, cli, pipeline, _device_poa, _msa, _poa_ref, kernels, align_kernels, Config,
+     _alphabet, fasta, metrics) = mods
+    from sibeliaz_tpu_torch.lcb import fused
+    from sibeliaz_tpu_torch.lcb.device_bundles import make_bundles_device
+    from sibeliaz_tpu_torch.lcb.oracle import LcbEngine
+
+    fas = [os.path.join(EXAMPLES, "genome1.fa"), os.path.join(EXAMPLES, "genome2.fa")]
+    with open(os.path.join(EXAMPLES, "sibeliaz_out", "blocks_coords.gff")) as f:
+        golden = f.read()
+
+    phase(f"13a --lcb-engine tpu-fused through the CLI, examples/ k=15 {label}")
+    lcb_s = {}
+    for engine in ("native", "tpu-fused"):
+        metrics.timings.clear()
+        metrics.counters.clear()
+        kernels.reset_launches()
+        align_kernels.reset_launches()
+        out = os.path.join(tmp_dir, f"fused_cli_{engine}")
+        wall = run_cli(cli, ["-k", "15", "-n", "--lcb-engine", engine, "-o", out, *fas])
+        with open(os.path.join(out, "blocks_coords.gff")) as f:
+            check(f.read() == golden, f"examples/ GFF of --lcb-engine {engine} differs from the "
+                  "golden")
+        lcb_s[engine] = {t["stage"]: t["seconds"] for t in metrics.timings}["lcb_engine"]
+    launches = {**kernels.LAUNCHES, **align_kernels.LAUNCHES}
+    counters = fused_counters(metrics)
+    check(launches["front_half"] == 1 and launches["class_analysis"] == 1
+          and launches["round_append"] == 0 and launches["poa_dp_tb"] == 0,
+          f"launches of the --lcb-engine tpu-fused -n run: {launches}")
+    check(counters.get("fused_phases", 0) > 0, f"the fused engine did not run: {counters}")
+    steps = sum(v for k, v in counters.items() if k.startswith("fused_steps_tier"))
+    print(f"examples/ --lcb-engine tpu-fused -n: GFF byte-equal to the golden | lcb_engine "
+          f"{lcb_s['tpu-fused']:.4f} s (native {lcb_s['native']:.4f} s) | CLI wall {wall:.4f} s "
+          f"| outer steps {steps} | host syncs per step "
+          f"{counters['fused_host_syncs'] / max(1, steps):.2f} | {counters} | launches "
+          f"{launches} {label}")
+
+    phase(f"13b examples/' first phase: the card, the CPU and eng.process {label}")
+    recs = fasta.read_many(fas)
+    seqs, names = [r.seq for r in recs], [r.name for r in recs]
+    cfg = Config(k=15)
+    table = pipeline.build_table(seqs, names, cfg, device="cuda")
+    eng = LcbEngine(table, cfg.min_block_size, cfg.max_branch_size, cfg.flanking,
+                    cfg.looking_depth)
+    bundles = make_bundles_device(table, "cuda")[:256]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        metrics.counters.clear()
+        t0 = time.time()
+        runs[dev] = instance_keys(fused.process_phase_fused(eng, bundles, device=dev))
+        print(f"examples/ phase 1 on {dev}: {time.time() - t0:.4f} s | "
+              f"{fused_counters(metrics)} {label}")
+    t0 = time.time()
+    oracle = instance_keys(eng.process(b) for b in bundles)
+    check(runs["cuda"] == runs["cpu"], "examples/ phase 1: the card's instances differ from "
+          "the CPU's")
+    check(runs["cuda"] == oracle, "examples/ phase 1: the card's instances differ from "
+          "eng.process's")
+    print(f"examples/ phase 1: {len(bundles)} bundles equal on the card, the CPU and "
+          f"eng.process ({time.time() - t0:.4f} s), {sum(len(r) > 1 for r in oracle)} with "
+          f"two instances or more")
+
+    phase(f"13c examples/large k=25, the first {FUSED_LARGE_PHASES} phases on the card {label}")
+    recs = fasta.read_many(large_fa)
+    seqs, names = [r.seq for r in recs], [r.name for r in recs]
+    cfg = Config(k=25)
+    table = pipeline.build_table(seqs, names, cfg, device="cuda")
+    eng = LcbEngine(table, cfg.min_block_size, cfg.max_branch_size, cfg.flanking,
+                    cfg.looking_depth)
+    bundles = make_bundles_device(table, "cuda")
+    per_phase = []
+
+    def checked_phase(eng, batch):
+        metrics.counters.clear()
+        t0 = time.time()
+        got = fused.process_phase_fused(eng, batch, device="cuda")
+        secs = time.time() - t0
+        counters = fused_counters(metrics)
+        t0 = time.time()
+        want = [eng.process(b) for b in batch]
+        check(instance_keys(got) == instance_keys(want),
+              f"examples/large phase {len(per_phase) + 1}: instances differ from eng.process's")
+        per_phase.append(secs)
+        print(f"examples/large phase {len(per_phase)}: {len(batch)} bundles equal to "
+              f"eng.process ({time.time() - t0:.4f} s) | card {secs:.4f} s | {counters} {label}")
+        return got
+
+    n_phases = -(-len(bundles) // 256)
+    eng.run(process_batch_fn=checked_phase, bundles=bundles[:256 * FUSED_LARGE_PHASES])
+    mean = sum(per_phase) / len(per_phase)
+    print(f"examples/large k=25: {len(bundles)} bundles, {n_phases} phases | the first "
+          f"{len(per_phase)} on the card {sum(per_phase):.4f} s ({mean:.4f} s a phase) | "
+          f"extrapolated full run {mean * n_phases:.1f} s {label}")
+    return launches
+
+
 def int32_peak():
     """The card's peak 32-bit integer rate, operations per second: 132 SMs x
     64 int32 lanes x the highest SM clock nvidia-smi reports."""
@@ -1642,13 +1771,16 @@ def main(argv):
     k1_time = argv == ["--k1-time"]
     k4_time_args = argv[1:] if argv[:1] == ["--k4-time"] and len(argv) <= 2 else None
     sharded_only = argv == ["--sharded"]
+    fused_only = argv == ["--fused"]
     if argv[:1] == ["--k3-replay"] and len(argv) == 2:
         replay_dir = argv[1]
     elif argv[:1] == ["--k3-time"] and len(argv) == 2:
         time_kinds = argv[1].split(",")
-    elif argv and not (k2_time or k1_time or sharded_only or k4_time_args is not None):
+    elif argv and not (k2_time or k1_time or sharded_only or fused_only
+                       or k4_time_args is not None):
         print("usage: python3 chip_smoke.py [--k3-replay DIR | --k3-time KIND[,KIND...] | "
-              "--k2-time | --k1-time | --k4-time [OLDER_ROUND_APPEND.cu] | --sharded]",
+              "--k2-time | --k1-time | --k4-time [OLDER_ROUND_APPEND.cu] | --sharded | "
+              "--fused]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -1729,6 +1861,11 @@ def main(argv):
         bench_fa = os.path.join(tmp.name, "strains.fa")
         fasta.write_fasta(bench_fa, bench_strains(alphabet, fasta))
         sharded_phase(torch, mods, tmp.name, large_fa, large_golden, bench_fa, label)
+        tmp.cleanup()
+        print(smi)
+        return 0
+    if fused_only:
+        fused_phase(torch, mods, tmp.name, regenerate_large(alphabet, fasta, tmp.name), label)
         tmp.cleanup()
         print(smi)
         return 0
@@ -1856,6 +1993,7 @@ def main(argv):
     oracle_launches = lcb_phase(torch, mods, os.path.join(tmp.name, "maf", "tpu", "alignment.maf"),
                                 large_fa, os.path.join(tmp.name, "lcb"), label)
     shard_paths = sharded_phase(torch, mods, tmp.name, large_fa, large_golden, bench_fa, label)
+    fused_launches = fused_phase(torch, mods, tmp.name, large_fa, label)
     tmp.cleanup()
 
     src = "sibeliaz_tpu_torch/csrc/"
@@ -1868,14 +2006,16 @@ def main(argv):
     # two full-size inputs, the input past 2^32 positions, and the class
     # that outgrows every round (the hand-over, and the host-bucketed
     # rounds alone), and the oracle LCB engine's CLI run (phase 11), and
-    # the sharded graph stage's runs and the POA spread (phase 12)
+    # the sharded graph stage's runs and the POA spread (phase 12), and the
+    # tpu-fused LCB engine's CLI run (phase 13)
     paths = {"examples/large -n": large_launches_by_k[25],
              "examples/large -k 33 -n": large_launches_by_k[33],
              "examples/ --align-engine tpu": maf_launches,
              "examples/large --align-engine tpu": large_launches,
              **stream_paths,
              "examples/ --lcb-engine oracle -n": oracle_launches,
-             **shard_paths}
+             **shard_paths,
+             "examples/ --lcb-engine tpu-fused -n": fused_launches}
 
     def by_path(kernel):
         return {path: counts.get(kernel, 0) for path, counts in paths.items()}

@@ -8,13 +8,14 @@ the LCB stage's executable specification, in Python), and then, unless
 `-n` is given, the alignment stage -> MAF with either POA engine:
 `--align-engine native` (host C++) or `--align-engine tpu` (the batched
 device DP on the card; the name is the JAX package's, so that the same
-command lines run on both).  An input whose monolithic graph stage does not
+command lines run on both).  `--lcb-engine tpu-fused` runs the fused LCB
+state machine on the card (under `--device cpu`, its torch ops on the
+host): the same GFF as the native engine, its vote memory bounded by `-f`.  An input whose monolithic graph stage does not
 fit the card (or the `-f` budget), or that has 2^31 positions or more, runs
 the streamed graph stage, in rounds resident on the card, with the same
 records, up to 2^51 positions; a vertex class that outgrows every round
 finishes in host-bucketed rounds, as in the JAX package.  It refuses, and
 never falls back, for: no CUDA card under the default `--device cuda`;
-`--lcb-engine tpu-fused` (the fused device engine, ROADMAP.md item A9) and
 `--lcb-engine tpu` (the resident device engine, under ROADMAP.md's "Do not
 port").  k is odd, 3 to 61, as in the JAX package.  The post-processing
 tools run as `python -m sibeliaz_tpu_torch.tools`.
@@ -41,8 +42,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
         "-f", type=int, default=0,
         help="device-memory budget in GB for the graph stage (an input "
         "whose monolithic stage does not fit it runs the streamed stage, in "
-        "rounds) and for the device POA engine's scratch (default: the "
-        "card's free memory; half of it for the POA)",
+        "rounds), the tpu-fused engine's votes and the device POA engine's "
+        "scratch (default: the card's free memory; half of it for the POA)",
     )
     p.add_argument("-o", dest="outdir", default="./sibeliaz_out", help="output directory")
     p.add_argument("-n", dest="noalign", action="store_true", help="skip the alignment stage")
@@ -68,13 +69,13 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument(
         "--lcb-engine", choices=("native", "oracle", "tpu", "tpu-fused"),
         default="native",
-        help="LCB exploration engine (the port runs native and oracle; "
-        "tpu and tpu-fused are refused)",
+        help="LCB exploration engine (the port runs native, oracle and "
+        "tpu-fused, the fused state machine on --device; tpu is refused)",
     )
     p.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
-        help="device of the graph stage and the device POA engine; cpu "
-        "runs the kernels' plain PyTorch versions",
+        help="device of the graph stage, the tpu-fused LCB engine and the "
+        "device POA engine; cpu runs the kernels' plain PyTorch versions",
     )
     p.add_argument("fastas", nargs="+", help="FASTA files with genomes")
 

@@ -5,8 +5,9 @@ Stages: graph construction (device) -> junction table -> LCB engine (the
 native C++ engine, or the host oracle engine `lcb/oracle.py`) ->
 trim/renumber -> GFF; the CLI then runs the alignment stage (align/msa.py:
 POA per block -> MAF).  Of the JAX package's device LCB engines, the fused
-engine is not ported yet (ROADMAP.md item A9) and the resident one is not
-to be ported (ROADMAP.md, "Do not port")."""
+one runs on the run's device (`lcb/fused.py`, `--lcb-engine tpu-fused`,
+with its vote budget from `-f`) and the resident one is not to be ported
+(ROADMAP.md, "Do not port")."""
 
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from sibeliaz_tpu_torch.io.dbg import JunctionChr
 from sibeliaz_tpu_torch.junctions.table import JunctionTable
 from sibeliaz_tpu_torch.lcb.blocks import Block
 from sibeliaz_tpu_torch.lcb.engine import run_native
+from sibeliaz_tpu_torch.lcb.fused import run_fused, vote_budget_from_bytes
 from sibeliaz_tpu_torch.lcb.oracle import LcbEngine
 from sibeliaz_tpu_torch.output import gff as gff_mod
 from sibeliaz_tpu_torch.output import trim as trim_mod
@@ -54,16 +56,15 @@ def build_table(
 
 
 def check_engine(engine: str) -> None:
-    if engine in ("native", "oracle"):
+    if engine in ("native", "oracle", "tpu-fused"):
         return
     why = {
-        "tpu-fused": "the fused device engine is ROADMAP.md item A9",
         "tpu": "the resident device engine (run_resident) is listed under "
         'ROADMAP.md\'s "Do not port"',
     }.get(engine, "there is no such engine")
     raise NotImplementedError(
-        f"--lcb-engine {engine}: the port runs the native and oracle LCB "
-        f"engines; {why}"
+        f"--lcb-engine {engine}: the port runs the native, oracle and "
+        f"tpu-fused LCB engines; {why}"
     )
 
 
@@ -81,14 +82,20 @@ def find_blocks(
     metrics.set("vertices", table.n_vertices)
     metrics.set("junction_records", int(sum(len(p) for p in table.jpos)))
     with metrics.stage("lcb_engine", engine=engine):
-        if engine == "oracle":
-            raw = LcbEngine(
+        if engine in ("oracle", "tpu-fused"):
+            eng = LcbEngine(
                 table,
                 min_block_size=cfg.min_block_size,
                 max_branch_size=cfg.max_branch_size,
                 max_flanking_size=cfg.flanking,
                 looking_depth=cfg.looking_depth,
-            ).run()
+            )
+            if engine == "oracle":
+                raw = eng.run()
+            else:
+                vb = (vote_budget_from_bytes(cfg.memory_budget_bytes)
+                      if cfg.memory_budget_bytes else None)
+                raw = run_fused(eng, device=device, vote_budget=vb)
         else:
             raw = run_native(
                 table,

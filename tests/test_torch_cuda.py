@@ -26,7 +26,7 @@ from torch_cases import (BUNDLE_CASES, CLASS_RUN_KINDS, K1_KINDS, LIMB_SPLITS, R
                          SHARD_EDGE_KINDS, bundle_fields, class_case, class_runs,
                          codes_with_n_runs, edge_band_round, k1_case, poa_case, poa_round,
                          rand_block, related_genomes, round_rows, shard_edge_case, split_limbs,
-                         spread_slots, tied_table)
+                         spread_slots, state_diff, tied_table)
 
 pytestmark = pytest.mark.gpu
 
@@ -654,3 +654,74 @@ def test_sharded_on_two_cards(cuda):
     for devices in (["cuda:0", "cuda:1"], ["cuda:0", "cuda:1"] * 2):
         assert_same_records(sharded.build_junctions_sharded(seqs, 15, devices),
                             construct.build_junctions(seqs, 15, "cpu"))
+
+
+def fused_case(k=15):
+    from sibeliaz_tpu_torch.lcb.oracle import LcbEngine
+
+    seqs, names = related_genomes(520, length=1200, mut=0.03, rearrange=True)
+    cfg = Config(k=k)
+    table = pipeline.build_table(seqs, names, cfg, device="cpu")
+    return LcbEngine(table, cfg.min_block_size, cfg.max_branch_size, cfg.flanking)
+
+
+@pytest.mark.parametrize("tier", [(64, 32, 64, 128), (512, 16, 512, 1024)])
+def test_fused_carry_cuda_matches_cpu(cuda, tier):
+    """The fused state machine from the same seeded lanes run to the
+    phase's end on the card and on the CPU: every field of the carry
+    equal, at the narrow and the wide tier."""
+    from sibeliaz_tpu_torch.lcb import fused, resident
+
+    eng = fused_case()
+    bundles = make_bundles_device(eng.t, "cpu")[:32]
+    CAP, W, IC, PC = tier
+    carries = []
+    for dev in ("cuda", "cpu"):
+        tb = resident._device_tables(eng, dev)
+        ln, _, ovf = resident._seed_lanes_device(tb, bundles, 32, IC, PC)
+        zero = torch.zeros(32, dtype=torch.int64, device=dev)
+        st = resident.ResidentState(ln, ln, ln, zero, zero.bool())
+        active = (torch.arange(32, device=dev) < len(bundles)) & ~ovf
+        carry, reading = fused._phase_fused_seg(
+            CAP, W, IC >= fused.I_CAP, tb, fused._init_carry(st, active, 32), eng.depth, eng.m,
+            eng.b, eng.flank, eng.b * 2, fused.MAX_STEPS)
+        assert reading[0] == 0 and carry["steps"] > 20
+        carries.append(carry)
+    assert not state_diff(*carries)
+
+
+@pytest.mark.parametrize("patch", [{}, {"SMALL_CAP": 3, "VOTE_BUDGET": 1 << 14},
+                                   {"COMPACT_MIN": 8}])
+def test_fused_phase_cuda_matches_cpu(cuda, monkeypatch, patch):
+    """process_phase_fused on the card: the CPU's instance lists, lane by
+    lane, and eng.process's; with a narrow tier that overflows (the lanes
+    escalate to the wide tier) and with compaction."""
+    from sibeliaz_tpu_torch.lcb import fused
+
+    for name, value in patch.items():
+        monkeypatch.setattr(fused, name, value)
+    eng = fused_case()
+    bundles = make_bundles_device(eng.t, "cpu")[:32]
+    metrics.counters.clear()
+    got = fused.process_phase_fused(eng, bundles, device="cuda")
+    if "SMALL_CAP" in patch:
+        assert metrics.counters["fused_lanes_tier1"] > 0
+    want = fused.process_phase_fused(eng, bundles, device="cpu")
+
+    def keys(results):
+        return [[(x.c, x.s, x.fi, x.bi, x.fdist, x.bdist, x.cmp, x.ffin, x.bfin) for x in insts]
+                for insts in results]
+
+    assert keys(got) == keys(want) == keys(eng.process(b) for b in bundles)
+    assert any(got)
+
+
+@pytest.mark.parametrize("k", [15, 33])
+def test_run_fused_gff_cuda_matches_cpu(cuda, k):
+    """--lcb-engine tpu-fused through the pipeline on the card: the CPU
+    run's GFF and the native engine's."""
+    seqs, names = related_genomes(521, length=1200, mut=0.03, rearrange=True)
+    got = pipeline.find_blocks(seqs, names, Config(k=k), engine="tpu-fused", device="cuda")
+    cpu = pipeline.find_blocks(seqs, names, Config(k=k), engine="tpu-fused", device="cpu")
+    native = pipeline.find_blocks(seqs, names, Config(k=k), device="cpu")
+    assert got.gff == cpu.gff == native.gff and got.blocks_found > 0

@@ -1,6 +1,7 @@
 """The port runs where JAX is absent: it imports neither jax nor the
 sibeliaz_tpu package, and its CLI (native and oracle LCB engines)
-reproduces the golden GFF and MAF, its tools round-trip the golden MAF,
+reproduces the golden GFF and MAF (the tpu-fused engine the native
+engine's GFF on a small input), its tools round-trip the golden MAF,
 and its multi-device dry run passes its graph and POA stages, in a
 process in which both imports fail."""
 
@@ -62,6 +63,31 @@ def test_cli_runs_without_jax(tmp_path, flags):
         golden = os.path.join(EXAMPLES, "sibeliaz_out", "alignment.maf")
         drop = lambda t: [l for l in t.splitlines() if not l.startswith("# cmd=")]  # noqa: E731
         assert drop((out / "alignment.maf").read_text()) == drop(open(golden).read())
+
+
+def test_tpu_fused_runs_without_jax(tmp_path):
+    """`--lcb-engine tpu-fused --device cpu -n` in a process where jax and
+    sibeliaz_tpu fail to import writes the native engine's GFF."""
+    import sys as _sys
+
+    _sys.path.insert(0, os.path.join(REPO, "tests"))
+    from sibeliaz_tpu_torch.io import fasta
+    from torch_cases import related_genomes
+
+    seqs, names = related_genomes(521, length=1200, mut=0.03, rearrange=True)
+    fa = str(tmp_path / "genomes.fa")
+    fasta.write_fasta(fa, [fasta.FastaRecord(n, s) for n, s in zip(names, seqs)])
+    env = dict(os.environ, PYTHONPATH=REPO)
+    for engine in ("tpu-fused", "native"):
+        proc = subprocess.run(
+            [sys.executable, "-c", _CHILD, "-k", "15", "-n", "--device", "cpu",
+             "--lcb-engine", engine, "-o", str(tmp_path / engine), fa],
+            cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=300,
+        )
+        assert proc.returncode == 0, proc.stderr
+    want = (tmp_path / "native" / "blocks_coords.gff").read_bytes()
+    assert (tmp_path / "tpu-fused" / "blocks_coords.gff").read_bytes() == want
+    assert want.count(b"\n") > 3
 
 
 def test_tools_run_without_jax(tmp_path):
@@ -135,7 +161,8 @@ def test_no_module_imports_jax_or_the_jax_package():
     rel = {os.path.relpath(f, REPO) for f in files}
     for module in ("tools.py", "lcb/oracle.py", "lcb/device_bundles.py", "postprocess/maf.py",
                    "postprocess/gfa.py", "postprocess/xmfa.py", "postprocess/synteny.py",
-                   "parallel/sharded.py", "parallel/multihost.py", "dryrun.py"):
+                   "parallel/sharded.py", "parallel/multihost.py", "dryrun.py",
+                   "lcb/batched_push_device.py", "lcb/resident.py", "lcb/fused.py"):
         assert os.path.join("sibeliaz_tpu_torch", module) in rel
     for path in files:
         with open(path) as f:

@@ -121,7 +121,6 @@ def test_cli_help(capsys):
     "extra,message",
     [
         (["-n", "--lcb-engine", "tpu"], '"Do not port"'),
-        (["-n", "--lcb-engine", "tpu-fused"], "item A9"),
     ],
 )
 def test_cli_refuses(tmp_path, extra, message):

@@ -608,3 +608,54 @@ def shard_edge_case(kind, seed=0):
     if kind == "all_n_shards":  # n_total 1202: shards [300, 601), [601, 901) all N
         return [np.concatenate([rand(250), np.full(700, ord("N"), np.uint8), rand(250)])], 4, None
     raise ValueError(kind)
+
+
+def repeat_genomes(seed, copies, unit=100, spacer=40, n_genomes=2):
+    """Genomes that share `copies` exact copies of one random unit, each
+    copy between random spacers: the unit's first and last k-mers are
+    junctions with `copies` occurrences, one bundle each (`copies` past the
+    fused engine's slab widths sends the bundle to a wider slab, or past
+    I_CAP to the host oracle).  The copies are spread over the genomes, so
+    the bundle's instances span chromosomes."""
+    from sibeliaz_tpu_torch.core import alphabet
+
+    rng = np.random.default_rng(seed)
+
+    def rand(n):
+        return alphabet.decode(rng.integers(0, 4, size=n).astype(np.uint8))
+
+    motif = rand(unit)
+    seqs = []
+    for g in range(n_genomes):
+        parts = [rand(spacer)]
+        for _ in range(copies // n_genomes + (g < copies % n_genomes)):
+            parts += [motif, rand(spacer)]
+        seqs.append(np.concatenate(parts))
+    return seqs, [f"Genome{g + 1}" for g in range(n_genomes)]
+
+
+def state_arrays(x, prefix=""):
+    """Any nesting of dicts and dataclasses over arrays (torch tensors,
+    numpy or JAX arrays, ints) as {dotted path: numpy array}: the fused
+    LCB engine's tables, lanes and carry, from either package."""
+    import dataclasses
+
+    if isinstance(x, dict):
+        items = x.items()
+    elif dataclasses.is_dataclass(x):
+        items = ((f.name, getattr(x, f.name)) for f in dataclasses.fields(x))
+    else:
+        if hasattr(x, "detach"):
+            x = x.detach().cpu()
+        return {prefix: np.asarray(x)}
+    out = {}
+    for key, value in items:
+        out.update(state_arrays(value, f"{prefix}.{key}" if prefix else key))
+    return out
+
+
+def state_diff(a, b):
+    """The paths at which two state_arrays differ (or exist in one only)."""
+    fa, fb = state_arrays(a), state_arrays(b)
+    return sorted(set(fa) ^ set(fb)) + [
+        key for key in fa if key in fb and not np.array_equal(fa[key], fb[key])]
