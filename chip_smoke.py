@@ -8,6 +8,7 @@
     python3 chip_smoke.py --k4-time [OLDER.cu]  # K4's wrapper (and an older one), see k4_time
     python3 chip_smoke.py --sharded          # phase 12 alone, see sharded_phase
     python3 chip_smoke.py --fused            # phase 13 alone, see fused_phase
+    python3 chip_smoke.py --dryrun           # phase 14 alone, see devices_phase
 
 Phases, in order; any failure raises and the exit code is non-zero:
   1. device: the card's name and power limit, and the peak rates the
@@ -106,7 +107,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
      bundle; (c) examples/large at k=25, its first four phases (1,024
      bundles) on the card through LcbEngine.run's commit loop, each bundle
      equal to eng.process, with the seconds of each phase and the
-     extrapolated full run.  `--fused` runs phases 1, 2 and 13 alone.
+     extrapolated full run.  `--fused` runs phases 1, 2 and 13 alone;
+ 14. the fused lanes over a device list, the dry run and entry(): (a)
+     examples/' first phase with the lanes over ["cuda:0", "cuda:0"]
+     beside the one-device run, both equal to eng.process, bundle by
+     bundle, with each run's seconds and counters; (b) the dry run on
+     cuda:0,cuda:0 (sharded graph stage, the LCB protocol with the fused
+     lanes over both at phase_size 32 and 256, the POA spread), every
+     stage passing, with its seconds: a main-path run whose launches
+     count; (c) entry() on the card equal to its CPU run, a main path of
+     one K1 and one K2 launch, and junction_analysis on the strains at
+     k=15 and 33 equal to build_junctions' records.  `--dryrun` runs
+     phases 1, 2 and 14 alone.
 The last two lines are a JSON summary of the kernels (time, plain time,
 bound, launches per main path; K1's and K2's "ms" are their one-limb
 instances' and "by_limbs" holds both instances'; K4's "ms" is its shape on
@@ -1701,6 +1713,111 @@ def fused_phase(torch, mods, tmp_dir, large_fa, label):
     return launches
 
 
+def joined_junction_positions(seqs, recs):
+    """The records' junction positions in the joined genome (one N between
+    chromosomes), and the sign of each position's id."""
+    off = np.cumsum([0] + [len(x) + 1 for x in seqs[:-1]])
+    pos = np.concatenate([o + r.pos.astype(np.int64) for o, r in zip(off, recs)])
+    return pos, np.concatenate([r.ids for r in recs]) > 0
+
+
+def devices_phase(torch, mods, label):
+    """Phase 14: (a) examples/' first phase (256 bundles, k=15) with the
+    fused lanes over ["cuda:0", "cuda:0"] beside the one-device run on the
+    card, both equal to eng.process, bundle by bundle; (b) the dry run
+    (sibeliaz_tpu_torch.dryrun) on cuda:0,cuda:0, every stage passing;
+    (c) entry() on the card equal to its CPU run, launching K1 and K2 once
+    each, and junction_analysis on the strains' 16,000,015 positions at
+    k=15 and 33 equal to build_junctions' records (the junction positions
+    and the sign of each position's id).  Returns the launches of the dry
+    run and of entry()."""
+    (_cases, _cli, pipeline, _device_poa, _msa, _poa_ref, kernels, align_kernels, Config,
+     alphabet, fasta, metrics) = mods
+    from sibeliaz_tpu_torch import dryrun
+    from sibeliaz_tpu_torch.graph import construct
+    from sibeliaz_tpu_torch.lcb import fused
+    from sibeliaz_tpu_torch.lcb.device_bundles import make_bundles_device
+    from sibeliaz_tpu_torch.lcb.oracle import LcbEngine
+
+    def reset():
+        kernels.reset_launches()
+        align_kernels.reset_launches()
+
+    phase(f"14a examples/' first phase, the fused lanes over [cuda:0, cuda:0] {label}")
+    recs = fasta.read_many([os.path.join(EXAMPLES, "genome1.fa"),
+                            os.path.join(EXAMPLES, "genome2.fa")])
+    seqs, names = [r.seq for r in recs], [r.name for r in recs]
+    cfg = Config(k=15)
+    table = pipeline.build_table(seqs, names, cfg, device="cuda")
+    eng = LcbEngine(table, cfg.min_block_size, cfg.max_branch_size, cfg.flanking,
+                    cfg.looking_depth)
+    bundles = make_bundles_device(table, "cuda")[:256]
+    runs = {}
+    for how, where in (("one device", {"device": "cuda"}),
+                       ("two slices", {"devices": ["cuda:0", "cuda:0"]})):
+        metrics.counters.clear()
+        t0 = time.time()
+        runs[how] = instance_keys(fused.process_phase_fused(eng, bundles, **where))
+        print(f"examples/ phase 1, {how} {where}: {time.time() - t0:.4f} s | "
+              f"{fused_counters(metrics)} {label}")
+    check(runs["two slices"] == runs["one device"], "examples/ phase 1: the two slices' "
+          "instances differ from the one-device run's")
+    check(runs["two slices"] == instance_keys(eng.process(b) for b in bundles),
+          "examples/ phase 1: the two slices' instances differ from eng.process's")
+    check(list(eng._fused_tb) == [torch.device("cuda", 0)],
+          f"examples/ phase 1: the tables are cached for {list(eng._fused_tb)}, not once for cuda:0")
+    print(f"examples/ phase 1: {len(bundles)} bundles equal over two slices, on one device and "
+          "through eng.process")
+
+    phase(f"14b the dry run on cuda:0,cuda:0 {label}")
+    reset()
+    t0 = time.time()
+    check(dryrun.dryrun(["cuda:0", "cuda:0"]), "the dry run on cuda:0,cuda:0: a stage failed")
+    launches = {"dry run on cuda:0,cuda:0": {**kernels.LAUNCHES, **align_kernels.LAUNCHES}}
+    print(f"the dry run on cuda:0,cuda:0: every stage passes in {time.time() - t0:.4f} s | "
+          f"launches {launches['dry run on cuda:0,cuda:0']} {label}")
+
+    phase(f"14c entry() and junction_analysis on the card {label}")
+    fn, args = dryrun.entry("cuda")
+    fn(*args)
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.time()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launched = {**kernels.LAUNCHES, **align_kernels.LAUNCHES}
+    check(launched == {"front_half": 1, "class_analysis": 1, "round_append": 0,
+                       "poa_dp_tb": 0}, f"entry(): launches {launched}")
+    launches["entry()"] = launched
+    cfn, cargs = dryrun.entry("cpu")
+    want = cfn(*cargs)
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(got, want)),
+          "entry(): the card's flags or first indices differ from the CPU run's")
+    print(f"entry(): junction_analysis of 65,536 positions at k=25 on the card in {secs:.4f} s "
+          f"(warm), equal to its CPU run | {int(got[0].sum())} junctions | launches {launched} "
+          f"{label}")
+    strains = [r.seq for r in bench_strains(alphabet, fasta)]
+    codes = torch.from_numpy(strains_codes(alphabet, fasta)).cuda()
+    for k in (15, 33):
+        want_pos, want_sign = joined_junction_positions(
+            strains, construct.build_junctions(strains, k, "cuda"))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        isj, positive, first = construct.junction_analysis(codes, k)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        jpos = torch.nonzero(isj).squeeze(1)
+        check(np.array_equal(jpos.cpu().numpy(), want_pos),
+              f"strains k={k}: junction_analysis's junctions differ from build_junctions'")
+        check(np.array_equal(positive[jpos].cpu().numpy(), want_sign),
+              f"strains k={k}: junction_analysis's orientations differ from the ids' signs")
+        print(f"strains k={k}: junction_analysis of {codes.shape[0]} positions in {secs:.4f} s, "
+              f"{len(want_pos)} junctions and their orientations equal to build_junctions' "
+              f"records {label}")
+    return launches
+
+
 def int32_peak():
     """The card's peak 32-bit integer rate, operations per second: 132 SMs x
     64 int32 lanes x the highest SM clock nvidia-smi reports."""
@@ -1772,15 +1889,16 @@ def main(argv):
     k4_time_args = argv[1:] if argv[:1] == ["--k4-time"] and len(argv) <= 2 else None
     sharded_only = argv == ["--sharded"]
     fused_only = argv == ["--fused"]
+    dryrun_only = argv == ["--dryrun"]
     if argv[:1] == ["--k3-replay"] and len(argv) == 2:
         replay_dir = argv[1]
     elif argv[:1] == ["--k3-time"] and len(argv) == 2:
         time_kinds = argv[1].split(",")
-    elif argv and not (k2_time or k1_time or sharded_only or fused_only
+    elif argv and not (k2_time or k1_time or sharded_only or fused_only or dryrun_only
                        or k4_time_args is not None):
         print("usage: python3 chip_smoke.py [--k3-replay DIR | --k3-time KIND[,KIND...] | "
               "--k2-time | --k1-time | --k4-time [OLDER_ROUND_APPEND.cu] | --sharded | "
-              "--fused]",
+              "--fused | --dryrun]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -1866,6 +1984,11 @@ def main(argv):
         return 0
     if fused_only:
         fused_phase(torch, mods, tmp.name, regenerate_large(alphabet, fasta, tmp.name), label)
+        tmp.cleanup()
+        print(smi)
+        return 0
+    if dryrun_only:
+        devices_phase(torch, mods, label)
         tmp.cleanup()
         print(smi)
         return 0
@@ -1994,6 +2117,7 @@ def main(argv):
                                 large_fa, os.path.join(tmp.name, "lcb"), label)
     shard_paths = sharded_phase(torch, mods, tmp.name, large_fa, large_golden, bench_fa, label)
     fused_launches = fused_phase(torch, mods, tmp.name, large_fa, label)
+    devices_paths = devices_phase(torch, mods, label)
     tmp.cleanup()
 
     src = "sibeliaz_tpu_torch/csrc/"
@@ -2007,7 +2131,8 @@ def main(argv):
     # that outgrows every round (the hand-over, and the host-bucketed
     # rounds alone), and the oracle LCB engine's CLI run (phase 11), and
     # the sharded graph stage's runs and the POA spread (phase 12), and the
-    # tpu-fused LCB engine's CLI run (phase 13)
+    # tpu-fused LCB engine's CLI run (phase 13), and the dry run on
+    # cuda:0,cuda:0 and entry() (phase 14)
     paths = {"examples/large -n": large_launches_by_k[25],
              "examples/large -k 33 -n": large_launches_by_k[33],
              "examples/ --align-engine tpu": maf_launches,
@@ -2015,7 +2140,8 @@ def main(argv):
              **stream_paths,
              "examples/ --lcb-engine oracle -n": oracle_launches,
              **shard_paths,
-             "examples/ --lcb-engine tpu-fused -n": fused_launches}
+             "examples/ --lcb-engine tpu-fused -n": fused_launches,
+             **devices_paths}
 
     def by_path(kernel):
         return {path: counts.get(kernel, 0) for path, counts in paths.items()}

@@ -69,6 +69,20 @@ def pack_codes_host(codes: np.ndarray):
     return packed, nmask
 
 
+def pack_codes_device(codes_u8: torch.Tensor):
+    """pack_codes_host in torch ops on the codes' own device: (2-bit codes,
+    validity bitmap), the tail padded to a multiple of 8 with BAD_CODE."""
+    pad = -codes_u8.shape[0] % 8
+    codes = torch.cat([codes_u8, torch.full((pad,), alphabet.BAD_CODE, dtype=torch.uint8,
+                                            device=codes_u8.device)]) if pad else codes_u8
+    valid = codes != alphabet.BAD_CODE
+    c = torch.where(valid, codes, 0).view(-1, 4)
+    packed = c[:, 0] | (c[:, 1] << 2) | (c[:, 2] << 4) | (c[:, 3] << 6)
+    bit = torch.arange(8, device=codes.device)
+    nmask = (valid.view(-1, 8).long() << bit).sum(dim=1).to(torch.uint8)
+    return packed, nmask
+
+
 def check_k(k: int) -> None:
     """Refuse k > 61, as the JAX package does."""
     if k > kernels.MAX_K:
@@ -153,6 +167,22 @@ def class_verdicts(keys, packed, step=lambda name: contextlib.nullcontext()):
     return isj, first
 
 
+def front_verdicts(codes, n: int, k: int, step=lambda name: contextlib.nullcontext()):
+    """K1 front_half, then class_verdicts, on K1's packed input: `codes`
+    is the list [2-bit codes, validity bitmap], whose buffers this takes
+    over (the list is emptied, so that they are freed before the sort).
+    `step(name)` wraps K1 ("graph_front_half") and class_verdicts' steps.
+
+    Returns (junction flag, the first occurrence's position, K1's packed
+    word), each in genome order."""
+    with step("graph_front_half"):
+        keys, packed = kernels.front_half(codes[0], codes[1], n, k)
+        keys = list(keys)  # class_verdicts frees each limb once it is sorted
+        codes.clear()
+    isj, first = class_verdicts(keys, packed, step)
+    return isj, first, packed
+
+
 def build_junctions(
     seqs: Sequence[np.ndarray],
     k: int,
@@ -192,13 +222,9 @@ def build_junctions(
 
     with _step("graph_upload", device):
         pk_host, nm_host = pack_codes_host(alphabet.encode(joined))
-        codes2 = torch.from_numpy(pk_host).to(device)
-        nmask = torch.from_numpy(nm_host).to(device)
-    with _step("graph_front_half", device):
-        keys, packed = kernels.front_half(codes2, nmask, n, k)
-        keys = list(keys)
-        del codes2, nmask
-    isj, first = class_verdicts(keys, packed, functools.partial(_step, device=device))
+        codes = [torch.from_numpy(pk_host).to(device), torch.from_numpy(nm_host).to(device)]
+        del pk_host, nm_host
+    isj, first, packed = front_verdicts(codes, n, k, functools.partial(_step, device=device))
     with _step("graph_ids_fetch", device):
         # a class's first occurrence is itself a junction row, so ranking
         # the rows where first == position gives the dense ids of
@@ -213,3 +239,30 @@ def build_junctions(
     metrics.set("graph_positions", n)
     metrics.set("graph_junctions", len(jpos_h))
     return split_chromosomes(jpos_h, signed_h, lengths, lead_sep=0)
+
+
+def junction_analysis(codes_u8: torch.Tensor, k: int):
+    """Per-position junction analysis of a separator-joined uint8 code
+    tensor, on its device (sibeliaz_tpu/graph/construct.py:153): the codes
+    packed there (pack_codes_device), then front_verdicts (K1, the sort
+    and K2).  Returns, in genome order:
+      is_junction_occ: bool — valid k-mer whose vertex is a junction
+      positive:        bool — forward k-mer is canonical
+      first_idx:       int32 — index of the vertex's first occurrence
+                       (meaningful only where is_junction_occ)
+    Any k that check_k takes; two limbs sort as build_junctions' do."""
+    check_k(k)
+    n = codes_u8.shape[0]
+    if n == 0:
+        empty = torch.zeros(0, dtype=torch.bool, device=codes_u8.device)
+        return empty, empty, torch.zeros(0, dtype=torch.int32, device=codes_u8.device)
+    isj, first, packed = front_verdicts(list(pack_codes_device(codes_u8)), n, k)
+    return isj, ((packed >> 11) & 1) > 0, first
+
+
+def junction_analysis_packed(codes_u8: torch.Tensor, k: int):
+    """junction_analysis with the flags in one uint8 (bit 0 junction
+    occurrence, bit 1 positive orientation) and int32 first indices
+    (sibeliaz_tpu/graph/construct.py:181)."""
+    isj, positive, first = junction_analysis(codes_u8, k)
+    return isj.to(torch.uint8) | (positive.to(torch.uint8) << 1), first.to(torch.int32)

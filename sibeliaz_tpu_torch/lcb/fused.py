@@ -1,5 +1,5 @@
-"""Fused per-phase LCB state machine on one device (`--lcb-engine
-tpu-fused`), in torch ops.
+"""Fused per-phase LCB state machine (`--lcb-engine tpu-fused`), in torch
+ops, on one device or with each phase's lanes over a device list.
 
 Per outer step every lane not mid-walk performs one vote (+ the
 forward-only used-retry) and every mid-walk lane advances by up to
@@ -31,7 +31,7 @@ Capacity policy (exactness is never traded):
 The serial validate/commit loop stays in LcbEngine.run: it defines the
 deterministic output order (blocksfinder.h:369-427).
 
-A port of sibeliaz_tpu/lcb/fused.py for one device.  How it differs:
+A port of sibeliaz_tpu/lcb/fused.py.  How it differs:
 
   * the traced loops are host loops that read one device value per
     iteration: the outer step loop reads the active-lane count, the walk
@@ -52,20 +52,40 @@ A port of sibeliaz_tpu/lcb/fused.py for one device.  How it differs:
     `fused_occ_steps`);
   * `run_fused` and `process_phase_fused` take the device ("cuda" unless
     the caller passes "cpu");
+  * in place of `mesh=`, a `devices=` list (which may repeat a device):
+    each call's lanes are padded to a multiple of the devices and cut into
+    contiguous slices, one a device, seeded on the host at full width
+    (`resident._seed_lanes`) and uploaded to their own device; the tables
+    go to every distinct device once a phase.  The tier ladder and the
+    padding are the mesh path's, so every call holds the JAX package's
+    bundles.  The slices step in lockstep (one outer step run on every
+    live slice before the host's end-of-step read of any; the step's own
+    reads, each walk push and the used-retry, still wait on each slice's
+    device in turn, so slices on several cards do not overlap), each with
+    its own carry, reading and compaction: lanes never talk to each
+    other, so compaction inside a slice is still a permutation, and the
+    JAX package's `COMPACT_MIN >= mesh.size` (its compaction is global)
+    is not needed.
+    The step count is the largest slice's (the mesh's global count), and
+    a lane still active at MAX_STEPS goes to the host oracle, as on one
+    device.  Each slice's result comes back through the compact fetch
+    (`instances_from_compact`, exact), where the mesh path fetches the
+    whole slab.  `fused_slices` counts the slices run;
   * `lanes_from_numpy`, `carry_from_numpy` and `tables_from_numpy` take
     lane state, a carry and tables as numpy arrays (for example the JAX
     package's, fetched with np.asarray), so that tests can start both
-    engines from one state.
+    engines from one state; `_phase_fused_seg` (the JAX function of that
+    name: lanes stepped to a step limit, no compaction) serves them.
 
-Left out: lanes sharded over several devices (`mesh=`) and the host
-seeding that only that path uses (ROADMAP A9).
+Nothing is left out: the JAX CLI never passes a mesh, so the port's CLI
+has no flag for a device list.
 """
 
 from __future__ import annotations
 
 import functools
 import time
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -89,6 +109,7 @@ from sibeliaz_tpu_torch.lcb.resident import (
     _pad_pow2,
     _push_score_snap,
     _score_of,
+    _seed_lanes,
     _seed_lanes_device,
     _vote_gathered,
     instances_from_compact,
@@ -323,90 +344,180 @@ def _carry_fold(stash, carry, idx):
                          for f, p in zip(_leaves(stash), _leaves(carry))], stash["steps"])
 
 
-def _phase_fused(CAP: int, W: int, slab_max: bool, tb: DeviceTables, st: ResidentState,
-                 active0, reading, depth: int, m: int, b: int, flank: int, min_run: int):
-    """Run the per-bundle protocol for every lane to completion, reading
-    the active-lane count after every outer step.  When it falls to half
-    the lanes or fewer, the active rows are gathered into a power-of-two
-    lane bucket (at least COMPACT_MIN) and stepping goes on there;
-    finished lanes' terminal state is stashed full-size and the compacted
-    rows scatter back at the end.  Lanes are independent and padding rows
-    are inactive, so compaction is a permutation.
+class _LaneRun:
+    """The state machine of one set of seeded lanes, to the end: the whole
+    chunk of a tier on one device, or one slice of it.  `step` queues one
+    outer step (its own reads inside), `read` then reads the carry (active
+    lanes, their largest instance count: one fetch) and compacts: when the
+    active count falls to half the lanes or fewer, the active rows are
+    gathered into a power-of-two lane bucket (at least COMPACT_MIN) and
+    stepping goes on there; finished lanes' terminal state is stashed
+    full-size and the compacted rows scatter back in `finish`.  Lanes are
+    independent and padding rows are inactive, so compaction is a
+    permutation."""
 
-    Returns (state, retier, hostfb, steps): `retier` lanes hit a vote
-    capacity (re-run from seed at a bigger tier), `hostfb` lanes hit a hard
-    capacity (the host oracle re-runs them); both sets' device state is
-    abandoned."""
-    L = active0.shape[0]
-    carry = _init_carry(st, active0, L)
-    stash = None  # full-L carry holding finished lanes' terminal state
-    gmap = None  # current row -> original lane
-    cur_L = L
+    def __init__(self, eng: LcbEngine, tier, tb: DeviceTables, ln: DeviceLanes, n, seed_ovf,
+                 n_bundles: int):
+        """Lanes ln on tb's device (n, seed_ovf on the host): the first
+        n_bundles active unless their seed overflowed."""
+        CAP, W, IC, _PC = tier
+        L = len(n)
+        dev = tb.jid.device
+        active0 = (np.arange(L) < n_bundles) & ~seed_ovf
+        zl = torch.zeros(L, dtype=torch.int64, device=dev)
+        st = ResidentState(ln=ln, rw=ln, sn=ln, best_score=zl,
+                           has_snap=torch.zeros(L, dtype=torch.bool, device=dev))
+        self.tier = (CAP, W, IC >= I_CAP, tb)
+        self.protocol = (eng.depth, eng.m, eng.b, eng.flank, eng.b * 2)
+        self.dev = dev
+        self.carry = _init_carry(st, torch.from_numpy(active0).to(dev), L)
+        self.reading = (int(active0.sum()), int(np.where(active0, n, 0).max()))
+        self.stash = None  # full-size carry holding finished lanes' terminal state
+        self.gmap = None  # current row -> original lane
+
+    @property
+    def live(self) -> bool:
+        return bool(self.reading[0]) and self.carry["steps"] < MAX_STEPS
+
+    def step(self):
+        self.carry = _phase_step(*self.tier, self.carry, *self.protocol, self.reading[1])
+
+    def read(self):
+        self.reading = _read(self.carry)
+        cur_L = self.carry["active"].shape[0]
+        if not self.live or cur_L <= COMPACT_MIN or self.reading[0] > cur_L // 2:
+            return
+        act = np.flatnonzero(_fetch(self.carry["active"]))
+        L2 = max(COMPACT_MIN, 1 << max(0, len(act) - 1).bit_length())
+        if L2 >= cur_L or not len(act):
+            return
+        if self.stash is None:
+            self.stash, self.gmap = self.carry, act
+        else:
+            # fold the current rows into the full-size stash, then narrow
+            # the map to the still-active rows
+            self.stash = _carry_fold(self.stash, self.carry,
+                                     torch.from_numpy(self.gmap).to(self.dev))
+            self.gmap = self.gmap[act]
+        idx_pad = torch.from_numpy(
+            np.concatenate([act, np.zeros(L2 - len(act), act.dtype)])).to(self.dev)
+        carry = _carry_map(lambda x: x.index_select(0, idx_pad), self.carry)
+        carry["active"] = carry["active"] & (torch.arange(L2, device=self.dev) < len(act))
+        self.carry = carry
+        metrics.count("fused_compactions")
+
+    def finish(self):
+        """(state, retier, hostfb, steps) in the original lane order."""
+        carry = self.carry
+        if self.stash is not None:
+            steps = carry["steps"]
+            carry = _carry_fold(self.stash, carry, torch.from_numpy(self.gmap).to(self.dev))
+            carry["steps"] = steps
+        hostfb = carry["hostfb"] | carry["active"]  # step-bound exhaustion
+        return carry["st"], carry["retier"], hostfb, carry["steps"]
+
+
+def _lockstep(runs: Sequence[_LaneRun]) -> None:
+    """Run every state machine to its end: each outer step runs on every
+    live run before the end-of-step read of any of them.  A step's own
+    reads (walk pushes, the used-retry) wait on its device, so runs on
+    several devices take their steps one after another."""
     while True:
-        carry, reading = _phase_fused_seg(CAP, W, slab_max, tb, carry, depth, m, b, flank,
-                                          min_run, min(carry["steps"] + 1, MAX_STEPS), reading)
-        na = reading[0]
-        if na == 0 or carry["steps"] >= MAX_STEPS:
-            break
-        if cur_L > COMPACT_MIN and na <= cur_L // 2:
-            act = np.flatnonzero(_fetch(carry["active"]))
-            L2 = max(COMPACT_MIN, 1 << max(0, len(act) - 1).bit_length())
-            if L2 < cur_L and len(act):
-                dev = active0.device
-                if stash is None:
-                    stash, gmap = carry, act
-                else:
-                    # fold the current rows into the full-size stash, then
-                    # narrow the map to the still-active rows
-                    stash = _carry_fold(stash, carry, torch.from_numpy(gmap).to(dev))
-                    gmap = gmap[act]
-                idx_pad = torch.from_numpy(
-                    np.concatenate([act, np.zeros(L2 - len(act), act.dtype)])).to(dev)
-                carry = _carry_map(lambda x: x.index_select(0, idx_pad), carry)
-                carry["active"] = carry["active"] & (torch.arange(L2, device=dev) < len(act))
-                cur_L = L2
-                metrics.count("fused_compactions")
-    if stash is not None:
-        steps = carry["steps"]
-        carry = _carry_fold(stash, carry, torch.from_numpy(gmap).to(active0.device))
-        carry["steps"] = steps
-    hostfb = carry["hostfb"] | carry["active"]  # step-bound exhaustion
-    return carry["st"], carry["retier"], hostfb, carry["steps"]
+        live = [run for run in runs if run.live]
+        if not live:
+            return
+        for run in live:
+            run.step()
+        for run in live:
+            run.read()
+
+
+def _finish(run: _LaneRun, seed_ovf, slab_max: bool):
+    """(result slab, has_snap, retier, hostfb, steps) of a finished run,
+    the flags on the host.  `retier` lanes hit a vote capacity (re-run from
+    seed at a bigger tier), `hostfb` lanes a hard capacity (the host oracle
+    re-runs them); both sets' device state is abandoned.  A seed overflow
+    goes to the oracle at full width, else to the next tier."""
+    st, retier, hostfb, steps = run.finish()
+    has_snap, retier, hostfb = _fetch(torch.stack([st.has_snap, retier, hostfb]))
+    if slab_max:
+        hostfb = hostfb | seed_ovf
+    else:
+        retier = retier | seed_ovf
+    return st.sn, has_snap, retier, hostfb, steps
 
 
 def _run_tier(eng: LcbEngine, tb: DeviceTables, bundles: Sequence[Bundle], L: int, tier):
     """Seed + run one tier ((vote cap, window, instance-slab width,
-    path-slab width)); returns (result slab, has_snap, retier, hostfb,
-    steps), the three flag vectors on the host."""
+    path-slab width)) on tb's device; returns (result slabs, has_snap,
+    retier, hostfb, steps), the three flag vectors on the host and the
+    slabs as [(slab, its first lane, its lanes)]: the caller fetches a
+    slab only for the lanes it decodes."""
     CAP, W, IC, PC = tier
-    slab_max = IC >= I_CAP
     ln, n_t, seed_ovf_t = _seed_lanes_device(tb, bundles, L, IC, PC)
     n, seed_ovf = _fetch(torch.stack([n_t, seed_ovf_t.long()]))
     seed_ovf = seed_ovf.astype(bool)
-    dev = tb.jid.device
-    zl = torch.zeros(L, dtype=torch.int64, device=dev)
-    st = ResidentState(ln=ln, rw=ln, sn=ln, best_score=zl,
-                       has_snap=torch.zeros(L, dtype=torch.bool, device=dev))
-    active0 = (np.arange(L) < len(bundles)) & ~seed_ovf
-    reading = (int(active0.sum()), int(np.where(active0, n, 0).max()))
-    st, retier, hostfb, steps = _phase_fused(
-        CAP, W, slab_max, tb, st, torch.from_numpy(active0).to(dev), reading,
-        eng.depth, eng.m, eng.b, eng.flank, eng.b * 2)
-    has_snap, retier, hostfb = _fetch(torch.stack([st.has_snap, retier, hostfb]))
-    if slab_max:
-        hostfb = hostfb | seed_ovf
-    else:  # narrow-slab seed overflow escalates instead of host fallback
-        retier = retier | seed_ovf
-    # the result slab itself is fetched by the caller, only for the lanes
-    # it decodes
-    return st.sn, has_snap, retier, hostfb, steps
+    run = _LaneRun(eng, tier, tb, ln, n, seed_ovf, len(bundles))
+    _lockstep([run])
+    sn, has_snap, retier, hostfb, steps = _finish(run, seed_ovf, IC >= I_CAP)
+    return [(sn, 0, L)], has_snap, retier, hostfb, steps
 
 
-def tiers_of(eng: LcbEngine, bundles: Sequence[Bundle]):
+def _run_tier_slices(eng: LcbEngine, tbs, devices, bundles: Sequence[Bundle], L: int, tier):
+    """Seed + run one tier with the L lanes cut into len(devices)
+    contiguous slices, one a device (L is a multiple of their count).
+    Each slice is seeded on the host at full width (`_seed_lanes`) and
+    uploaded to its device alone, and keeps its own carry, reading and
+    compaction; the slices step in lockstep.  A slice that holds no bundle
+    is not run (its lanes are padding).  Returns what _run_tier does;
+    `steps` is the largest slice's count."""
+    Ls = L // len(devices)
+    runs = []
+    for s, dev in enumerate(devices):
+        sub = bundles[s * Ls:(s + 1) * Ls]
+        if not sub:
+            break
+        ln, n, seed_ovf = _seed_lanes(eng.t, sub, Ls, dev)
+        runs.append((s * Ls, seed_ovf, _LaneRun(eng, tier, tbs[dev], ln, n, seed_ovf, len(sub))))
+    metrics.count("fused_slices", len(runs))
+    _lockstep([run for _, _, run in runs])
+    parts, steps = [], 0
+    has_snap, retier, hostfb = (np.zeros(L, bool) for _ in range(3))
+    for lo, seed_ovf, run in runs:
+        sn, snap, r, h, n_steps = _finish(run, seed_ovf, tier[2] >= I_CAP)
+        has_snap[lo:lo + Ls], retier[lo:lo + Ls], hostfb[lo:lo + Ls] = snap, r, h
+        parts.append((sn, lo, Ls))
+        steps = max(steps, n_steps)
+    return parts, has_snap, retier, hostfb, steps
+
+
+def _decode(parts, want) -> Dict[int, List[Instance]]:
+    """{lane -> instances} for the lanes where `want` is set, from the
+    result slabs [(slab, its first lane, its lanes)]: a compact fetch a
+    slab (~80 B per good instance instead of the full [lanes, IC] x 11
+    slab), the full slab where the compact buffer overflows."""
+    out: Dict[int, List[Instance]] = {}
+    for sn, lo, lanes in parts:
+        rows = [int(j) for j in np.flatnonzero(want[lo:lo + lanes])]
+        if not rows:
+            continue
+        comp = instances_from_compact(sn, rows, lanes, _fetch)
+        if comp is None:
+            metrics.count("fused_host_syncs")
+            h = snapshot_to_host(sn)
+            comp = {j: instances_from_snapshot(h, j) for j in rows}
+        out.update((lo + j, insts) for j, insts in comp.items())
+    return out
+
+
+def tiers_of(eng: LcbEngine, bundles: Sequence[Bundle], full_width: bool = False):
     """The phase's tier ladder: (CAP, W0) with CAP sized from the seed
     counts, then I_CAP at W0, then the wider windows up to WIDE_W.  W0 is
     sized from the junction density: the vote scans forward junctions while
-    d < depth or within b bp, so it needs ~b/spacing + depth slots."""
+    d < depth or within b bp, so it needs ~b/spacing + depth slots.
+    `full_width` (the lanes over a device list, as the JAX package's mesh
+    path, sibeliaz_tpu/lcb/fused.py:560-561) keeps the small vote cap but
+    never the narrow slabs."""
     small = max(bd.count for bd in bundles) <= SMALL_CAP
     total_bp = sum(len(s) for s in eng.t.seqs)
     total_j = sum(len(p) for p in eng.t.jpos)
@@ -416,7 +527,9 @@ def tiers_of(eng: LcbEngine, bundles: Sequence[Bundle]):
     while W0 < WIDE_W and W0 < w_need:
         W0 *= 2
     tiers = []
-    if small:
+    if small and full_width:
+        tiers.append((SMALL_CAP, W0, I_CAP, P_CAP))
+    elif small:
         # narrow slabs: [L, 64]-instance / [L, 128]-path; lanes that
         # outgrow them replay from seed at the full width
         tiers.append((SMALL_CAP, W0, SMALL_CAP, SMALL_PATH))
@@ -428,20 +541,49 @@ def tiers_of(eng: LcbEngine, bundles: Sequence[Bundle]):
     return tiers
 
 
-def process_phase_fused(eng: LcbEngine, bundles: Sequence[Bundle], vote_budget=None,
-                        device="cuda") -> List[List[Instance]]:
-    """Explore a phase with the fused state machine on `device`.
+def _check_devices(devices) -> List[torch.device]:
+    """The device list as torch devices ("cuda" as the current card), a
+    device per slice, repeats allowed.  Raises for an empty list, a list
+    that mixes kinds of device or names one other than cpu and cuda, and a
+    cuda list where no CUDA device is visible: nothing falls back."""
+    devs = [torch.device(d) for d in devices]
+    kinds = {d.type for d in devs}
+    if len(kinds) != 1 or not kinds <= {"cpu", "cuda"}:
+        raise ValueError(f"devices={list(devices)}: the lanes run over a non-empty list of "
+                         "one kind of device, cpu or cuda")
+    if kinds == {"cuda"}:
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"devices={list(devices)}: no CUDA device is visible; pass cpu "
+                               "devices to run the torch ops on the host")
+        devs = [torch.device("cuda", torch.cuda.current_device()) if d.index is None else d
+                for d in devs]
+    return devs
 
-    Tier ladder from `tiers_of`; a lane whose vote overflows a cap re-runs
-    from its seed at the next tier.  Calls are chunked so L*CAP*W stays
-    under the vote budget.  Hard-capacity lanes (I_CAP instances / P_CAP
-    path / the step bound / the last tier's caps) go to the host oracle."""
+
+def process_phase_fused(eng: LcbEngine, bundles: Sequence[Bundle], vote_budget=None,
+                        device="cuda", devices=None) -> List[List[Instance]]:
+    """Explore a phase with the fused state machine on `device`, or with
+    each call's lanes cut into contiguous slices over `devices` (a
+    sequence of devices, which may repeat; see _run_tier_slices).
+
+    Tier ladder from `tiers_of` (full-width slabs over a device list); a
+    lane whose vote overflows a cap re-runs from its seed at the next tier.
+    Calls are chunked so L*CAP*W stays under the vote budget; over a
+    device list each call's lanes are padded to a multiple of the devices.
+    Hard-capacity lanes (I_CAP instances / P_CAP path / the step bound /
+    the last tier's caps) go to the host oracle."""
     nb = len(bundles)
     if nb == 0:
         return []
+    if devices is None:
+        run = functools.partial(_run_tier, eng, _device_tables(eng, device))
+    else:
+        devices = _check_devices(devices)
+        # the tables go to every distinct device once a phase
+        tbs = {dev: _device_tables(eng, dev) for dev in dict.fromkeys(devices)}
+        run = functools.partial(_run_tier_slices, eng, tbs, devices)
     metrics.count("fused_phases")
-    tb = _device_tables(eng, device)
-    tiers = tiers_of(eng, bundles)
+    tiers = tiers_of(eng, bundles, full_width=devices is not None)
     results: List[List[Instance]] = [[] for _ in range(nb)]
     work = list(range(nb))
     oracle: List[int] = []
@@ -454,26 +596,21 @@ def process_phase_fused(eng: LcbEngine, bundles: Sequence[Bundle], vote_budget=N
         for lo in range(0, len(work), chunk):
             group = work[lo:lo + chunk]
             L = _pad_pow2(len(group), 8 if t else 32)
-            sn, snap, retier, hostfb, steps = _run_tier(
-                eng, tb, [bundles[i] for i in group], L, (CAP, W, IC, PC))
+            if devices is not None:  # the lanes split evenly over the devices
+                L = -(-L // len(devices)) * len(devices)
+            parts, snap, retier, hostfb, steps = run([bundles[i] for i in group], L,
+                                                     (CAP, W, IC, PC))
             metrics.count(f"fused_steps_tier{t}", steps)
             metrics.count(f"fused_lanes_tier{t}", len(group))
-            decode = [j for j in range(len(group)) if snap[j] and not hostfb[j] and not retier[j]]
-            comp = h = None
-            if decode:
-                # compact fetch: ~80 B per good instance instead of the full
-                # [L, IC] x 11 slab; the full slab where it overflows
-                comp = instances_from_compact(sn, decode, L, _fetch)
-                if comp is None:
-                    metrics.count("fused_host_syncs")
-                    h = snapshot_to_host(sn)
+            n = len(group)
+            decoded = _decode(parts, snap[:n] & ~hostfb[:n] & ~retier[:n])
             for j, i in enumerate(group):
                 if hostfb[j] or (retier[j] and last):
                     oracle.append(i)
                 elif retier[j]:
                     escalate.append(i)
                 elif snap[j]:
-                    results[i] = comp[j] if comp is not None else instances_from_snapshot(h, j)
+                    results[i] = decoded[j]
         if work:
             metrics.count(f"fused_tier{t}_s", time.time() - t0)
         work = escalate
@@ -484,18 +621,21 @@ def process_phase_fused(eng: LcbEngine, bundles: Sequence[Bundle], vote_budget=N
     return results
 
 
-def run_fused(eng: LcbEngine, device="cuda", vote_budget=None):
-    """Full LCB run with fused-phase exploration on `device`; vote_budget
+def run_fused(eng: LcbEngine, device="cuda", vote_budget=None, devices=None):
+    """Full LCB run with fused-phase exploration on `device`, or with each
+    phase's lanes over `devices` (process_phase_fused); vote_budget
     (elements per call, see vote_budget_from_bytes) bounds device memory
     from the CLI's -f flag."""
     from sibeliaz_tpu_torch.lcb.device_bundles import make_bundles_device
 
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+    if devices is not None:
+        device = _check_devices(devices)[0]
+    elif torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"run_fused on {device}: no CUDA device is visible; pass "
                            'device="cpu" to run the torch ops on the host')
     return eng.run(
         process_batch_fn=functools.partial(
-            process_phase_fused, vote_budget=vote_budget, device=device),
+            process_phase_fused, vote_budget=vote_budget, device=device, devices=devices),
         bundles=make_bundles_device(eng.t, device),
     )
 

@@ -16,7 +16,7 @@ The whole phase's lane state lives on one device:
     replay result.
 
 A partial port of sibeliaz_tpu/lcb/resident.py: the helpers that
-sibeliaz_tpu/lcb/fused.py imports, for one device.  How it differs:
+sibeliaz_tpu/lcb/fused.py imports.  How it differs:
 
   * `jax.lax.sort` on several keys: the vote's group-by runs one stable
     `torch.sort` of the vote keys after ordering each lane's instances by
@@ -28,24 +28,26 @@ sibeliaz_tpu/lcb/fused.py imports, for one device.  How it differs:
     winner);
   * `vmap(searchsorted)` is `torch.searchsorted` on [L, C] rows;
     `associative_scan` is `cummin`/`cumsum`/`cummax`;
-  * `_device_tables` caches the tables on the engine for one device;
+  * `_device_tables` caches the tables on the engine, one copy a device;
   * `_seed_lanes_device` returns the seed counts and overflow flags on the
-    device, for the caller to read in one fetch.
+    device, for the caller to read in one fetch;
+  * `_seed_lanes` (the host seeding of the lanes over a device list) takes
+    the device its lanes go to.
 
 Left out: `run_resident`, its protocol generator and per-round programs
-(ROADMAP "Do not port"), and the host seeding `_seed_lanes` with
-`batched.seed_batch` (only the JAX package's mesh path uses them; ROADMAP
-A9).
+(ROADMAP "Do not port").
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from sibeliaz_tpu_torch.junctions.table import JunctionTable
+from sibeliaz_tpu_torch.lcb.batched import seed_batch
 from sibeliaz_tpu_torch.lcb.batched_push_device import (
     BIG,
     I_CAP,
@@ -247,6 +249,58 @@ def _vote_gathered(CAP: int, W: int, tb: DeviceTables, ln: DeviceLanes,
 
 
 # --------------------------------------------------------------------------
+# seeding: Path.Init for a phase, on the host (SeedBatch -> DeviceLanes)
+# --------------------------------------------------------------------------
+
+
+def _seed_lanes(table: JunctionTable, bundles: Sequence[Bundle], L: int, device
+                ) -> Tuple[DeviceLanes, np.ndarray, np.ndarray]:
+    """Build the phase's initial full-width lanes ([L, I_CAP] instances,
+    [L, P_CAP] path) on the host and upload them to `device`.  Returns
+    (lanes, n, overflow), the last two numpy: a lane whose seeded instance
+    count passes I_CAP is flagged (its lane keeps the first I_CAP)."""
+    sb = seed_batch(table, bundles)
+    nb = len(bundles)
+    cap = sb.chr.shape[1] if nb else 0
+    ccap = min(cap, I_CAP)
+
+    chr_ = np.full((L, I_CAP), -1, np.int64)
+    s = np.zeros((L, I_CAP), np.int64)
+    idx = np.zeros((L, I_CAP), np.int64)
+    if nb:
+        chr_[:nb, :ccap] = sb.chr[:, :ccap]
+        s[:nb, :ccap] = sb.strand[:, :ccap]
+        idx[:nb, :ccap] = sb.idx[:, :ccap]
+    n = np.zeros(L, np.int64)
+    n[:nb] = np.minimum(sb.n, I_CAP)
+    overflow = np.zeros(L, bool)
+    overflow[:nb] = sb.n > I_CAP
+    col = np.arange(I_CAP, dtype=np.int64)[None, :]
+    live = col < n[:, None]
+    chr_ = np.where(live, chr_, -1)
+    pvid = np.full((L, P_CAP), BIG, np.int64)
+    origin_vid = np.zeros(L, np.int64)
+    for lane, bd in enumerate(bundles):
+        pvid[lane, 0] = bd.vid
+        origin_vid[lane] = bd.vid
+    pn = np.zeros(L, np.int64)
+    pn[:nb] = 1
+    zeros = np.zeros((L, I_CAP), np.int64)
+    no = np.zeros((L, I_CAP), bool)
+    zl = np.zeros(L, np.int64)
+    host = dict(
+        chr=chr_, s=np.where(live, s, 0), fi=np.where(live, idx, 0),
+        bi=np.where(live, idx, 0), fdist=zeros, bdist=zeros, cmp=np.where(live, idx, 0),
+        ffin=no, bfin=no, good_seq=np.full((L, I_CAP), -1, np.int64),
+        insert_seq=np.where(live, col, 0), n=n, next_good=zl, next_insert=n, right_flank=zl,
+        left_flank=zl, overflow=overflow, pvid=pvid, pdist=np.zeros((L, P_CAP), np.int64),
+        pn=pn, rv=origin_vid, lv=origin_vid)
+    # a copy a field: no two fields, and neither returned array, share memory
+    ln = DeviceLanes(*(torch.from_numpy(host[f].copy()).to(device) for f in LANE_FIELDS))
+    return ln, n, overflow
+
+
+# --------------------------------------------------------------------------
 # seeding: Path.Init for a phase, on the device
 # --------------------------------------------------------------------------
 
@@ -323,16 +377,19 @@ def _seed_lanes_device(tb: DeviceTables, bundles: Sequence[Bundle], L: int,
 
 
 def _device_tables(eng: LcbEngine, device) -> DeviceTables:
-    """DeviceTables cached on the engine for `device`; only `used` and
-    `used_pfx` change between phases (at commit time), so those are
-    refreshed on every later call."""
-    cached = getattr(eng, "_fused_tb", None)
+    """DeviceTables cached on the engine, one copy for each device; only
+    `used` and `used_pfx` change between phases (at commit time), so a
+    later call for a device refreshes those of its copy.  "cuda" is the
+    current card, so it shares that card's copy with "cuda:<index>"."""
+    cache = eng.__dict__.setdefault("_fused_tb", {})
     dev = torch.device(device)
-    if cached is None or cached[0] != dev:
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev not in cache:
         tb = DeviceTables.build(eng.t, dev)
-        eng._fused_tb = (dev, tb)
+        cache[dev] = tb
         return tb
-    tb = cached[1]
+    tb = cache[dev]
     used_all = eng.t.used_flat
     # pad to the cached table's pow2 bucket (cumsum over trailing zeros
     # keeps the prefix's final value, so the pad rows stay semantics-free)
@@ -341,7 +398,7 @@ def _device_tables(eng: LcbEngine, device) -> DeviceTables:
         used_all = np.concatenate([used_all, np.zeros(n_pad - len(used_all), np.uint8)])
     used, pfx = _used_prefix(torch.from_numpy(np.ascontiguousarray(used_all)).to(dev))
     tb = dataclasses.replace(tb, used=used, used_pfx=pfx)
-    eng._fused_tb = (dev, tb)
+    cache[dev] = tb
     return tb
 
 

@@ -725,3 +725,54 @@ def test_run_fused_gff_cuda_matches_cpu(cuda, k):
     cpu = pipeline.find_blocks(seqs, names, Config(k=k), engine="tpu-fused", device="cpu")
     native = pipeline.find_blocks(seqs, names, Config(k=k), device="cpu")
     assert got.gff == cpu.gff == native.gff and got.blocks_found > 0
+
+
+def fused_devices_check(devices):
+    """process_phase_fused with the lanes over `devices`: the one-device
+    run's instance lists on the card and eng.process's, lane by lane; the
+    tables cached once a card ("cuda" shares "cuda:0"'s copy)."""
+    from sibeliaz_tpu_torch.lcb import fused
+
+    eng = fused_case()
+    bundles = make_bundles_device(eng.t, "cpu")[:32]
+    metrics.counters.clear()
+    got = fused.process_phase_fused(eng, bundles, devices=devices)
+    assert metrics.counters["fused_slices"] == len(devices)
+    one = fused.process_phase_fused(eng, bundles, device="cuda")
+
+    def keys(results):
+        return [[(x.c, x.s, x.fi, x.bi, x.fdist, x.bdist, x.cmp, x.ffin, x.bfin) for x in insts]
+                for insts in results]
+
+    assert keys(got) == keys(one) == keys(eng.process(b) for b in bundles)
+    assert any(got)
+    assert sorted(map(str, eng._fused_tb)) == sorted(set(devices))
+
+
+def test_fused_devices_cuda_matches_one_device(cuda):
+    fused_devices_check(["cuda:0", "cuda:0"])
+
+
+def test_fused_devices_on_two_cards(cuda):
+    """The lanes over cuda:0 and cuda:1 (the tables on both cards)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    fused_devices_check(["cuda:0", "cuda:1"])
+
+
+@pytest.mark.parametrize("k", [15, 33])
+def test_junction_analysis_cuda_matches_cpu(cuda, k):
+    """junction_analysis on the card (the codes packed there, one K1 and
+    one K2 launch) equal to its CPU run, N runs included."""
+    codes = torch.from_numpy(codes_with_n_runs(k, 200_003, 400, n_at_ends=True))
+    before = dict(kernels.LAUNCHES)
+    got = construct.junction_analysis(codes.to(cuda), k)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["front_half"] == before["front_half"] + 1
+    assert kernels.LAUNCHES["class_analysis"] == before["class_analysis"] + 1
+    want = construct.junction_analysis(codes, k)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    assert want[0].any()
+    flags, first = construct.junction_analysis_packed(codes.to(cuda), k)
+    want_flags, want_first = construct.junction_analysis_packed(codes, k)
+    assert torch.equal(flags.cpu(), want_flags) and torch.equal(first.cpu(), want_first)

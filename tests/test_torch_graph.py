@@ -1,16 +1,21 @@
 """The port's graph stage (build_junctions on the CPU path) against the JAX
 package's build_junctions and the brute-force oracle, on the cases of
 tests/test_graph.py::TestConstructParity and ::TestWideK (two-limb keys,
-33 <= k <= 61); and its routing to the streamed stage under a memory
-budget."""
+33 <= k <= 61); its routing to the streamed stage under a memory
+budget; and junction_analysis(_packed) and dryrun.entry against the JAX
+package's junction_analysis(_packed) and __graft_entry__.entry."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
+import __graft_entry__
 import test_graph
 
 from sibeliaz_tpu.graph import construct as jax_construct
 from sibeliaz_tpu.graph import oracle as jax_oracle
+from sibeliaz_tpu_torch import dryrun
 from sibeliaz_tpu_torch.core import alphabet
 from sibeliaz_tpu_torch.graph import construct, oracle
 from sibeliaz_tpu_torch.utils.metrics import GLOBAL as metrics
@@ -113,3 +118,69 @@ def test_memory_guard_refuses_wide_k():
     got, streamed_ran = route(seqs, 33, need - 1)
     assert streamed_ran
     assert_same(want, got)
+
+
+# ---- junction_analysis -----------------------------------------------------
+
+
+def joined_codes(seed, n):
+    """n codes of three random chromosomes joined by one N each, with N
+    runs inside."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=n).astype(np.uint8)
+    codes[rng.random(n) < 0.004] = alphabet.BAD_CODE
+    for lo in rng.integers(0, n, size=3):
+        codes[lo:lo + int(rng.integers(1, 30))] = alphabet.BAD_CODE
+    codes[[n // 3, 2 * n // 3]] = alphabet.BAD_CODE  # the separators
+    return codes
+
+
+@pytest.mark.parametrize("k", [15, 25, 33, 61])
+def test_junction_analysis_matches_jax(k):
+    """junction_analysis and junction_analysis_packed on the CPU equal the
+    JAX package's at n = k and k + 1 (ACGT) and 2,003 (no multiple of 8;
+    N runs and separators): the junction flags exactly, the first index at every
+    valid window (both packages give each valid k-mer its class's first
+    occurrence), the orientation at every valid window; the on-device pack
+    equals pack_codes_host."""
+    rng = np.random.default_rng(k)
+    for codes in (rng.integers(0, 4, size=k).astype(np.uint8),
+                  rng.integers(0, 4, size=k + 1).astype(np.uint8), joined_codes(k, 2003)):
+        n = len(codes)
+        packed, nmask = construct.pack_codes_device(torch.from_numpy(codes))
+        want_packed, want_nmask = construct.pack_codes_host(codes)
+        assert np.array_equal(packed.numpy(), want_packed)
+        assert np.array_equal(nmask.numpy(), want_nmask)
+
+        isj, pos, first = construct.junction_analysis(torch.from_numpy(codes), k)
+        jisj, jpos, jfirst = (np.asarray(x) for x in
+                              jax_construct.junction_analysis(jnp.asarray(codes), k))
+        definite = codes != alphabet.BAD_CODE
+        valid = np.array([i + k <= n and definite[i:i + k].all() for i in range(n)])
+        assert isj.dtype == torch.bool and first.dtype == torch.int32
+        assert np.array_equal(isj.numpy(), jisj)
+        assert np.array_equal(first.numpy()[valid], jfirst[valid])
+        assert np.array_equal(pos.numpy()[valid], jpos[valid])
+        assert jisj.any() and valid.any()
+
+        flags, first32 = construct.junction_analysis_packed(torch.from_numpy(codes), k)
+        jflags, jfirst32 = (np.asarray(x) for x in
+                            jax_construct.junction_analysis_packed(jnp.asarray(codes), k))
+        assert flags.dtype == torch.uint8 and first32.dtype == torch.int32
+        assert np.array_equal(flags.numpy() & 1, jflags & 1)
+        assert np.array_equal(flags.numpy()[valid] >> 1, jflags[valid] >> 1)
+        assert np.array_equal(first32.numpy()[valid], jfirst32[valid])
+
+
+def test_entry_matches_graft_entry():
+    """dryrun.entry("cpu")'s fn(*args) equals __graft_entry__.entry()'s on
+    the same codes."""
+    fn, args = dryrun.entry("cpu")
+    jfn, jargs = __graft_entry__.entry()
+    assert np.array_equal(args[0].numpy(), np.asarray(jargs[0]))
+    isj, pos, first = fn(*args)
+    jisj, jpos, jfirst = (np.asarray(x) for x in jfn(*jargs))
+    assert np.array_equal(isj.numpy(), jisj) and jisj.any()
+    valid = slice(0, -24)  # the windows of k=25 in random ACGT codes
+    assert np.array_equal(first.numpy()[valid], jfirst[valid])
+    assert np.array_equal(pos.numpy()[valid], jpos[valid])
