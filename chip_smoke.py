@@ -9,6 +9,7 @@
     python3 chip_smoke.py --sharded          # phase 12 alone, see sharded_phase
     python3 chip_smoke.py --fused            # phase 13 alone, see fused_phase
     python3 chip_smoke.py --dryrun           # phase 14 alone, see devices_phase
+    python3 chip_smoke.py --resident         # phase 15 alone, see resident_phase
 
 Phases, in order; any failure raises and the exit code is non-zero:
   1. device: the card's name and power limit, and the peak rates the
@@ -118,7 +119,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
      count; (c) entry() on the card equal to its CPU run, a main path of
      one K1 and one K2 launch, and junction_analysis on the strains at
      k=15 and 33 equal to build_junctions' records.  `--dryrun` runs
-     phases 1, 2 and 14 alone.
+     phases 1, 2 and 14 alone;
+ 15. the resident LCB engine (lcb/resident.py) and device_trace: (a) the
+     CLI with --lcb-engine tpu -n on examples/ (k=15), byte-equal to the
+     golden GFF, a main-path run whose K1 and K2 launches count (once
+     each), with its lcb_engine seconds beside the native engine's and
+     phase 13a's tpu-fused seconds, its rounds, host syncs per round and
+     counters; (b) examples/' first phase (256 bundles) on the card through
+     process_phase_resident, equal to eng.process and to
+     process_phase_fused (13b's run, where phase 13 ran), bundle by
+     bundle, then (under `--resident`) once
+     more inside utils/metrics.device_trace: the device time summed from
+     the profiler's events against the wall time, the card's busy share of
+     one LCB phase; (c) build_junctions on examples/large at k=25
+     inside device_trace, K1's and K2's device time from key_averages()
+     and the card's busy share from the profiler's events (CUDA events,
+     said on a line of its own, where the profiler shows no device time
+     for K1 or K2), records equal to the untraced run's.  `--resident` runs
+     phases 1, 2 and 15 alone.
 The last two lines are a JSON summary of the kernels (time, plain time,
 bound, launches per main path; K1's and K2's "ms" are their one-limb
 instances' and "by_limbs" holds both instances'; K4's "ms" is its shape on
@@ -1617,7 +1635,8 @@ def fused_phase(torch, mods, tmp_dir, large_fa, label):
     eng.process, bundle by bundle; (c) examples/large at k=25, the first
     FUSED_LARGE_PHASES phases on the card through LcbEngine.run's commit
     loop, each bundle equal to eng.process.  Returns the launches of the
-    CLI run."""
+    CLI run and {"lcb_s": its lcb_engine seconds, "first_phase": (b)'s
+    instances on the card}."""
     (_cases, cli, pipeline, _device_poa, _msa, _poa_ref, kernels, align_kernels, Config,
      _alphabet, fasta, metrics) = mods
     from sibeliaz_tpu_torch.lcb import fused
@@ -1710,6 +1729,180 @@ def fused_phase(torch, mods, tmp_dir, large_fa, label):
     print(f"examples/large k=25: {len(bundles)} bundles, {n_phases} phases | the first "
           f"{len(per_phase)} on the card {sum(per_phase):.4f} s ({mean:.4f} s a phase) | "
           f"extrapolated full run {mean * n_phases:.1f} s {label}")
+    return launches, {"lcb_s": lcb_s["tpu-fused"], "first_phase": runs["cuda"]}
+
+
+def resident_counters(metrics):
+    """The resident LCB engine's counters of the last run, as ints or seconds."""
+    return {k: (round(v, 4) if k.endswith("_s") else int(v))
+            for k, v in sorted(metrics.counters.items()) if k.startswith("resident_")}
+
+
+def kernel_rows(prof, part):
+    """The rows of the profiler's `key_averages()` whose name holds `part`
+    and that have device time: [(name, device us, calls)].  A kernel that
+    the port's own library launches has no torch op to hang from, so its
+    row is found by its name, not by its device type."""
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        if part in e.key and us > 0:
+            rows.append((e.key, us, e.count))
+    return rows
+
+
+def device_busy(torch, prof):
+    """(seconds of device activity, device events, all events) of a
+    profile, summed over its raw events: key_averages() builds a Python
+    object and a tree over every event, far slower over the millions of
+    events of one LCB phase."""
+    from torch.autograd import DeviceType
+
+    events = prof.profiler.kineto_results.events()
+    busy = [e.duration_ns() for e in events if e.device_type() == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", lambda: False)()]
+    return sum(busy) / 1e9, len(busy), len(events)
+
+
+def resident_phase(torch, mods, tmp_dir, large_fa, fused13, traced_phase, label):
+    """Phase 15: (a) the CLI with --lcb-engine tpu -n on examples/ (k=15),
+    byte-equal to the golden GFF, beside the native engine's run (and phase
+    13a's tpu-fused seconds, where that phase ran: `fused13`, what
+    fused_phase returns, else None); (b) examples/' first phase through
+    process_phase_resident on the card, equal to eng.process and to
+    process_phase_fused (phase 13b's run of the same bundles, where it
+    ran), then, where `traced_phase`, once more inside device_trace: the
+    card's busy share of one LCB phase; (c) build_junctions on
+    examples/large at k=25 inside device_trace, K1's and K2's device time
+    from key_averages() (CUDA events where the profiler shows none), the
+    card's busy share from the profiler's events.  Returns the launches of
+    the CLI run."""
+    (_cases, cli, pipeline, _device_poa, _msa, _poa_ref, kernels, align_kernels, Config,
+     _alphabet, fasta, metrics) = mods
+    from sibeliaz_tpu_torch.graph import construct
+    from sibeliaz_tpu_torch.lcb import fused, resident
+    from sibeliaz_tpu_torch.lcb.device_bundles import make_bundles_device
+    from sibeliaz_tpu_torch.lcb.oracle import LcbEngine
+    from sibeliaz_tpu_torch.utils.metrics import device_trace
+
+    fas = [os.path.join(EXAMPLES, "genome1.fa"), os.path.join(EXAMPLES, "genome2.fa")]
+    with open(os.path.join(EXAMPLES, "sibeliaz_out", "blocks_coords.gff")) as f:
+        golden = f.read()
+
+    phase(f"15a --lcb-engine tpu through the CLI, examples/ k=15 {label}")
+    lcb_s = {}
+    for engine in ("native", "tpu"):
+        metrics.timings.clear()
+        metrics.counters.clear()
+        kernels.reset_launches()
+        align_kernels.reset_launches()
+        out = os.path.join(tmp_dir, f"resident_cli_{engine}")
+        wall = run_cli(cli, ["-k", "15", "-n", "--lcb-engine", engine, "-o", out, *fas])
+        with open(os.path.join(out, "blocks_coords.gff")) as f:
+            check(f.read() == golden, f"examples/ GFF of --lcb-engine {engine} differs from the "
+                  "golden")
+        lcb_s[engine] = {t["stage"]: t["seconds"] for t in metrics.timings}["lcb_engine"]
+    launches = {**kernels.LAUNCHES, **align_kernels.LAUNCHES}
+    counters = resident_counters(metrics)
+    check(launches == {"front_half": 1, "class_analysis": 1, "round_append": 0, "poa_dp_tb": 0},
+          f"launches of the --lcb-engine tpu -n run: {launches}")
+    check(counters.get("resident_phases", 0) > 0, f"the resident engine did not run: {counters}")
+    rounds = counters["resident_rounds"]
+    fused_s = "not run in this mode" if fused13 is None else f"{fused13['lcb_s']:.4f} s"
+    print(f"examples/ --lcb-engine tpu -n: GFF byte-equal to the golden | lcb_engine "
+          f"{lcb_s['tpu']:.4f} s (native {lcb_s['native']:.4f} s; tpu-fused in 13a {fused_s}) "
+          f"| CLI wall {wall:.4f} s | rounds {rounds} | host syncs per round "
+          f"{counters['resident_host_syncs'] / max(1, rounds):.2f} | {counters} | launches "
+          f"{launches} {label}")
+
+    phase(f"15b examples/' first phase: the resident engine on the card, the fused engine, "
+          f"eng.process; the card's busy share {label}")
+    recs = fasta.read_many(fas)
+    seqs, names = [r.seq for r in recs], [r.name for r in recs]
+    cfg = Config(k=15)
+    table = pipeline.build_table(seqs, names, cfg, device="cuda")
+    eng = LcbEngine(table, cfg.min_block_size, cfg.max_branch_size, cfg.flanking,
+                    cfg.looking_depth)
+    bundles = make_bundles_device(table, "cuda")[:256]
+    runs, secs = {}, {}
+    if fused13 is not None:
+        runs["fused"] = fused13["first_phase"]
+        print(f"examples/ phase 1, fused engine on the card: phase 13b's run {label}")
+    for how, fn in (("resident", resident.process_phase_resident),
+                    ("fused", fused.process_phase_fused)):
+        if how in runs:
+            continue
+        metrics.counters.clear()
+        t0 = time.time()
+        runs[how] = instance_keys(fn(eng, bundles, device="cuda"))
+        secs[how] = time.time() - t0
+        print(f"examples/ phase 1, {how} engine on the card: {secs[how]:.4f} s | "
+              f"{resident_counters(metrics) if how == 'resident' else fused_counters(metrics)} "
+              f"{label}")
+    oracle = instance_keys(eng.process(b) for b in bundles)
+    check(runs["resident"] == oracle, "examples/ phase 1: the resident engine's instances "
+          "differ from eng.process's")
+    check(runs["resident"] == runs["fused"], "examples/ phase 1: the resident engine's "
+          "instances differ from the fused engine's")
+    print(f"examples/ phase 1: {len(bundles)} bundles equal through the resident engine, the "
+          f"fused engine and eng.process")
+    os.environ["SIBELIAZ_TPU_PROFILE"] = os.path.join(tmp_dir, "trace")
+    if traced_phase:
+        metrics.counters.clear()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with device_trace("resident_phase") as prof:
+            again = instance_keys(resident.process_phase_resident(eng, bundles, device="cuda"))
+            torch.cuda.synchronize()
+            run_s = time.time() - t0
+        traced = time.time() - t0
+        check(again == oracle, "examples/ phase 1, traced: instances differ from eng.process's")
+        t0 = time.time()
+        busy, n_device, n_events = device_busy(torch, prof)
+        if not busy:
+            print(f"examples/ phase 1: the profiler recorded no device time in {n_events} "
+                  f"events; the busy share is not measured {label}")
+        print(f"examples/ phase 1, resident engine inside device_trace: {run_s:.4f} s traced "
+              f"({secs['resident']:.4f} s untraced; the trace written in {traced - run_s:.4f} s, "
+              f"read in {time.time() - t0:.4f} s) | device busy {busy:.4f} s over {n_device} "
+              f"device events of {n_events}: busy share {busy / run_s:.4f} of the traced run, "
+              f"{busy / secs['resident']:.4f} of the untraced | syncs "
+              f"{int(metrics.counters['resident_host_syncs'])} {label}")
+    else:
+        print("examples/ phase 1 inside device_trace: run by `python3 chip_smoke.py "
+              "--resident` alone (its trace holds millions of events)")
+
+    phase(f"15c build_junctions on examples/large k=25 inside device_trace {label}")
+    large = [r.seq for r in fasta.read_many(large_fa)]
+    want = construct.build_junctions(large, 25, "cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.time()
+    with device_trace("graph_k25") as prof:
+        got = construct.build_junctions(large, 25, "cuda")
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    check(same_records(got, want),
+          "examples/large k=25: the traced run's records differ from the untraced run's")
+    check(kernels.LAUNCHES["front_half"] == 1 and kernels.LAUNCHES["class_analysis"] == 1,
+          f"examples/large k=25 traced: launches {kernels.LAUNCHES}")
+    by_kernel = {k: kernel_rows(prof, part) for k, part in
+                 (("front_half", "front_half_kernel"), ("class_analysis", "class_"))}
+    busy, n_device, _ = device_busy(torch, prof)
+    if all(by_kernel.values()):
+        print(f"examples/large k=25 inside device_trace: wall {wall:.4f} s | device busy "
+              f"{busy:.4f} s over {n_device} device events, share {busy / wall:.4f} | "
+              + " | ".join(f"{k}: " + ", ".join(f"{name[:70]} {us / 1e3:.4f} ms x{c}"
+                                                 for name, us, c in v)
+                           for k, v in by_kernel.items())
+              + f" {label}")
+    else:
+        print(f"examples/large k=25: the profiler's key_averages() show no device time for "
+              f"K1 or K2 ({by_kernel}); timed with CUDA events instead {label}")
+        ms = cuda_ms(torch, lambda: construct.build_junctions(large, 25, "cuda"), 3)
+        print(f"examples/large k=25: build_junctions {ms:.4f} ms a call by CUDA events {label}")
+    os.environ.pop("SIBELIAZ_TPU_PROFILE")
     return launches
 
 
@@ -1890,15 +2083,16 @@ def main(argv):
     sharded_only = argv == ["--sharded"]
     fused_only = argv == ["--fused"]
     dryrun_only = argv == ["--dryrun"]
+    resident_only = argv == ["--resident"]
     if argv[:1] == ["--k3-replay"] and len(argv) == 2:
         replay_dir = argv[1]
     elif argv[:1] == ["--k3-time"] and len(argv) == 2:
         time_kinds = argv[1].split(",")
     elif argv and not (k2_time or k1_time or sharded_only or fused_only or dryrun_only
-                       or k4_time_args is not None):
+                       or resident_only or k4_time_args is not None):
         print("usage: python3 chip_smoke.py [--k3-replay DIR | --k3-time KIND[,KIND...] | "
               "--k2-time | --k1-time | --k4-time [OLDER_ROUND_APPEND.cu] | --sharded | "
-              "--fused | --dryrun]",
+              "--fused | --dryrun | --resident]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -1989,6 +2183,12 @@ def main(argv):
         return 0
     if dryrun_only:
         devices_phase(torch, mods, label)
+        tmp.cleanup()
+        print(smi)
+        return 0
+    if resident_only:
+        resident_phase(torch, mods, tmp.name, regenerate_large(alphabet, fasta, tmp.name), None,
+                       True, label)
         tmp.cleanup()
         print(smi)
         return 0
@@ -2116,8 +2316,9 @@ def main(argv):
     oracle_launches = lcb_phase(torch, mods, os.path.join(tmp.name, "maf", "tpu", "alignment.maf"),
                                 large_fa, os.path.join(tmp.name, "lcb"), label)
     shard_paths = sharded_phase(torch, mods, tmp.name, large_fa, large_golden, bench_fa, label)
-    fused_launches = fused_phase(torch, mods, tmp.name, large_fa, label)
+    fused_launches, fused13 = fused_phase(torch, mods, tmp.name, large_fa, label)
     devices_paths = devices_phase(torch, mods, label)
+    resident_launches = resident_phase(torch, mods, tmp.name, large_fa, fused13, False, label)
     tmp.cleanup()
 
     src = "sibeliaz_tpu_torch/csrc/"
@@ -2131,8 +2332,9 @@ def main(argv):
     # that outgrows every round (the hand-over, and the host-bucketed
     # rounds alone), and the oracle LCB engine's CLI run (phase 11), and
     # the sharded graph stage's runs and the POA spread (phase 12), and the
-    # tpu-fused LCB engine's CLI run (phase 13), and the dry run on
-    # cuda:0,cuda:0 and entry() (phase 14)
+    # tpu-fused LCB engine's CLI run (phase 13), the dry run on
+    # cuda:0,cuda:0 and entry() (phase 14), and the resident LCB engine's
+    # CLI run (phase 15)
     paths = {"examples/large -n": large_launches_by_k[25],
              "examples/large -k 33 -n": large_launches_by_k[33],
              "examples/ --align-engine tpu": maf_launches,
@@ -2141,7 +2343,8 @@ def main(argv):
              "examples/ --lcb-engine oracle -n": oracle_launches,
              **shard_paths,
              "examples/ --lcb-engine tpu-fused -n": fused_launches,
-             **devices_paths}
+             **devices_paths,
+             "examples/ --lcb-engine tpu -n": resident_launches}
 
     def by_path(kernel):
         return {path: counts.get(kernel, 0) for path, counts in paths.items()}

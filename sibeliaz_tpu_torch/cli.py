@@ -2,23 +2,26 @@
 (`python -m sibeliaz_tpu_torch [-k -b -m -a -t -f -o -n] <fasta...>`), plus
 `--device {cuda,cpu}`.
 
-The port runs FASTA -> GFF with the native LCB engine, or the host oracle
-engine under `--lcb-engine oracle` (the same GFF, for small inputs: it is
-the LCB stage's executable specification, in Python), and then, unless
-`-n` is given, the alignment stage -> MAF with either POA engine:
-`--align-engine native` (host C++) or `--align-engine tpu` (the batched
-device DP on the card; the name is the JAX package's, so that the same
-command lines run on both).  `--lcb-engine tpu-fused` runs the fused LCB
-state machine on the card (under `--device cpu`, its torch ops on the
-host): the same GFF as the native engine, its vote memory bounded by `-f`.  An input whose monolithic graph stage does not
-fit the card (or the `-f` budget), or that has 2^31 positions or more, runs
-the streamed graph stage, in rounds resident on the card, with the same
-records, up to 2^51 positions; a vertex class that outgrows every round
-finishes in host-bucketed rounds, as in the JAX package.  It refuses, and
-never falls back, for: no CUDA card under the default `--device cuda`;
-`--lcb-engine tpu` (the resident device engine, under ROADMAP.md's "Do not
-port").  k is odd, 3 to 61, as in the JAX package.  The post-processing
-tools run as `python -m sibeliaz_tpu_torch.tools`.
+The port runs FASTA -> GFF, and then, unless `-n` is given, the alignment
+stage -> MAF.  On `--device` (the card by default; under `--device cpu`
+the kernels' plain PyTorch versions and the torch ops run on the host):
+the graph stage; the device LCB engines, `--lcb-engine tpu-fused` (the
+fused state machine, its vote memory bounded by `-f`) and `--lcb-engine
+tpu` (the resident lanes with a host protocol a lane); and the device POA
+engine, `--align-engine tpu` (the batched DP).  On the host: the native
+LCB engine (the default), the oracle LCB engine (`--lcb-engine oracle`:
+the LCB stage's executable specification, in Python, for small inputs)
+and the native POA engine (the default).  Every LCB engine writes the same
+GFF, every POA engine the same MAF; the engine names are the JAX
+package's, so that the same command lines run on both.  An input whose
+monolithic graph stage does not fit the card (or the `-f` budget), or that
+has 2^31 positions or more, runs the streamed graph stage, in rounds
+resident on the card, with the same records, up to 2^51 positions; a
+vertex class that outgrows every round finishes in host-bucketed rounds,
+as in the JAX package.  It refuses, and never falls back, where the
+default `--device cuda` finds no CUDA card.  k is odd, 3 to 61, as in the
+JAX package.  The post-processing tools run as `python -m
+sibeliaz_tpu_torch.tools`.
 """
 
 from __future__ import annotations
@@ -69,13 +72,14 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument(
         "--lcb-engine", choices=("native", "oracle", "tpu", "tpu-fused"),
         default="native",
-        help="LCB exploration engine (the port runs native, oracle and "
-        "tpu-fused, the fused state machine on --device; tpu is refused)",
+        help="LCB exploration engine (native and oracle on the host; on "
+        "--device, tpu-fused = the fused state machine, tpu = the resident "
+        "lanes with a host protocol a lane; identical output)",
     )
     p.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
-        help="device of the graph stage, the tpu-fused LCB engine and the "
-        "device POA engine; cpu runs the kernels' plain PyTorch versions",
+        help="device of the graph stage, the tpu and tpu-fused LCB engines "
+        "and the device POA engine; cpu runs the kernels' plain PyTorch versions",
     )
     p.add_argument("fastas", nargs="+", help="FASTA files with genomes")
 
@@ -111,10 +115,6 @@ def run(argv: Optional[List[str]] = None) -> int:
     from sibeliaz_tpu_torch.io import fasta as fasta_io
     from sibeliaz_tpu_torch.utils.metrics import GLOBAL as metrics
 
-    try:
-        pipeline.check_engine(args.lcb_engine)
-    except NotImplementedError as e:
-        raise SystemExit(f"sibeliaz-tpu-torch: {e}") from None
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
             "sibeliaz-tpu-torch: --device cuda, but no CUDA device is "

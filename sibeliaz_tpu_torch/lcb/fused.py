@@ -71,11 +71,12 @@ A port of sibeliaz_tpu/lcb/fused.py.  How it differs:
     device.  Each slice's result comes back through the compact fetch
     (`instances_from_compact`, exact), where the mesh path fetches the
     whole slab.  `fused_slices` counts the slices run;
-  * `lanes_from_numpy`, `carry_from_numpy` and `tables_from_numpy` take
-    lane state, a carry and tables as numpy arrays (for example the JAX
-    package's, fetched with np.asarray), so that tests can start both
-    engines from one state; `_phase_fused_seg` (the JAX function of that
-    name: lanes stepped to a step limit, no compaction) serves them.
+  * `carry_from_numpy` and `tables_from_numpy` take a carry and tables
+    as numpy arrays (for example the JAX package's, fetched with
+    np.asarray; lane state through `resident.lanes_from_numpy` and
+    `state_from_numpy`), so that tests can start both engines from one
+    state; `_phase_fused_seg` (the JAX function of that name: lanes
+    stepped to a step limit, no compaction) serves them.
 
 Nothing is left out: the JAX CLI never passes a mesh, so the port's CLI
 has no flag for a device list.
@@ -85,7 +86,7 @@ from __future__ import annotations
 
 import functools
 import time
-from typing import Dict, List, Sequence
+from typing import List, Sequence
 
 import numpy as np
 import torch
@@ -97,8 +98,6 @@ from sibeliaz_tpu_torch.lcb.batched_push_device import (
     P_CAP,
     DeviceLanes,
     DeviceTables,
-    _clip,
-    edge_of,
 )
 from sibeliaz_tpu_torch.lcb.oracle import Bundle, Instance, LcbEngine
 from sibeliaz_tpu_torch.lcb.resident import (
@@ -107,14 +106,17 @@ from sibeliaz_tpu_torch.lcb.resident import (
     _device_tables,
     _lanes_where,
     _pad_pow2,
-    _push_score_snap,
     _score_of,
     _seed_lanes,
     _seed_lanes_device,
+    _state_from_leaves,
+    _state_leaves,
+    _tensor,
     _vote_gathered,
-    instances_from_compact,
-    instances_from_snapshot,
-    snapshot_to_host,
+    _walk_pushes,
+    check_device,
+    decode,
+    state_from_numpy,
 )
 from sibeliaz_tpu_torch.utils.metrics import GLOBAL as metrics
 
@@ -151,36 +153,12 @@ def _fetch(t: torch.Tensor) -> np.ndarray:
 def _walk_chunk(tb: DeviceTables, st: ResidentState, valid, c, i0, s, fwd, tvid, last0,
                 m: int, b: int, flank: int):
     """Advance every valid mid-walk lane by up to WALK_CHUNK pushes toward
-    its target vid tvid.  last0 carries the walk's last-push-success
-    register across chunks.  Each push reads (any lane active, the largest
-    occurrence count of an active lane's pushed vertex) in one fetch; an
-    iteration with no active lane does not run.  Returns (state, i2, last,
-    score, at_target)."""
-    nj = tb.jid.shape[0] - 1
-    base = tb.chr_off[_clip(c, tb.chr_off.shape[0] - 2)]
-
-    def vid_at(i):
-        return s * tb.jid[_clip(base + i, nj)]
-
-    active = valid & (vid_at(i0) != tvid)
-    i, last = i0, last0
-    for _ in range(WALK_CHUNK):
-        eu, ev, ech, _, elen = edge_of(tb, c, i, s, fwd)
-        av = torch.where(fwd, ev, eu).abs()
-        occ_cnt = (tb.occ_off[_clip(av + 1, tb.occ_off.shape[0] - 1)]
-                   - tb.occ_off[_clip(av, tb.occ_off.shape[0] - 2)])
-        go, mo = _fetch(torch.stack([active.any().long(),
-                                     torch.where(active, occ_cnt, 0).max()])).tolist()
-        if not go:
-            break
-        metrics.count("fused_pushes")
-        metrics.count("fused_occ_steps", mo)
-        st, success, _, _, _, ovf = _push_score_snap(
-            mo, fwd, tb, st, eu, ev, ech, elen, active, m, b, flank)
-        i = torch.where(active, i + torch.where(fwd, s, -s), i)
-        last = torch.where(active, success, last)
-        active = active & (vid_at(i) != tvid) & ~ovf
-    return st, i, last, _score_of(tb, st.ln, flank), vid_at(i) == tvid
+    its target vid tvid (`resident._walk_pushes`: one fetch a push).  last0
+    carries the walk's last-push-success register across chunks.  Returns
+    (state, i2, last, score, at_target)."""
+    st, i, last, at_target = _walk_pushes(tb, st, c, i0, s, fwd, tvid, valid, last0, m, b, flank,
+                                          WALK_CHUNK, _fetch, "fused")
+    return st, i, last, _score_of(tb, st.ln, flank), at_target
 
 
 def _init_carry(st: ResidentState, active0, L: int):
@@ -319,16 +297,13 @@ def _phase_fused_seg(CAP: int, W: int, slab_max: bool, tb: DeviceTables, carry,
 
 def _leaves(carry) -> list:
     """The carry's lane-leading tensors, in a fixed order."""
-    st = carry["st"]
-    return ([getattr(lanes, f) for lanes in (st.ln, st.rw, st.sn) for f in LANE_FIELDS]
-            + [st.best_score, st.has_snap] + [carry[r] for r in CARRY_REGISTERS])
+    return _state_leaves(carry["st"]) + [carry[r] for r in CARRY_REGISTERS]
 
 
 def _from_leaves(leaves, steps: int):
-    n = len(LANE_FIELDS)
-    st = ResidentState(*(DeviceLanes(*leaves[q * n:(q + 1) * n]) for q in range(3)),
-                       best_score=leaves[3 * n], has_snap=leaves[3 * n + 1])
-    return dict(st=st, steps=steps, **dict(zip(CARRY_REGISTERS, leaves[3 * n + 2:])))
+    n = 3 * len(LANE_FIELDS) + 2
+    return dict(st=_state_from_leaves(leaves[:n]), steps=steps,
+                **dict(zip(CARRY_REGISTERS, leaves[n:])))
 
 
 def _carry_map(fn, carry):
@@ -491,25 +466,6 @@ def _run_tier_slices(eng: LcbEngine, tbs, devices, bundles: Sequence[Bundle], L:
     return parts, has_snap, retier, hostfb, steps
 
 
-def _decode(parts, want) -> Dict[int, List[Instance]]:
-    """{lane -> instances} for the lanes where `want` is set, from the
-    result slabs [(slab, its first lane, its lanes)]: a compact fetch a
-    slab (~80 B per good instance instead of the full [lanes, IC] x 11
-    slab), the full slab where the compact buffer overflows."""
-    out: Dict[int, List[Instance]] = {}
-    for sn, lo, lanes in parts:
-        rows = [int(j) for j in np.flatnonzero(want[lo:lo + lanes])]
-        if not rows:
-            continue
-        comp = instances_from_compact(sn, rows, lanes, _fetch)
-        if comp is None:
-            metrics.count("fused_host_syncs")
-            h = snapshot_to_host(sn)
-            comp = {j: instances_from_snapshot(h, j) for j in rows}
-        out.update((lo + j, insts) for j, insts in comp.items())
-    return out
-
-
 def tiers_of(eng: LcbEngine, bundles: Sequence[Bundle], full_width: bool = False):
     """The phase's tier ladder: (CAP, W0) with CAP sized from the seed
     counts, then I_CAP at W0, then the wider windows up to WIDE_W.  W0 is
@@ -603,7 +559,7 @@ def process_phase_fused(eng: LcbEngine, bundles: Sequence[Bundle], vote_budget=N
             metrics.count(f"fused_steps_tier{t}", steps)
             metrics.count(f"fused_lanes_tier{t}", len(group))
             n = len(group)
-            decoded = _decode(parts, snap[:n] & ~hostfb[:n] & ~retier[:n])
+            decoded = decode(parts, snap[:n] & ~hostfb[:n] & ~retier[:n], _fetch)
             for j, i in enumerate(group):
                 if hostfb[j] or (retier[j] and last):
                     oracle.append(i)
@@ -630,9 +586,8 @@ def run_fused(eng: LcbEngine, device="cuda", vote_budget=None, devices=None):
 
     if devices is not None:
         device = _check_devices(devices)[0]
-    elif torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"run_fused on {device}: no CUDA device is visible; pass "
-                           'device="cpu" to run the torch ops on the host')
+    else:
+        check_device(device, "run_fused")
     return eng.run(
         process_batch_fn=functools.partial(
             process_phase_fused, vote_budget=vote_budget, device=device, devices=devices),
@@ -645,27 +600,11 @@ def run_fused(eng: LcbEngine, device="cuda", vote_budget=None, devices=None):
 # --------------------------------------------------------------------------
 
 
-def _tensor(a, device) -> torch.Tensor:
-    a = np.array(a)
-    return torch.from_numpy(a if a.dtype == bool else a.astype(np.int64)).to(device)
-
-
-def lanes_from_numpy(fields, device="cuda") -> DeviceLanes:
-    """DeviceLanes from a mapping of field name -> array."""
-    return DeviceLanes(*(_tensor(fields[f], device) for f in LANE_FIELDS))
-
-
 def carry_from_numpy(carry, device="cuda"):
-    """A carry from a mapping: "st" -> {"ln", "rw", "sn" (lane-field
-    mappings), "best_score", "has_snap"}, every register of
-    CARRY_REGISTERS -> array, "steps" -> int."""
-    st = carry["st"]
-    return dict(
-        st=ResidentState(lanes_from_numpy(st["ln"], device), lanes_from_numpy(st["rw"], device),
-                         lanes_from_numpy(st["sn"], device),
-                         _tensor(st["best_score"], device), _tensor(st["has_snap"], device)),
-        steps=int(carry["steps"]),
-        **{r: _tensor(carry[r], device) for r in CARRY_REGISTERS})
+    """A carry from a mapping: "st" -> the mapping resident.state_from_numpy
+    takes, every register of CARRY_REGISTERS -> array, "steps" -> int."""
+    return dict(st=state_from_numpy(carry["st"], device), steps=int(carry["steps"]),
+                **{r: _tensor(carry[r], device) for r in CARRY_REGISTERS})
 
 
 def tables_from_numpy(fields, k: int, device="cuda") -> DeviceTables:

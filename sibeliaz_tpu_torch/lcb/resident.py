@@ -1,5 +1,6 @@
-"""Device-resident lane state of the fused LCB engine: snapshots, score,
-vote, seeding and the result decode, in torch ops.
+"""Resident device LCB engine (`--lcb-engine tpu`), and the lane state,
+snapshots, score, vote, seeding and result decode that it shares with the
+fused engine (lcb/fused.py), in torch ops.
 
 The whole phase's lane state lives on one device:
 
@@ -13,10 +14,19 @@ The whole phase's lane state lives on one device:
     slab restore: replaying the successful-push prefix from the seed
     against the phase-frozen `used` snapshot reproduces the state at the
     improving push exactly, so snapshotting at each improvement IS the
-    replay result.
+    replay result;
+  * the per-lane protocol (forward minRun sweeps, rewind, backward sweeps
+    with the stray-';' semantics, blocksfinder.h:228-310) stays a host
+    generator a lane (`_protocol`) that touches only mirror scalars; each
+    round `process_phase_resident` gathers the lanes' requests into one
+    vote call a tier, one walk call and one rewind call.
 
-A partial port of sibeliaz_tpu/lcb/resident.py: the helpers that
-sibeliaz_tpu/lcb/fused.py imports.  How it differs:
+Lanes exceeding a capacity (instances I_CAP, path P_CAP, the last vote
+tier's window) go to the host oracle for that bundle (`eng.process`): the
+JAX package's capacity policy, not a device fallback.  The serial
+validate/commit loop stays in LcbEngine.run.
+
+A port of sibeliaz_tpu/lcb/resident.py.  How it differs:
 
   * `jax.lax.sort` on several keys: the vote's group-by runs one stable
     `torch.sort` of the vote keys after ordering each lane's instances by
@@ -28,19 +38,53 @@ sibeliaz_tpu/lcb/fused.py imports.  How it differs:
     winner);
   * `vmap(searchsorted)` is `torch.searchsorted` on [L, C] rows;
     `associative_scan` is `cummin`/`cumsum`/`cummax`;
+  * `_walk_device` is a host loop of torch ops (`_walk_pushes`, which the
+    fused engine's walk chunks share) in place of a jitted `while_loop`:
+    each push reads (any lane active, the largest occurrence count of an
+    active lane's pushed vertex) in one fetch, and the loop ends after
+    `_MAX_WALK` pushes without a flag, as the JAX loop does.  It and
+    `_rewind_rows` take `rows` with the sentinel L, as the JAX functions
+    do; the gather clips a sentinel to lane L-1 and the scatter drops it
+    (a scratch row past the lanes takes it, `mode="drop"`);
+  * `process_phase_resident` and `run_resident` take the device ("cuda"
+    unless the caller passes "cpu").  Nothing is compiled per shape, so
+    the vote and walk rows are not padded to a power of two: each call
+    takes exactly the lanes that asked, a vote's instance columns are cut
+    to their largest count (`_vote_gathered`'s `n_max`), and the host's
+    arguments of a call go to the device in one copy.  Every read of the
+    device is one fetch (a vote call's six results, a walk's six, a
+    rewind's three flank and count rows, the seed counts and flags); the
+    result slabs come back through the compact fetch (`decode`), where the
+    JAX engine fetches the whole slab;
+  * what `SZ_RESIDENT_STATS` printed are `utils/metrics` counters:
+    `resident_phases`, `resident_rounds`, `resident_vote_calls` (one a
+    vote call, where the JAX engine counts rounds with votes),
+    `resident_vote_retries` (lanes sent on to the last tier),
+    `resident_vote_s`, `resident_walk_calls`, `resident_walk_s`,
+    `resident_pushes` and `resident_occ_steps` (the walk's lockstep
+    pushes and the occurrence steps they ran), `resident_rewind_s`,
+    `resident_oracle_lanes` and `resident_host_syncs` (one a read of the
+    device); the seconds are the host's, and each ends in a read of the
+    device, so each holds its device work;
   * `_device_tables` caches the tables on the engine, one copy a device;
   * `_seed_lanes_device` returns the seed counts and overflow flags on the
     device, for the caller to read in one fetch;
-  * `_seed_lanes` (the host seeding of the lanes over a device list) takes
-    the device its lanes go to.
+  * `_seed_lanes` (the host seeding of the fused lanes over a device list)
+    takes the device its lanes go to;
+  * `lanes_from_numpy` and `state_from_numpy` take lane state as numpy
+    arrays (for example the JAX package's, fetched with np.asarray), so
+    that tests can start both engines from one state.
 
-Left out: `run_resident`, its protocol generator and per-round programs
-(ROADMAP "Do not port").
+Left out: `_push_round`, a jitted single-direction push round that nothing
+calls (a grep of the JAX package, its tests and its benchmarks finds no
+caller).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -58,10 +102,14 @@ from sibeliaz_tpu_torch.lcb.batched_push_device import (
     DeviceTables,
     _clip,
     _push_impl_traced,
+    edge_of,
 )
 from sibeliaz_tpu_torch.lcb.oracle import NEG_INF_SCORE, Bundle, Instance, LcbEngine
+from sibeliaz_tpu_torch.utils.metrics import GLOBAL as metrics
 
 PHASE_LANES = 256
+VOTE_TIERS = ((64, 16), (I_CAP, 16), (I_CAP, 256))  # (instance cap, window)
+_MAX_WALK = 2048  # safety bound; walks are <= the vote window by design
 _I64_MAX = torch.iinfo(torch.int64).max
 
 
@@ -79,6 +127,41 @@ def _lanes_where(mask, a: DeviceLanes, b: DeviceLanes) -> DeviceLanes:
         return torch.where(mask.view((-1,) + (1,) * (x.dim() - 1)), x, y)
 
     return DeviceLanes(*(sel(getattr(a, f), getattr(b, f)) for f in LANE_FIELDS))
+
+
+def _state_leaves(st: ResidentState) -> list:
+    """The state's lane-leading tensors, in a fixed order."""
+    return ([getattr(lanes, f) for lanes in (st.ln, st.rw, st.sn) for f in LANE_FIELDS]
+            + [st.best_score, st.has_snap])
+
+
+def _state_from_leaves(leaves) -> ResidentState:
+    n = len(LANE_FIELDS)
+    return ResidentState(*(DeviceLanes(*leaves[q * n:(q + 1) * n]) for q in range(3)),
+                         best_score=leaves[3 * n], has_snap=leaves[3 * n + 1])
+
+
+def _scatter_rows(full, rows, part):
+    """`full` with its rows `rows` replaced by the rows of `part` (out of
+    place); a row index of len(full) or more is dropped (JAX's
+    `.at[rows].set(..., mode="drop")`): it lands on a scratch row past the
+    end."""
+    L = full.shape[0]
+    return torch.cat([full, full[:1]]).index_copy(0, rows.clamp(max=L), part)[:L]
+
+
+def _fetch(t: torch.Tensor) -> np.ndarray:
+    """A device tensor on the host: one counted host sync."""
+    metrics.count("resident_host_syncs")
+    return t.cpu().numpy()
+
+
+def check_device(device, who: str) -> None:
+    """Raise where `device` is a CUDA device and none is visible: nothing
+    falls back to the CPU."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who} on {device}: no CUDA device is visible; pass "
+                           'device="cpu" to run the torch ops on the host')
 
 
 # --------------------------------------------------------------------------
@@ -119,6 +202,77 @@ def _push_score_snap(max_occ: int, fwd, tb: DeviceTables, st: ResidentState,
     new_st = ResidentState(ln=out, rw=rw, sn=sn, best_score=best_score,
                            has_snap=st.has_snap | snap)
     return new_st, success, score, improved, out.n, out.overflow
+
+
+def _walk_pushes(tb: DeviceTables, st: ResidentState, c, i, s, fwd, tvid, active, last,
+                 m: int, b: int, flank: int, limit: int, fetch, prefix: str):
+    """Up to `limit` lockstep pushes of the active lanes, each from its
+    iterator (chr c, idx i, strand s) one junction on in its direction
+    fwd, until it reaches its target vid tvid or overflows.  `last` carries
+    the last push's success.  Each push reads (any lane active, the largest
+    occurrence count of an active lane's pushed vertex) in one `fetch`; an
+    iteration with no active lane does not run.  Counts `<prefix>_pushes`
+    and `<prefix>_occ_steps`.  Returns (state, i, last, at target)."""
+    nj = tb.jid.shape[0] - 1
+    base = tb.chr_off[_clip(c, tb.chr_off.shape[0] - 2)]
+
+    def vid_at(i):
+        return s * tb.jid[_clip(base + i, nj)]
+
+    active = active & (vid_at(i) != tvid)
+    for _ in range(limit):
+        eu, ev, ech, _, elen = edge_of(tb, c, i, s, fwd)
+        av = torch.where(fwd, ev, eu).abs()
+        occ_cnt = (tb.occ_off[_clip(av + 1, tb.occ_off.shape[0] - 1)]
+                   - tb.occ_off[_clip(av, tb.occ_off.shape[0] - 2)])
+        go, mo = fetch(torch.stack([active.any().long(),
+                                    torch.where(active, occ_cnt, 0).max()])).tolist()
+        if not go:
+            break
+        metrics.count(f"{prefix}_pushes")
+        metrics.count(f"{prefix}_occ_steps", mo)
+        st, success, _, _, _, ovf = _push_score_snap(
+            mo, fwd, tb, st, eu, ev, ech, elen, active, m, b, flank)
+        i = torch.where(active, i + torch.where(fwd, s, -s), i)
+        last = torch.where(active, success, last)
+        active = active & (vid_at(i) != tvid) & ~ovf
+    return st, i, last, vid_at(i) == tvid
+
+
+def _walk_device(tb: DeviceTables, st: ResidentState, rows, c, i0, s, fwd, tvid,
+                 m: int, b: int, flank: int):
+    """Walk each gathered lane from its vote origin to the winner: all
+    lanes step in lockstep (`_walk_pushes`, at most _MAX_WALK pushes),
+    each push's edge from edge_of, the mixed-direction push + score +
+    snapshot applied per push.  Returns (state, last-push success, current
+    score, n, right flank, left flank, overflow) per gathered row: the only
+    scalars the host protocol needs (path-end vertices live in the rv/lv
+    lane registers).
+
+    `rows` is [A] with sentinel L for padding (its lane is inert, its row
+    dropped on the way back); (c, i0, s) is the vote's origin iterator,
+    tvid the winning vertex (blocksfinder.h:770-895)."""
+    L = st.ln.chr.shape[0]
+    take = _clip(rows, L - 1)
+    work = _state_from_leaves([x.index_select(0, take) for x in _state_leaves(st)])
+    work, _, last, _ = _walk_pushes(tb, work, c, i0, s, fwd, tvid, rows < L,
+                                    torch.zeros_like(fwd), m, b, flank, _MAX_WALK, _fetch,
+                                    "resident")
+    st = _state_from_leaves([_scatter_rows(full, rows, w) for full, w in
+                             zip(_state_leaves(st), _state_leaves(work))])
+    score = _score_of(tb, work.ln, flank)
+    return (st, last, score, work.ln.n, work.ln.right_flank, work.ln.left_flank,
+            work.ln.overflow)
+
+
+def _rewind_rows(st: ResidentState, rows) -> ResidentState:
+    """Masked slab restore for the gathered lanes (sentinel rows dropped)."""
+    take = _clip(rows, st.ln.chr.shape[0] - 1)
+    ln = DeviceLanes(*(_scatter_rows(getattr(st.ln, f), rows,
+                                     getattr(st.rw, f).index_select(0, take))
+                       for f in LANE_FIELDS))
+    return ResidentState(ln=ln, rw=st.rw, sn=st.sn, best_score=st.best_score,
+                         has_snap=st.has_snap)
 
 
 # --------------------------------------------------------------------------
@@ -419,9 +573,14 @@ _SNAP_FIELDS = ("chr", "s", "fi", "bi", "fdist", "bdist", "cmp", "ffin", "bfin",
 _COMPACT_FIELDS = INSTANCE_FIELDS[:9]
 
 
-def snapshot_to_host(sn: DeviceLanes) -> Dict[str, np.ndarray]:
-    """Fetch the result-slab fields needed to decode Instances."""
-    return {f: getattr(sn, f).cpu().numpy() for f in _SNAP_FIELDS}
+def snapshot_to_host(sn: DeviceLanes, fetch=None) -> Dict[str, np.ndarray]:
+    """Fetch the result-slab fields needed to decode Instances, in one read
+    (`fetch`, where given, is the caller's counted read)."""
+    fetch = fetch or (lambda t: t.cpu().numpy())
+    L, IC = sn.chr.shape
+    fields = [getattr(sn, f).long() for f in _SNAP_FIELDS[:-1]]
+    h = fetch(torch.stack(fields + [sn.n.long()[:, None].expand(L, IC)]))
+    return {**{f: h[q] for q, f in enumerate(_SNAP_FIELDS[:-1])}, "n": h[-1, :, 0]}
 
 
 def _snap_compact_impl(M_CAP: int, sn: DeviceLanes, want):
@@ -495,3 +654,276 @@ def instances_from_snapshot(h: Dict[str, np.ndarray], i: int) -> List[Instance]:
         inst.bfin = bool(h["bfin"][i][q])
         out.append(inst)
     return out
+
+
+def decode(parts, want, fetch) -> Dict[int, List[Instance]]:
+    """{lane -> instances} for the lanes where `want` is set, from the
+    result slabs [(slab, its first lane, its lanes)]: a compact fetch a
+    slab (~80 B per good instance instead of the full [lanes, IC] x 11
+    slab), the full slab where the compact buffer overflows.  `fetch` is
+    the caller's counted read."""
+    out: Dict[int, List[Instance]] = {}
+    for sn, lo, lanes in parts:
+        rows = [int(j) for j in np.flatnonzero(want[lo:lo + lanes])]
+        if not rows:
+            continue
+        comp = instances_from_compact(sn, rows, lanes, fetch)
+        if comp is None:
+            h = snapshot_to_host(sn, fetch)
+            comp = {j: instances_from_snapshot(h, j) for j in rows}
+        out.update((lo + j, insts) for j, insts in comp.items())
+    return out
+
+
+# --------------------------------------------------------------------------
+# per-lane protocol generator (pure control flow; all path state on device)
+# --------------------------------------------------------------------------
+
+
+class _Lane:
+    """Host-visible scalars of one lane, refreshed from device returns."""
+
+    __slots__ = ("score", "right_flank", "left_flank", "n")
+
+    def __init__(self, n: int) -> None:
+        self.score = 0
+        self.right_flank = 0
+        self.left_flank = 0
+        self.n = n
+
+
+def _protocol(eng: LcbEngine, lane: _Lane):
+    """Process() control flow; yields primitive requests.
+
+    Requests: ("vote", forward, try_used) -> (vid, origin_it | None, cnt)
+              ("walk", forward, origin_it, target_vid)
+                  -> (success, score, right_flank, left_flank)
+              ("rewind",) -> (right_flank, left_flank, score)
+
+    The path itself (instances, end vertices, flanks, best snapshots) lives
+    entirely on device; the generator only sequences vote/walk/rewind and
+    applies the minRun/positivity rules (blocksfinder.h:228-310).  The
+    oracle's mir.score-after-last-successful-push equals the lane's current
+    score (failed pushes do not mutate), so the walk's returned score is
+    exact."""
+    min_run = eng.b * 2
+
+    def middle_length():
+        return lane.right_flank - lane.left_flank
+
+    def extend(forward):
+        vid, origin, _ = yield ("vote", forward, False)
+        if forward and vid == 0:
+            vid, origin, _ = yield ("vote", True, True)
+        success = False
+        if vid != 0:
+            res = yield ("walk", forward, origin, vid)
+            success, lane.score, lane.right_flank, lane.left_flank = res
+        return success
+
+    # forward sweep (blocksfinder.h:252-284)
+    while True:
+        positive = False
+        prev_len = middle_length()
+        while True:
+            ret = yield from extend(True)
+            if not (ret and middle_length() - prev_len <= min_run):
+                break
+            positive = positive or (lane.score > 0)
+        if not ret or not positive:
+            break
+    # rewind to best prefix: device slab restore
+    lane.right_flank, lane.left_flank, lane.score = yield ("rewind",)
+    # backward sweep with the stray-';' semantics (blocksfinder.h:292-306)
+    while True:
+        prev_len = middle_length()
+        while True:
+            ret = yield from extend(False)
+            if not (ret and middle_length() - prev_len <= min_run):
+                break
+        positive = lane.score > 0
+        if not ret or not positive:
+            break
+    return None
+
+
+# --------------------------------------------------------------------------
+# phase driver
+# --------------------------------------------------------------------------
+
+
+def process_phase_resident(eng: LcbEngine, bundles: Sequence[Bundle], device="cuda"
+                           ) -> List[List[Instance]]:
+    """Explore every bundle of a phase with its lane state resident on
+    `device`.  Each round gathers the lanes' pending requests: the votes
+    go out in one call a tier (a window overflow retries at the last tier,
+    and an overflow there sends the lane to the host oracle), the walks in
+    one call, the rewinds in one call."""
+    nb = len(bundles)
+    if nb == 0:
+        return []
+    metrics.count("resident_phases")
+    L = PHASE_LANES if nb > 32 else _pad_pow2(nb, 32)
+    tb = _device_tables(eng, device)
+    dev = tb.jid.device
+
+    ln, n_t, ovf_t = _seed_lanes_device(tb, bundles, L)
+    n_host, seed_ovf = _fetch(torch.stack([n_t, ovf_t.long()]))
+    st = ResidentState(ln=ln, rw=ln, sn=ln,
+                       best_score=torch.zeros(L, dtype=torch.int64, device=dev),
+                       has_snap=torch.zeros(L, dtype=torch.bool, device=dev))
+    lanes = [_Lane(int(n_host[i])) for i in range(nb)]
+    fallback = [bool(seed_ovf[i]) for i in range(nb)]
+    gens: List[Optional[object]] = []
+    pending: List[Optional[tuple]] = [None] * nb
+
+    def start(i):
+        if fallback[i]:
+            gens.append(None)
+            return
+        g = _protocol(eng, lanes[i])
+        gens.append(g)
+        try:
+            pending[i] = g.send(None)
+        except StopIteration:
+            gens[i] = None
+
+    def resume(i, value):
+        try:
+            pending[i] = gens[i].send(value)
+        except StopIteration:
+            pending[i] = None
+            gens[i] = None
+
+    def kill(i):
+        """Capacity overflow: abandon the lane, host oracle takes over."""
+        fallback[i] = True
+        pending[i] = None
+        gens[i] = None
+
+    def upload(*cols):
+        """A call's host arguments as one [len(cols), A] int64 copy."""
+        return torch.from_numpy(np.array(cols, np.int64).reshape(len(cols), -1)).to(dev)
+
+    for i in range(nb):
+        start(i)
+
+    while any(g is not None for g in gens):
+        metrics.count("resident_rounds")
+        votes: List[int] = []
+        walks: List[int] = []
+        rewinds: List[int] = []
+        for i, p in enumerate(pending):
+            if p is None or gens[i] is None:
+                continue
+            if p[0] == "vote":
+                votes.append(i)
+            elif p[0] == "walk":
+                walks.append(i)
+            else:
+                rewinds.append(i)
+
+        # ---- votes: gathered read-only vote with tier escalation ----
+        group = votes
+        tier = 0
+        t0 = time.perf_counter()
+        while group:
+            max_n = max(lanes[i].n for i in group)
+            while VOTE_TIERS[tier][0] < max_n:
+                tier += 1
+            CAP, W = VOTE_TIERS[tier]
+            idx, fwd, tu = upload(group, [pending[i][1] for i in group],
+                                  [pending[i][2] for i in group])
+            out = _vote_gathered(CAP, W, tb, st.ln, idx, torch.ones_like(fwd, dtype=torch.bool),
+                                 fwd.bool(), tu.bool(), eng.depth, eng.b, max_n)
+            metrics.count("resident_vote_calls")
+            bvid, bcnt, ochr, oidx, ostr, ovf = _fetch(torch.stack(out))
+            retry: List[int] = []
+            last = tier == len(VOTE_TIERS) - 1
+            for j, i in enumerate(group):
+                if ovf[j]:
+                    if last:
+                        kill(i)
+                    else:
+                        retry.append(i)
+                elif bvid[j] == 0:
+                    resume(i, (0, None, 0))
+                else:
+                    origin = (int(ochr[j]), int(oidx[j]), int(ostr[j]))
+                    resume(i, (int(bvid[j]), origin, int(bcnt[j])))
+            metrics.count("resident_vote_retries", len(retry))
+            group = retry
+            tier = len(VOTE_TIERS) - 1  # overflow: jump to the big window
+        if votes:
+            metrics.count("resident_vote_s", time.perf_counter() - t0)
+
+        # ---- walks: one call, mixed directions ----
+        if walks:
+            t0 = time.perf_counter()
+            req = [pending[i] for i in walks]
+            rows, wc, wi, ws, wf, wt = upload(
+                walks, *zip(*(p[2] for p in req)), [p[1] for p in req], [p[3] for p in req])
+            st, *res = _walk_device(tb, st, rows, wc, wi, ws, wf.bool(), wt, eng.m, eng.b,
+                                    eng.flank)
+            last, score, n_w, rfl, lfl, ovf = _fetch(torch.stack([x.long() for x in res]))
+            for j, i in enumerate(walks):
+                if ovf[j]:
+                    kill(i)
+                else:
+                    lanes[i].n = int(n_w[j])
+                    resume(i, (bool(last[j]), int(score[j]), int(rfl[j]), int(lfl[j])))
+            metrics.count("resident_walk_calls")
+            metrics.count("resident_walk_s", time.perf_counter() - t0)
+
+        # ---- rewinds: masked slab restore ----
+        if rewinds:
+            t0 = time.perf_counter()
+            rows = upload(rewinds)[0]
+            st = _rewind_rows(st, rows)
+            nn, rfl, lfl = _fetch(torch.stack([st.ln.n, st.ln.right_flank,
+                                               st.ln.left_flank])[:, rows])
+            for j, i in enumerate(rewinds):
+                lanes[i].n = int(nn[j])
+                resume(i, (int(rfl[j]), int(lfl[j]), 0))
+            metrics.count("resident_rewind_s", time.perf_counter() - t0)
+
+    # ---- collect results: the snapshot flags, then the compact fetch ----
+    snap = _fetch(st.has_snap)[:nb] & ~np.array(fallback)
+    decoded = decode([(st.sn, 0, L)], snap, _fetch)
+    oracle = [i for i in range(nb) if fallback[i]]
+    metrics.count("resident_oracle_lanes", len(oracle))
+    return [eng.process(bundles[i]) if fallback[i] else decoded.get(i, []) for i in range(nb)]
+
+
+def run_resident(eng: LcbEngine, device="cuda"):
+    """Full LCB run with resident-device phase exploration on `device`."""
+    from sibeliaz_tpu_torch.lcb.device_bundles import make_bundles_device
+
+    check_device(device, "run_resident")
+    return eng.run(
+        process_batch_fn=functools.partial(process_phase_resident, device=device),
+        bundles=make_bundles_device(eng.t, device),
+    )
+
+
+# --------------------------------------------------------------------------
+# state from numpy arrays (the JAX package's state, fetched as numpy)
+# --------------------------------------------------------------------------
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.array(a)
+    return torch.from_numpy(a if a.dtype == bool else a.astype(np.int64)).to(device)
+
+
+def lanes_from_numpy(fields, device="cuda") -> DeviceLanes:
+    """DeviceLanes from a mapping of field name -> array."""
+    return DeviceLanes(*(_tensor(fields[f], device) for f in LANE_FIELDS))
+
+
+def state_from_numpy(fields, device="cuda") -> ResidentState:
+    """A ResidentState from a mapping: "ln", "rw", "sn" -> lane-field
+    mappings, "best_score", "has_snap" -> arrays."""
+    return ResidentState(*(lanes_from_numpy(fields[q], device) for q in ("ln", "rw", "sn")),
+                         best_score=_tensor(fields["best_score"], device),
+                         has_snap=_tensor(fields["has_snap"], device))

@@ -1,13 +1,15 @@
 """End-to-end pipeline orchestration (the reference's bash driver, as a
 library; SibeliaZ-LCB/sibeliaz:138-152).
 
-Stages: graph construction (device) -> junction table -> LCB engine (the
-native C++ engine, or the host oracle engine `lcb/oracle.py`) ->
-trim/renumber -> GFF; the CLI then runs the alignment stage (align/msa.py:
-POA per block -> MAF).  Of the JAX package's device LCB engines, the fused
-one runs on the run's device (`lcb/fused.py`, `--lcb-engine tpu-fused`,
-with its vote budget from `-f`) and the resident one is not to be ported
-(ROADMAP.md, "Do not port")."""
+Stages: graph construction (on the run's device) -> junction table (host)
+-> LCB engine -> trim/renumber -> GFF; the CLI then runs the alignment
+stage (align/msa.py: POA per block -> MAF).  The LCB engines, as in the
+JAX package: `native` (the C++ engine, host), `oracle` (the Python
+executable specification, `lcb/oracle.py`, host), and the two device
+engines, which run on the run's device: `tpu-fused` (the fused state
+machine, `lcb/fused.py`, with its vote budget from `-f`) and `tpu`, also
+named `resident` (the resident lanes with a host protocol a lane,
+`lcb/resident.py`)."""
 
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from sibeliaz_tpu_torch.lcb.blocks import Block
 from sibeliaz_tpu_torch.lcb.engine import run_native
 from sibeliaz_tpu_torch.lcb.fused import run_fused, vote_budget_from_bytes
 from sibeliaz_tpu_torch.lcb.oracle import LcbEngine
+from sibeliaz_tpu_torch.lcb.resident import run_resident
 from sibeliaz_tpu_torch.output import gff as gff_mod
 from sibeliaz_tpu_torch.output import trim as trim_mod
 from sibeliaz_tpu_torch.utils.metrics import GLOBAL as metrics
@@ -55,17 +58,14 @@ def build_table(
     return JunctionTable.build(records, list(seqs), list(names), cfg.k, cfg.abundance_threshold)
 
 
+ENGINES = ("native", "oracle", "tpu", "resident", "tpu-fused")
+
+
 def check_engine(engine: str) -> None:
-    if engine in ("native", "oracle", "tpu-fused"):
-        return
-    why = {
-        "tpu": "the resident device engine (run_resident) is listed under "
-        'ROADMAP.md\'s "Do not port"',
-    }.get(engine, "there is no such engine")
-    raise NotImplementedError(
-        f"--lcb-engine {engine}: the port runs the native, oracle and "
-        f"tpu-fused LCB engines; {why}"
-    )
+    if engine not in ENGINES:
+        raise NotImplementedError(
+            f"--lcb-engine {engine}: there is no such engine; the LCB engines are "
+            + ", ".join(ENGINES))
 
 
 def find_blocks(
@@ -82,7 +82,7 @@ def find_blocks(
     metrics.set("vertices", table.n_vertices)
     metrics.set("junction_records", int(sum(len(p) for p in table.jpos)))
     with metrics.stage("lcb_engine", engine=engine):
-        if engine in ("oracle", "tpu-fused"):
+        if engine != "native":
             eng = LcbEngine(
                 table,
                 min_block_size=cfg.min_block_size,
@@ -92,6 +92,8 @@ def find_blocks(
             )
             if engine == "oracle":
                 raw = eng.run()
+            elif engine in ("tpu", "resident"):
+                raw = run_resident(eng, device=device)
             else:
                 vb = (vote_budget_from_bytes(cfg.memory_budget_bytes)
                       if cfg.memory_budget_bytes else None)

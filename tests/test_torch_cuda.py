@@ -727,6 +727,36 @@ def test_run_fused_gff_cuda_matches_cpu(cuda, k):
     assert got.gff == cpu.gff == native.gff and got.blocks_found > 0
 
 
+@pytest.mark.parametrize("tiers", [None, ((64, 2), (512, 2), (512, 256)),
+                                   ((64, 14), (512, 14), (512, 14))])
+def test_resident_phase_cuda_matches_cpu(cuda, monkeypatch, tiers):
+    """process_phase_resident on the card: the CPU's instance lists, lane by
+    lane, and eng.process's, on a 32-bundle phase; with the first tiers'
+    windows cut (votes retry at the last tier) and with every window cut
+    (lanes go to the host oracle)."""
+    from sibeliaz_tpu_torch.lcb import resident
+
+    if tiers:
+        monkeypatch.setattr(resident, "VOTE_TIERS", tiers)
+    eng = fused_case()
+    bundles = make_bundles_device(eng.t, "cpu")[:32]
+    counters = []
+    runs = []
+    for dev in ("cuda", "cpu"):
+        metrics.counters.clear()
+        runs.append(resident.process_phase_resident(eng, bundles, device=dev))
+        counters.append({k: v for k, v in metrics.counters.items()
+                         if k.startswith("resident_") and not k.endswith("_s")})
+
+    def keys(results):
+        return [[(x.c, x.s, x.fi, x.bi, x.fdist, x.bdist, x.cmp, x.ffin, x.bfin) for x in insts]
+                for insts in results]
+
+    assert keys(runs[0]) == keys(runs[1]) == keys(eng.process(b) for b in bundles)
+    assert counters[0] == counters[1] and counters[0]["resident_rounds"] > 0
+    assert any(runs[0])
+
+
 def fused_devices_check(devices):
     """process_phase_fused with the lanes over `devices`: the one-device
     run's instance lists on the card and eng.process's, lane by lane; the

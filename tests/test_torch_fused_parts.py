@@ -166,7 +166,7 @@ def test_vote_matches_jax(CAP, W):
     eng, jeng = related()
     carry, _ = jax_carry_after(eng, jeng, NARROW, 32, 12)
     jln = carry["st"].ln
-    ln = fused.lanes_from_numpy(nested(carry)["st"]["ln"], "cpu")
+    ln = resident.lanes_from_numpy(nested(carry)["st"]["ln"], "cpu")
     assert not state_diff(ln, jln)
     tb = resident._device_tables(eng, "cpu")
     jtb = jax_resident._device_tables(jeng)
@@ -233,7 +233,7 @@ def test_compact_decode_matches_snapshot_decode():
     lists, equal to the JAX package's compact decode."""
     eng, jeng = related()
     carry, _ = jax_carry_after(eng, jeng, NARROW, 32, 4096)
-    sn = fused.lanes_from_numpy(nested(carry)["st"]["sn"], "cpu")
+    sn = resident.lanes_from_numpy(nested(carry)["st"]["sn"], "cpu")
     rows = [j for j in range(32) if bool(carry["st"].has_snap[j])]
     assert len(rows) >= 8
     comp = resident.instances_from_compact(sn, rows, 32)

@@ -1,7 +1,7 @@
 """The port runs where JAX is absent: it imports neither jax nor the
 sibeliaz_tpu package, and its CLI (native and oracle LCB engines)
-reproduces the golden GFF and MAF (the tpu-fused engine the native
-engine's GFF on a small input), its tools round-trip the golden MAF,
+reproduces the golden GFF and MAF (the tpu-fused and tpu engines the
+native engine's GFF on a small input), its tools round-trip the golden MAF,
 and its multi-device dry run passes every stage, in a process in which
 both imports fail."""
 
@@ -65,9 +65,11 @@ def test_cli_runs_without_jax(tmp_path, flags):
         assert drop((out / "alignment.maf").read_text()) == drop(open(golden).read())
 
 
-def test_tpu_fused_runs_without_jax(tmp_path):
-    """`--lcb-engine tpu-fused --device cpu -n` in a process where jax and
-    sibeliaz_tpu fail to import writes the native engine's GFF."""
+@pytest.mark.parametrize("engine", ["tpu-fused", "tpu"])
+def test_tpu_fused_runs_without_jax(tmp_path, engine):
+    """`--lcb-engine tpu-fused` and `--lcb-engine tpu` with `--device cpu -n`
+    in a process where jax and sibeliaz_tpu fail to import write the
+    native engine's GFF."""
     import sys as _sys
 
     _sys.path.insert(0, os.path.join(REPO, "tests"))
@@ -78,15 +80,15 @@ def test_tpu_fused_runs_without_jax(tmp_path):
     fa = str(tmp_path / "genomes.fa")
     fasta.write_fasta(fa, [fasta.FastaRecord(n, s) for n, s in zip(names, seqs)])
     env = dict(os.environ, PYTHONPATH=REPO)
-    for engine in ("tpu-fused", "native"):
+    for name in (engine, "native"):
         proc = subprocess.run(
             [sys.executable, "-c", _CHILD, "-k", "15", "-n", "--device", "cpu",
-             "--lcb-engine", engine, "-o", str(tmp_path / engine), fa],
+             "--lcb-engine", name, "-o", str(tmp_path / name), fa],
             cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=300,
         )
         assert proc.returncode == 0, proc.stderr
     want = (tmp_path / "native" / "blocks_coords.gff").read_bytes()
-    assert (tmp_path / "tpu-fused" / "blocks_coords.gff").read_bytes() == want
+    assert (tmp_path / engine / "blocks_coords.gff").read_bytes() == want
     assert want.count(b"\n") > 3
 
 

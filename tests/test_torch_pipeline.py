@@ -118,16 +118,30 @@ def test_cli_help(capsys):
 
 
 @pytest.mark.parametrize(
-    "extra,message",
+    "extra",
     [
-        (["-n", "--lcb-engine", "tpu"], '"Do not port"'),
+        ["-n", "--lcb-engine", "resident"],
+        ["-n", "--align-engine", "cuda"],
     ],
 )
-def test_cli_refuses(tmp_path, extra, message):
+def test_cli_refuses(tmp_path, capsys, extra):
+    """Engine names the JAX package's CLI does not take (`resident` is a
+    name its pipeline takes, as the port's does): refused, as there."""
     with pytest.raises(SystemExit) as e:
         run(["-k", "15", "--device", "cpu", "-o", str(tmp_path), *extra,
              *EXAMPLE_FASTAS])
-    assert message in str(e.value.code)
+    assert e.value.code == 2
+    assert "invalid choice" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as e:
+        jax_run(["-k", "15", "-o", str(tmp_path), *extra, *EXAMPLE_FASTAS])
+    assert e.value.code == 2
+
+
+def test_find_blocks_refuses_an_unknown_engine():
+    recs = fasta.read_many(EXAMPLE_FASTAS)
+    with pytest.raises(NotImplementedError, match="no such engine"):
+        pipeline.find_blocks([r.seq for r in recs], [r.name for r in recs], Config(k=15),
+                             engine="bogus", device="cpu")
 
 
 def test_cli_refuses_cuda_without_card(tmp_path):
