@@ -10,6 +10,7 @@
     python3 chip_smoke.py --fused            # phase 13 alone, see fused_phase
     python3 chip_smoke.py --dryrun           # phase 14 alone, see devices_phase
     python3 chip_smoke.py --resident         # phase 15 alone, see resident_phase
+    python3 chip_smoke.py --walk             # phase 16 alone, see walk_phase
 
 Phases, in order; any failure raises and the exit code is non-zero:
   1. device: the card's name and power limit, and the peak rates the
@@ -136,12 +137,23 @@ Phases, in order; any failure raises and the exit code is non-zero:
      and the card's busy share from the profiler's events (CUDA events,
      said on a line of its own, where the profiler shows no device time
      for K1 or K2), records equal to the untraced run's.  `--resident` runs
-     phases 1, 2 and 15 alone.
+     phases 1, 2 and 15 alone;
+ 16. K5 lcb_walk (lcb/kernels.py), which phases 13-15 ran end to end (their
+     lcb_walk launches printed): examples/' first phase through the fused
+     and the resident engine with K5's calls recorded, the calls with the
+     most pushes and the longest rows of each engine and slab width
+     replayed through K5 and its plain version on the card, then the stress
+     set (a repeat of 300 copies, walks cut at 2 pushes, lanes outgrowing a
+     64-instance slab mid-walk, sentinel rows and lane L-1 in each): every
+     output exact, the inputs unchanged, the kernel's card time beside the
+     copy of the state, the whole call, the plain version, the bound and the
+     chain floor.  `--walk` runs phases 1, 2 and 16 alone.
 The last two lines are a JSON summary of the kernels (time, plain time,
 bound, launches per main path; K1's and K2's "ms" are their one-limb
 instances' and "by_limbs" holds both instances'; K4's "ms" is its shape on
 the examples/large streamed passes, named in "shape", and "by_shape" holds
-its eight timed shapes) and {"ok": true, "device": {...}}.  It
+its eight timed shapes; K5's is the recorded call with the longest row,
+named in "call") and {"ok": true, "device": {...}}.  It
 imports neither jax nor sibeliaz_tpu.
 """
 
@@ -210,6 +222,28 @@ FUSED_LARGE_PHASES = 4
 MONOLITHIC_KERNELS = ("front_half", "class_analysis")
 
 
+# phase 16: the recorded K5 calls kept per (engine, slab width) and
+# criterion (the most pushes, the longest row's occurrence steps), and the
+# most replayed; the lanes of the stress set's cases and its repeat's copies
+WALK_KEEP, WALK_REPLAY_MAX, WALK_LANES, WALK_REPEAT_COPIES = 8, 64, 32, 300
+# What K5's function reads besides the lane slabs, bytes: a push's edge and
+# occurrence range (junction ids, positions and sequence offsets twice each,
+# occurrence offsets twice, a sequence byte); an occurrence step's
+# (occurrence, chromosome offsets, junction ids four times, used prefix
+# twice, positions up to five times, chromosome length, sequence offsets
+# twice, two sequence bytes, a used flag); a live good instance's score
+# terms each push (a chromosome offset, two positions). A lane slab row:
+# nine int64 and two bool instance fields a column, pvid and pdist a path
+# column, nine registers.
+K5_PUSH_BYTES, K5_STEP_BYTES, K5_SCORE_BYTES = 73, 147, 24
+K5_INSTANCE_BYTES, K5_PATH_BYTES, K5_REGISTER_BYTES = 74, 16, 72
+# its operations: an occurrence step's two binary searches (<= 21 probes
+# of ~4 operations) and ~60 compares and selects; a score term's ~12
+K5_OPS_PER_STEP, K5_OPS_PER_SCORE_TERM = 150, 12
+# per row: the arguments in (five int64, three bools), the results out (ten int64)
+K5_ROW_BYTES = 5 * 8 + 3 + 10 * 8
+
+
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
@@ -219,14 +253,14 @@ def phase(title):
     print(f"\n== {title} ==", flush=True)
 
 
-def cuda_ms(torch, fn, reps, ahead=False):
+def cuda_ms(torch, fn, reps, ahead=False, quiet=False):
     """Mean milliseconds per call of `fn` on the card, after one warm-up.
     With `ahead`, the card first spins for AHEAD_CYCLES clocks
     (torch.cuda._sleep) while the host enqueues every call, so that the time
     is the card's alone and not the host's rate of enqueueing calls shorter
     than its own overhead; the host's microseconds a call are printed beside
-    it, and a host that did not finish its enqueueing within the spin fails
-    the check."""
+    it (unless `quiet`), and a host that did not finish its enqueueing
+    within the spin fails the check."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -246,7 +280,8 @@ def cuda_ms(torch, fn, reps, ahead=False):
         spun = spin.elapsed_time(start)
         check(host * 1e3 < spun, f"the host took {host * 1e3:.3f} ms to enqueue {reps} calls, "
                                  f"longer than the card's spin of {spun:.3f} ms")
-        print(f"  (host {host / reps * 1e6:.1f} us a call, card spun {spun:.3f} ms ahead)")
+        if not quiet:
+            print(f"  (host {host / reps * 1e6:.1f} us a call, card spun {spun:.3f} ms ahead)")
     return start.elapsed_time(end) / reps
 
 
@@ -1640,6 +1675,7 @@ def fused_phase(torch, mods, tmp_dir, large_fa, label):
     (_cases, cli, pipeline, _device_poa, _msa, _poa_ref, kernels, align_kernels, Config,
      _alphabet, fasta, metrics) = mods
     from sibeliaz_tpu_torch.lcb import fused
+    from sibeliaz_tpu_torch.lcb import kernels as lcb_kernels
     from sibeliaz_tpu_torch.lcb.device_bundles import make_bundles_device
     from sibeliaz_tpu_torch.lcb.oracle import LcbEngine
 
@@ -1654,16 +1690,18 @@ def fused_phase(torch, mods, tmp_dir, large_fa, label):
         metrics.counters.clear()
         kernels.reset_launches()
         align_kernels.reset_launches()
+        lcb_kernels.reset_launches()
         out = os.path.join(tmp_dir, f"fused_cli_{engine}")
         wall = run_cli(cli, ["-k", "15", "-n", "--lcb-engine", engine, "-o", out, *fas])
         with open(os.path.join(out, "blocks_coords.gff")) as f:
             check(f.read() == golden, f"examples/ GFF of --lcb-engine {engine} differs from the "
                   "golden")
         lcb_s[engine] = {t["stage"]: t["seconds"] for t in metrics.timings}["lcb_engine"]
-    launches = {**kernels.LAUNCHES, **align_kernels.LAUNCHES}
+    launches = {**kernels.LAUNCHES, **align_kernels.LAUNCHES, **lcb_kernels.LAUNCHES}
     counters = fused_counters(metrics)
     check(launches["front_half"] == 1 and launches["class_analysis"] == 1
-          and launches["round_append"] == 0 and launches["poa_dp_tb"] == 0,
+          and launches["round_append"] == 0 and launches["poa_dp_tb"] == 0
+          and launches["lcb_walk"] > 0,
           f"launches of the --lcb-engine tpu-fused -n run: {launches}")
     check(counters.get("fused_phases", 0) > 0, f"the fused engine did not run: {counters}")
     steps = sum(v for k, v in counters.items() if k.startswith("fused_steps_tier"))
@@ -1684,10 +1722,12 @@ def fused_phase(torch, mods, tmp_dir, large_fa, label):
     runs = {}
     for dev in ("cuda", "cpu"):
         metrics.counters.clear()
+        lcb_kernels.reset_launches()
         t0 = time.time()
         runs[dev] = instance_keys(fused.process_phase_fused(eng, bundles, device=dev))
         print(f"examples/ phase 1 on {dev}: {time.time() - t0:.4f} s | "
-              f"{fused_counters(metrics)} {label}")
+              f"{fused_counters(metrics)} | lcb_walk launches {lcb_kernels.LAUNCHES['lcb_walk']} "
+              f"{label}")
     t0 = time.time()
     oracle = instance_keys(eng.process(b) for b in bundles)
     check(runs["cuda"] == runs["cpu"], "examples/ phase 1: the card's instances differ from "
@@ -1708,12 +1748,18 @@ def fused_phase(torch, mods, tmp_dir, large_fa, label):
     bundles = make_bundles_device(table, "cuda")
     per_phase = []
 
+    large_launches = 0
+
     def checked_phase(eng, batch):
+        nonlocal large_launches
         metrics.counters.clear()
+        lcb_kernels.reset_launches()
         t0 = time.time()
         got = fused.process_phase_fused(eng, batch, device="cuda")
         secs = time.time() - t0
+        large_launches += lcb_kernels.LAUNCHES["lcb_walk"]
         counters = fused_counters(metrics)
+        counters["lcb_walk launches"] = lcb_kernels.LAUNCHES["lcb_walk"]
         t0 = time.time()
         want = [eng.process(b) for b in batch]
         check(instance_keys(got) == instance_keys(want),
@@ -1728,8 +1774,11 @@ def fused_phase(torch, mods, tmp_dir, large_fa, label):
     mean = sum(per_phase) / len(per_phase)
     print(f"examples/large k=25: {len(bundles)} bundles, {n_phases} phases | the first "
           f"{len(per_phase)} on the card {sum(per_phase):.4f} s ({mean:.4f} s a phase) | "
-          f"extrapolated full run {mean * n_phases:.1f} s {label}")
-    return launches, {"lcb_s": lcb_s["tpu-fused"], "first_phase": runs["cuda"]}
+          f"extrapolated full run {mean * n_phases:.1f} s | lcb_walk launches {large_launches} "
+          f"{label}")
+    check(large_launches > 0, "examples/large: the fused engine launched no lcb_walk")
+    return launches, {"lcb_s": lcb_s["tpu-fused"], "first_phase": runs["cuda"],
+                      "large_launches": {"lcb_walk": large_launches}}
 
 
 def resident_counters(metrics):
@@ -1782,6 +1831,7 @@ def resident_phase(torch, mods, tmp_dir, large_fa, fused13, traced_phase, label)
      _alphabet, fasta, metrics) = mods
     from sibeliaz_tpu_torch.graph import construct
     from sibeliaz_tpu_torch.lcb import fused, resident
+    from sibeliaz_tpu_torch.lcb import kernels as lcb_kernels
     from sibeliaz_tpu_torch.lcb.device_bundles import make_bundles_device
     from sibeliaz_tpu_torch.lcb.oracle import LcbEngine
     from sibeliaz_tpu_torch.utils.metrics import device_trace
@@ -1797,16 +1847,18 @@ def resident_phase(torch, mods, tmp_dir, large_fa, fused13, traced_phase, label)
         metrics.counters.clear()
         kernels.reset_launches()
         align_kernels.reset_launches()
+        lcb_kernels.reset_launches()
         out = os.path.join(tmp_dir, f"resident_cli_{engine}")
         wall = run_cli(cli, ["-k", "15", "-n", "--lcb-engine", engine, "-o", out, *fas])
         with open(os.path.join(out, "blocks_coords.gff")) as f:
             check(f.read() == golden, f"examples/ GFF of --lcb-engine {engine} differs from the "
                   "golden")
         lcb_s[engine] = {t["stage"]: t["seconds"] for t in metrics.timings}["lcb_engine"]
-    launches = {**kernels.LAUNCHES, **align_kernels.LAUNCHES}
+    launches = {**kernels.LAUNCHES, **align_kernels.LAUNCHES, **lcb_kernels.LAUNCHES}
     counters = resident_counters(metrics)
-    check(launches == {"front_half": 1, "class_analysis": 1, "round_append": 0, "poa_dp_tb": 0},
-          f"launches of the --lcb-engine tpu -n run: {launches}")
+    check({k: v for k, v in launches.items() if k != "lcb_walk"} == {
+        "front_half": 1, "class_analysis": 1, "round_append": 0, "poa_dp_tb": 0}
+        and launches["lcb_walk"] > 0, f"launches of the --lcb-engine tpu -n run: {launches}")
     check(counters.get("resident_phases", 0) > 0, f"the resident engine did not run: {counters}")
     rounds = counters["resident_rounds"]
     fused_s = "not run in this mode" if fused13 is None else f"{fused13['lcb_s']:.4f} s"
@@ -1834,12 +1886,13 @@ def resident_phase(torch, mods, tmp_dir, large_fa, fused13, traced_phase, label)
         if how in runs:
             continue
         metrics.counters.clear()
+        lcb_kernels.reset_launches()
         t0 = time.time()
         runs[how] = instance_keys(fn(eng, bundles, device="cuda"))
         secs[how] = time.time() - t0
         print(f"examples/ phase 1, {how} engine on the card: {secs[how]:.4f} s | "
               f"{resident_counters(metrics) if how == 'resident' else fused_counters(metrics)} "
-              f"{label}")
+              f"| lcb_walk launches {lcb_kernels.LAUNCHES['lcb_walk']} {label}")
     oracle = instance_keys(eng.process(b) for b in bundles)
     check(runs["resident"] == oracle, "examples/ phase 1: the resident engine's instances "
           "differ from eng.process's")
@@ -1906,6 +1959,228 @@ def resident_phase(torch, mods, tmp_dir, large_fa, fused13, traced_phase, label)
     return launches
 
 
+class WalkRecorder:
+    """While active, wraps K5's wrapper, which both device LCB engines call,
+    and keeps the arguments of the calls with the most pushes and with the
+    longest row (its occurrence steps), WALK_KEEP of each per (engine, slab
+    width), so that K5 can be held against its plain version at the main
+    path's own shapes afterwards.  Each call is read once for its counts
+    (a read the engines do not make).  The wrapper it calls still counts
+    each launch."""
+
+    def __init__(self, torch, lcb_kernels):
+        self.torch, self.mod, self.kept, self.engine, self.calls = torch, lcb_kernels, {}, None, 0
+
+    def __enter__(self):
+        real = self.real = self.mod.lcb_walk
+
+        def record(*args):
+            w = real(*args)
+            pushes, occ = self.torch.stack([w.pushes.max(), w.occ_steps.max()]).tolist()
+            self.calls += 1
+            kept = self.kept.setdefault((self.engine, args[1].ln.chr.shape[1]), [])
+            kept.append((pushes, occ, self.calls, args))
+            if len(kept) > 4 * WALK_KEEP:
+                kept[:] = self.best(kept)
+            return w
+
+        self.mod.lcb_walk = record
+        return self
+
+    @staticmethod
+    def best(kept):
+        """The WALK_KEEP calls with the most pushes and the WALK_KEEP with
+        the longest row, earlier calls first on ties, in call order."""
+        chosen = {c[2]: c for key in (lambda c: (-c[0], c[2]), lambda c: (-c[1], c[2]))
+                  for c in sorted(kept, key=key)[:WALK_KEEP]}
+        return [chosen[n] for n in sorted(chosen)]
+
+    def __exit__(self, *exc):
+        self.mod.lcb_walk = self.real
+
+    def calls_to_replay(self):
+        """[(label, arguments)]: each group's best calls, at most
+        WALK_REPLAY_MAX in all."""
+        out = []
+        for (engine, width), kept in sorted(self.kept.items()):
+            for pushes, occ, n, args in self.best(kept):
+                out.append((f"{engine} IC {width} call {n} ({pushes} pushes, longest row "
+                            f"{occ} occurrence steps)", args))
+        return out[:WALK_REPLAY_MAX]
+
+
+def k5_bound(w, IC, PC, peak_ops):
+    """K5's roofline bound on one call's data: each walking row's three
+    slabs read and written once, every row's arguments and results, the
+    table words its pushes and occurrence steps read and each push's score
+    terms (the final instance count's), against the operations of those
+    steps and terms; (ms, which, bytes)."""
+    walked = w.pushes > 0
+    slab = IC * K5_INSTANCE_BYTES + PC * K5_PATH_BYTES + K5_REGISTER_BYTES
+    terms = int((w.pushes * w.n).sum())
+    steps, pushes = int(w.occ_steps.sum()), int(w.pushes.sum())
+    nbytes = (6 * slab * int(walked.sum()) + K5_ROW_BYTES * w.pushes.shape[0]
+              + K5_PUSH_BYTES * pushes + K5_STEP_BYTES * steps + K5_SCORE_BYTES * terms)
+    ms, by = bound_ms(nbytes, K5_OPS_PER_STEP * steps + K5_OPS_PER_SCORE_TERM * terms,
+                      peak_ops)
+    return ms, by, nbytes
+
+
+def k5_step_us(torch, lcb_kernels):
+    """One dependent step of K5's chain (the chain probe: four dependent
+    loads from L2 and one barrier of 256 threads), in microseconds."""
+    n = 1 << 20
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(16))
+    table = torch.empty(n, dtype=torch.int64)
+    table[perm] = perm.roll(-1)  # one cycle through every entry
+    table = table.cuda()
+    iters = 20000
+    return cuda_ms(torch, lambda: lcb_kernels.chain_probe(table, iters), 3) * 1e3 / iters
+
+
+def k5_vs_plain(torch, lcb_kernels, label, args, peak_ops, step_us):
+    """K5 against its plain version on one call's arguments on the card:
+    every output exact and the inputs unchanged, with the kernel's card
+    time alone (launched ahead into the same buffers), the copy of the
+    state its wrapper makes, the wrapper's whole call (host included), the
+    plain version's time, the bound and the chain floor.  Returns a dict."""
+    from sibeliaz_tpu_torch.lcb.resident import _state_leaves
+
+    st = args[1]
+    leaves = _state_leaves(st)
+    before = [x.clone() for x in leaves]
+    got = lcb_kernels.lcb_walk(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = lcb_kernels.lcb_walk_plain(*args)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    pairs = list(zip(_state_leaves(got.st), _state_leaves(want.st))) + list(zip(got[1:], want[1:]))
+    err = max(int((a.long() - b.long()).abs().max()) if a.numel() else 0 for a, b in pairs)
+    check(err == 0, f"lcb_walk differs from its plain version ({label}): max abs err {err}")
+    check(all(torch.equal(a, b) for a, b in zip(before, leaves)),
+          f"lcb_walk wrote an input ({label})")
+    out = [x.clone() for x in leaves]
+    res = torch.empty((10, args[3].shape[0]), dtype=torch.int64, device="cuda")
+    ms = cuda_ms(torch, lambda: lcb_kernels.launch_into(*args, out, res), 10, ahead=True,
+                 quiet=True)
+    copy_ms = cuda_ms(torch, lambda: [x.clone() for x in leaves], 5, ahead=True, quiet=True)
+    call_ms = cuda_ms(torch, lambda: lcb_kernels.lcb_walk(*args), 10)
+    IC, PC = st.ln.chr.shape[1], st.ln.pvid.shape[1]
+    bound, by, nbytes = k5_bound(want, IC, PC, peak_ops)
+    longest = int(want.occ_steps.max())
+    floor = longest * step_us / 1e3
+    print(f"lcb_walk {label}: equal, inputs unchanged | rows {want.pushes.shape[0]} "
+          f"(walking {int((want.pushes > 0).sum())}), IC {IC} PC {PC}, pushes "
+          f"{int(want.pushes.sum())} (most {int(want.pushes.max())}), occurrence steps "
+          f"{int(want.occ_steps.sum())} (longest row {longest}) | kernel {ms:.4f} ms, state "
+          f"copy {copy_ms:.4f} ms, whole call {call_ms:.4f} ms (host included) | plain "
+          f"{plain_ms:.4f} ms | bound {bound:.4f} ms by {by} ({nbytes} bytes) = "
+          f"{100 * bound / ms:.4f}% | chain floor {floor:.4f} ms = {longest} x {step_us:.4f} us"
+          f" = {100 * floor / ms:.4f}%")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "copy_ms": copy_ms, "call_ms": call_ms, "chain_floor_ms": floor, "occ": longest,
+            "walk": want}
+
+
+def walk_stress(torch, pipeline, Config, cases):
+    """The stress set: [(label, K5 arguments)], each with sentinel rows
+    among the rows and lane L-1 beside one: a repeat of WALK_REPEAT_COPIES
+    copies (pushes of vertices with hundreds of occurrences), walks cut at
+    a limit of 2 pushes, and lanes that outgrow a narrow slab mid-walk
+    (tests/torch_cases.py's walk_genomes)."""
+    from sibeliaz_tpu_torch.lcb.oracle import LcbEngine
+
+    out = []
+    for label, (seqs, names), (IC, PC), limit in (
+            (f"stress: a repeat of {WALK_REPEAT_COPIES} copies",
+             cases.repeat_genomes(3, WALK_REPEAT_COPIES), (512, 1024), 2048),
+            ("stress: walks cut at 2 pushes",
+             cases.related_genomes(520, length=1200, mut=0.03, rearrange=True), (64, 128), 2),
+            ("stress: lanes outgrowing IC 64 mid-walk", cases.walk_genomes(3), (64, 128), 16)):
+        cfg = Config(k=15, abundance_threshold=1000)
+        table = pipeline.build_table(seqs, names, cfg, device="cuda")
+        eng = LcbEngine(table, cfg.min_block_size, cfg.max_branch_size, cfg.flanking)
+        tb, st, n_lanes = cases.walk_lanes(eng, WALK_LANES, IC, PC, "cuda")
+        rng = np.random.default_rng(11)
+        walks = cases.walk_args(eng, st, n_lanes, rng)
+        rows, c, i, s, fwd, tvid = cases.walk_tensors(
+            cases.with_sentinel_rows(walks, WALK_LANES, rng), "cuda")
+        on = torch.ones_like(fwd)
+        out.append((label + ", sentinel rows and lane L-1",
+                    (tb, st, rows, c, i, s, fwd, tvid, on, ~on, eng.m, eng.b, eng.flank, limit)))
+    return out
+
+
+def walk_phase(torch, mods, peak_ops, label):
+    """Phase 16: K5 lcb_walk against its plain version on the card.  The
+    walk calls of examples/' first phase (256 bundles, k=15) through the
+    fused and the resident engine are recorded (WalkRecorder), and the
+    calls with the most pushes and the longest rows of each engine and slab
+    width replayed; then the stress set.  Each exact, the inputs unchanged,
+    with times, bound and chain floor.  Returns the summary of the heaviest
+    recorded call (the longest row) and the largest error of all."""
+    (cases, _cli, pipeline, _device_poa, _msa, _poa_ref, _kernels, _align_kernels, Config,
+     _alphabet, fasta, metrics) = mods
+    from sibeliaz_tpu_torch.lcb import fused, resident
+    from sibeliaz_tpu_torch.lcb import kernels as lcb_kernels
+    from sibeliaz_tpu_torch.lcb.device_bundles import make_bundles_device
+    from sibeliaz_tpu_torch.lcb.oracle import LcbEngine
+
+    phase(f"16 K5 lcb_walk against its plain version {label}")
+    t_phase = time.time()
+    recs = fasta.read_many([os.path.join(EXAMPLES, "genome1.fa"),
+                            os.path.join(EXAMPLES, "genome2.fa")])
+    cfg = Config(k=15)
+    table = pipeline.build_table([r.seq for r in recs], [r.name for r in recs], cfg,
+                                 device="cuda")
+    eng = LcbEngine(table, cfg.min_block_size, cfg.max_branch_size, cfg.flanking,
+                    cfg.looking_depth)
+    bundles = make_bundles_device(table, "cuda")[:256]
+    oracle = instance_keys(eng.process(b) for b in bundles)
+    with WalkRecorder(torch, lcb_kernels) as rec:
+        for engine, fn in (("fused", fused.process_phase_fused),
+                           ("resident", resident.process_phase_resident)):
+            rec.engine = engine
+            metrics.counters.clear()
+            t0 = time.time()
+            got = instance_keys(fn(eng, bundles, device="cuda"))
+            check(got == oracle, f"examples/ phase 1 through the {rec.engine} engine, "
+                                 "recorded: instances differ from eng.process's")
+            print(f"examples/ phase 1, {rec.engine} engine, recorded: {time.time() - t0:.4f} s"
+                  f" (each walk call read once for its counts), equal to eng.process")
+    calls = rec.calls_to_replay()
+    print(f"recorded {rec.calls} walk calls; replaying {len(calls)}")
+    step_us = k5_step_us(torch, lcb_kernels)
+    results = [(name, k5_vs_plain(torch, lcb_kernels, name, args, peak_ops, step_us))
+               for name, args in calls]
+    stress = [(name, k5_vs_plain(torch, lcb_kernels, name, args, peak_ops, step_us))
+              for name, args in walk_stress(torch, pipeline, Config, cases)]
+    repeat, bounded, outgrown = (r["walk"] for _, r in stress)
+    check(int(repeat.occ_steps[repeat.pushes == 1].max()) >= 200,
+          "stress: no push of a vertex with hundreds of occurrences")
+    check(bool(((bounded.pushes == 2) & ~bounded.at_target).any()),
+          "stress: no walk cut at its limit")
+    check(bool((outgrown.overflow & (outgrown.pushes > 0)).any()),
+          "stress: no lane outgrew its slab mid-walk")
+    err = max(r["err"] for _, r in results + stress)
+    heaviest_name, heaviest = max(results, key=lambda x: (x[1]["occ"], x[1]["ms"]))
+    for group in ("fused IC 64", "fused IC 512", "resident IC 512"):
+        times = [r["ms"] for name, r in results if name.startswith(group)]
+        if times:
+            print(f"{group}: {len(times)} calls, kernel {min(times):.4f}-{max(times):.4f} ms "
+                  f"(median {sorted(times)[len(times) // 2]:.4f})")
+    print(f"heaviest recorded call: {heaviest_name} | phase 16 in {time.time() - t_phase:.4f} s "
+          f"{label}")
+    summary = {k: heaviest[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "copy_ms",
+                                        "call_ms", "chain_floor_ms")}
+    summary["call"] = heaviest_name
+    return summary, err
+
+
 def joined_junction_positions(seqs, recs):
     """The records' junction positions in the joined genome (one N between
     chromosomes), and the sign of each position's id."""
@@ -1929,12 +2204,14 @@ def devices_phase(torch, mods, label):
     from sibeliaz_tpu_torch import dryrun
     from sibeliaz_tpu_torch.graph import construct
     from sibeliaz_tpu_torch.lcb import fused
+    from sibeliaz_tpu_torch.lcb import kernels as lcb_kernels
     from sibeliaz_tpu_torch.lcb.device_bundles import make_bundles_device
     from sibeliaz_tpu_torch.lcb.oracle import LcbEngine
 
     def reset():
         kernels.reset_launches()
         align_kernels.reset_launches()
+        lcb_kernels.reset_launches()
 
     phase(f"14a examples/' first phase, the fused lanes over [cuda:0, cuda:0] {label}")
     recs = fasta.read_many([os.path.join(EXAMPLES, "genome1.fa"),
@@ -1949,10 +2226,14 @@ def devices_phase(torch, mods, label):
     for how, where in (("one device", {"device": "cuda"}),
                        ("two slices", {"devices": ["cuda:0", "cuda:0"]})):
         metrics.counters.clear()
+        reset()
         t0 = time.time()
         runs[how] = instance_keys(fused.process_phase_fused(eng, bundles, **where))
         print(f"examples/ phase 1, {how} {where}: {time.time() - t0:.4f} s | "
-              f"{fused_counters(metrics)} {label}")
+              f"{fused_counters(metrics)} | lcb_walk launches {lcb_kernels.LAUNCHES['lcb_walk']} "
+              f"{label}")
+    slices_launches = dict(lcb_kernels.LAUNCHES)
+    check(slices_launches["lcb_walk"] > 0, "examples/ phase 1 over two slices: no lcb_walk")
     check(runs["two slices"] == runs["one device"], "examples/ phase 1: the two slices' "
           "instances differ from the one-device run's")
     check(runs["two slices"] == instance_keys(eng.process(b) for b in bundles),
@@ -1966,7 +2247,10 @@ def devices_phase(torch, mods, label):
     reset()
     t0 = time.time()
     check(dryrun.dryrun(["cuda:0", "cuda:0"]), "the dry run on cuda:0,cuda:0: a stage failed")
-    launches = {"dry run on cuda:0,cuda:0": {**kernels.LAUNCHES, **align_kernels.LAUNCHES}}
+    launches = {"examples/ phase 1 over [cuda:0, cuda:0]": slices_launches,
+                "dry run on cuda:0,cuda:0": {**kernels.LAUNCHES, **align_kernels.LAUNCHES,
+                                             **lcb_kernels.LAUNCHES}}
+    check(launches["dry run on cuda:0,cuda:0"]["lcb_walk"] > 0, "the dry run: no lcb_walk")
     print(f"the dry run on cuda:0,cuda:0: every stage passes in {time.time() - t0:.4f} s | "
           f"launches {launches['dry run on cuda:0,cuda:0']} {label}")
 
@@ -2084,15 +2368,16 @@ def main(argv):
     fused_only = argv == ["--fused"]
     dryrun_only = argv == ["--dryrun"]
     resident_only = argv == ["--resident"]
+    walk_only = argv == ["--walk"]
     if argv[:1] == ["--k3-replay"] and len(argv) == 2:
         replay_dir = argv[1]
     elif argv[:1] == ["--k3-time"] and len(argv) == 2:
         time_kinds = argv[1].split(",")
     elif argv and not (k2_time or k1_time or sharded_only or fused_only or dryrun_only
-                       or resident_only or k4_time_args is not None):
+                       or resident_only or walk_only or k4_time_args is not None):
         print("usage: python3 chip_smoke.py [--k3-replay DIR | --k3-time KIND[,KIND...] | "
               "--k2-time | --k1-time | --k4-time [OLDER_ROUND_APPEND.cu] | --sharded | "
-              "--fused | --dryrun | --resident]",
+              "--fused | --dryrun | --resident | --walk]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -2189,6 +2474,11 @@ def main(argv):
     if resident_only:
         resident_phase(torch, mods, tmp.name, regenerate_large(alphabet, fasta, tmp.name), None,
                        True, label)
+        tmp.cleanup()
+        print(smi)
+        return 0
+    if walk_only:
+        walk_phase(torch, mods, peak_ops, label)
         tmp.cleanup()
         print(smi)
         return 0
@@ -2319,6 +2609,7 @@ def main(argv):
     fused_launches, fused13 = fused_phase(torch, mods, tmp.name, large_fa, label)
     devices_paths = devices_phase(torch, mods, label)
     resident_launches = resident_phase(torch, mods, tmp.name, large_fa, fused13, False, label)
+    k5, k5_err = walk_phase(torch, mods, peak_ops, label)
     tmp.cleanup()
 
     src = "sibeliaz_tpu_torch/csrc/"
@@ -2332,7 +2623,8 @@ def main(argv):
     # that outgrows every round (the hand-over, and the host-bucketed
     # rounds alone), and the oracle LCB engine's CLI run (phase 11), and
     # the sharded graph stage's runs and the POA spread (phase 12), and the
-    # tpu-fused LCB engine's CLI run (phase 13), the dry run on
+    # tpu-fused LCB engine's CLI run and examples/large's first phases
+    # (phase 13), examples/' first phase over two slices, the dry run on
     # cuda:0,cuda:0 and entry() (phase 14), and the resident LCB engine's
     # CLI run (phase 15)
     paths = {"examples/large -n": large_launches_by_k[25],
@@ -2343,6 +2635,8 @@ def main(argv):
              "examples/ --lcb-engine oracle -n": oracle_launches,
              **shard_paths,
              "examples/ --lcb-engine tpu-fused -n": fused_launches,
+             f"examples/large k=25 phases 1-{FUSED_LARGE_PHASES} tpu-fused":
+                 fused13["large_launches"],
              **devices_paths,
              "examples/ --lcb-engine tpu -n": resident_launches}
 
@@ -2394,6 +2688,13 @@ def main(argv):
          "ms": k4_main["ms"], "plain_ms": k4_main["plain_ms"],
          "bound_ms": k4_main["bound_ms"], "bound_by": k4_main["bound_by"],
          "shape": k4_shape, "by_shape": k4, "library_ms": None},
+        {"name": "lcb_walk", "route": "cuda", "source": src + "lcb_walk.cu",
+         "replaces": "sibeliaz_tpu/lcb/resident.py:138 and sibeliaz_tpu/lcb/fused.py:128",
+         "launches": paths["examples/ --lcb-engine tpu-fused -n"]["lcb_walk"],
+         "launches_by_path": by_path("lcb_walk"), "max_abs_err": k5_err,
+         **{key: k5[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "call": k5["call"], "copy_ms": k5["copy_ms"], "call_ms": k5["call_ms"],
+         "chain_floor_ms": k5["chain_floor_ms"], "library_ms": None},
     ]}
     print()
     print(smi)

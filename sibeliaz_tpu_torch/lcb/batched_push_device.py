@@ -17,6 +17,10 @@ valid lane l:
     the branch-bound adjacency escape, and either an in-place ChangeBack or
     a masked-shift insert.
 
+On the card the walk's pushes run inside K5 `lcb_walk` (lcb/kernels.py,
+csrc/lcb_walk.cu); `_push_impl_traced` is the push of K5's plain version,
+the CPU path and the spec the kernel is held to.
+
 How it differs from sibeliaz_tpu/lcb/batched_push_device.py: the tables
 and lanes are plain dataclasses of tensors on one device (no pytree
 registration); `DeviceTables.build` takes the device; the occurrence loop's

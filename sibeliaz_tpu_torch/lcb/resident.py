@@ -38,22 +38,27 @@ A port of sibeliaz_tpu/lcb/resident.py.  How it differs:
     winner);
   * `vmap(searchsorted)` is `torch.searchsorted` on [L, C] rows;
     `associative_scan` is `cummin`/`cumsum`/`cummax`;
-  * `_walk_device` is a host loop of torch ops (`_walk_pushes`, which the
-    fused engine's walk chunks share) in place of a jitted `while_loop`:
-    each push reads (any lane active, the largest occurrence count of an
-    active lane's pushed vertex) in one fetch, and the loop ends after
-    `_MAX_WALK` pushes without a flag, as the JAX loop does.  It and
-    `_rewind_rows` take `rows` with the sentinel L, as the JAX functions
-    do; the gather clips a sentinel to lane L-1 and the scatter drops it
-    (a scratch row past the lanes takes it, `mode="drop"`);
+  * `_walk_device` is one call of K5 `lcb_walk` (lcb/kernels.py, which
+    the fused engine's walk chunks share) in place of a jitted
+    `while_loop`: on the card one thread block walks each row, with no
+    read of the card between pushes; on the CPU its plain version, the
+    lockstep host loop of torch ops, reads each push's (any lane active,
+    the largest occurrence count) from the device.  The walk ends after
+    `_MAX_WALK` pushes without a flag, as the JAX loop does.  It returns
+    its per-row scalars on the host, read in one fetch with the rows' push
+    counts.  It and `_rewind_rows` take `rows` with the sentinel L, as the
+    JAX functions do; a sentinel reads lane L-1 and writes nothing back
+    (`_rewind_rows` drops it onto a scratch row past the lanes,
+    `mode="drop"`);
   * `process_phase_resident` and `run_resident` take the device ("cuda"
     unless the caller passes "cpu").  Nothing is compiled per shape, so
     the vote and walk rows are not padded to a power of two: each call
     takes exactly the lanes that asked, a vote's instance columns are cut
     to their largest count (`_vote_gathered`'s `n_max`), and the host's
     arguments of a call go to the device in one copy.  Every read of the
-    device is one fetch (a vote call's six results, a walk's six, a
-    rewind's three flank and count rows, the seed counts and flags); the
+    device is one fetch (a vote call's six results, a walk's six and its
+    rows' push and occurrence-step counts, a rewind's three flank and
+    count rows, the seed counts and flags); the
     result slabs come back through the compact fetch (`decode`), where the
     JAX engine fetches the whole slab;
   * what `SZ_RESIDENT_STATS` printed are `utils/metrics` counters:
@@ -61,10 +66,14 @@ A port of sibeliaz_tpu/lcb/resident.py.  How it differs:
     vote call, where the JAX engine counts rounds with votes),
     `resident_vote_retries` (lanes sent on to the last tier),
     `resident_vote_s`, `resident_walk_calls`, `resident_walk_s`,
-    `resident_pushes` and `resident_occ_steps` (the walk's lockstep
-    pushes and the occurrence steps they ran), `resident_rewind_s`,
+    `resident_pushes` (a walk call's largest push count of a row, which
+    is the lockstep loop's pushes), `resident_lane_occ_steps` (the rows'
+    occurrence steps, summed: the pushed vertices' occurrence counts;
+    the lockstep loop's steps, a push's largest count, cannot be rebuilt
+    from the rows' counts and are not counted), `resident_rewind_s`,
     `resident_oracle_lanes` and `resident_host_syncs` (one a read of the
-    device); the seconds are the host's, and each ends in a read of the
+    device; the plain walk's own reads on the CPU are not counted); the
+    seconds are the host's, and each ends in a read of the
     device, so each holds its device work;
   * `_device_tables` caches the tables on the engine, one copy a device;
   * `_seed_lanes_device` returns the seed counts and overflow flags on the
@@ -102,7 +111,6 @@ from sibeliaz_tpu_torch.lcb.batched_push_device import (
     DeviceTables,
     _clip,
     _push_impl_traced,
-    edge_of,
 )
 from sibeliaz_tpu_torch.lcb.oracle import NEG_INF_SCORE, Bundle, Instance, LcbEngine
 from sibeliaz_tpu_torch.utils.metrics import GLOBAL as metrics
@@ -204,65 +212,30 @@ def _push_score_snap(max_occ: int, fwd, tb: DeviceTables, st: ResidentState,
     return new_st, success, score, improved, out.n, out.overflow
 
 
-def _walk_pushes(tb: DeviceTables, st: ResidentState, c, i, s, fwd, tvid, active, last,
-                 m: int, b: int, flank: int, limit: int, fetch, prefix: str):
-    """Up to `limit` lockstep pushes of the active lanes, each from its
-    iterator (chr c, idx i, strand s) one junction on in its direction
-    fwd, until it reaches its target vid tvid or overflows.  `last` carries
-    the last push's success.  Each push reads (any lane active, the largest
-    occurrence count of an active lane's pushed vertex) in one `fetch`; an
-    iteration with no active lane does not run.  Counts `<prefix>_pushes`
-    and `<prefix>_occ_steps`.  Returns (state, i, last, at target)."""
-    nj = tb.jid.shape[0] - 1
-    base = tb.chr_off[_clip(c, tb.chr_off.shape[0] - 2)]
-
-    def vid_at(i):
-        return s * tb.jid[_clip(base + i, nj)]
-
-    active = active & (vid_at(i) != tvid)
-    for _ in range(limit):
-        eu, ev, ech, _, elen = edge_of(tb, c, i, s, fwd)
-        av = torch.where(fwd, ev, eu).abs()
-        occ_cnt = (tb.occ_off[_clip(av + 1, tb.occ_off.shape[0] - 1)]
-                   - tb.occ_off[_clip(av, tb.occ_off.shape[0] - 2)])
-        go, mo = fetch(torch.stack([active.any().long(),
-                                    torch.where(active, occ_cnt, 0).max()])).tolist()
-        if not go:
-            break
-        metrics.count(f"{prefix}_pushes")
-        metrics.count(f"{prefix}_occ_steps", mo)
-        st, success, _, _, _, ovf = _push_score_snap(
-            mo, fwd, tb, st, eu, ev, ech, elen, active, m, b, flank)
-        i = torch.where(active, i + torch.where(fwd, s, -s), i)
-        last = torch.where(active, success, last)
-        active = active & (vid_at(i) != tvid) & ~ovf
-    return st, i, last, vid_at(i) == tvid
-
-
 def _walk_device(tb: DeviceTables, st: ResidentState, rows, c, i0, s, fwd, tvid,
                  m: int, b: int, flank: int):
-    """Walk each gathered lane from its vote origin to the winner: all
-    lanes step in lockstep (`_walk_pushes`, at most _MAX_WALK pushes),
-    each push's edge from edge_of, the mixed-direction push + score +
-    snapshot applied per push.  Returns (state, last-push success, current
-    score, n, right flank, left flank, overflow) per gathered row: the only
-    scalars the host protocol needs (path-end vertices live in the rv/lv
-    lane registers).
+    """Walk each gathered lane from its vote origin to the winner: one K5
+    call (lcb/kernels.py, its plain version on the CPU; at most _MAX_WALK
+    pushes a lane), each push's edge from edge_of, the mixed-direction push
+    + score + snapshot applied per push.  Returns the state and, per row,
+    (last-push success, current score, n, right flank, left flank,
+    overflow), on the host: the only scalars the host protocol needs
+    (path-end vertices live in the rv/lv lane registers), fetched with the
+    rows' push and occurrence-step counts in the call's one read.
 
     `rows` is [A] with sentinel L for padding (its lane is inert, its row
     dropped on the way back); (c, i0, s) is the vote's origin iterator,
     tvid the winning vertex (blocksfinder.h:770-895)."""
-    L = st.ln.chr.shape[0]
-    take = _clip(rows, L - 1)
-    work = _state_from_leaves([x.index_select(0, take) for x in _state_leaves(st)])
-    work, _, last, _ = _walk_pushes(tb, work, c, i0, s, fwd, tvid, rows < L,
-                                    torch.zeros_like(fwd), m, b, flank, _MAX_WALK, _fetch,
-                                    "resident")
-    st = _state_from_leaves([_scatter_rows(full, rows, w) for full, w in
-                             zip(_state_leaves(st), _state_leaves(work))])
-    score = _score_of(tb, work.ln, flank)
-    return (st, last, score, work.ln.n, work.ln.right_flank, work.ln.left_flank,
-            work.ln.overflow)
+    from sibeliaz_tpu_torch.lcb import kernels  # (lcb/kernels.py imports this module)
+
+    w = kernels.lcb_walk(tb, st, rows, c, i0, s, fwd, tvid, torch.ones_like(fwd),
+                         torch.zeros_like(fwd), m, b, flank, _MAX_WALK)
+    h = _fetch(torch.stack([w.last.long(), w.score, w.n, w.right_flank, w.left_flank,
+                            w.overflow.long(), w.pushes, w.occ_steps]))
+    metrics.count("resident_pushes", int(h[6].max(initial=0)))
+    metrics.count("resident_lane_occ_steps", int(h[7].sum()))
+    last, score, n, rfl, lfl, ovf = (torch.from_numpy(x) for x in h[:6])
+    return w.st, last.bool(), score, n, rfl, lfl, ovf.bool()
 
 
 def _rewind_rows(st: ResidentState, rows) -> ResidentState:
@@ -865,7 +838,7 @@ def process_phase_resident(eng: LcbEngine, bundles: Sequence[Bundle], device="cu
                 walks, *zip(*(p[2] for p in req)), [p[1] for p in req], [p[3] for p in req])
             st, *res = _walk_device(tb, st, rows, wc, wi, ws, wf.bool(), wt, eng.m, eng.b,
                                     eng.flank)
-            last, score, n_w, rfl, lfl, ovf = _fetch(torch.stack([x.long() for x in res]))
+            last, score, n_w, rfl, lfl, ovf = (x.numpy() for x in res)
             for j, i in enumerate(walks):
                 if ovf[j]:
                     kill(i)

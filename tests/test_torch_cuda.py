@@ -25,8 +25,10 @@ from sibeliaz_tpu_torch.utils.metrics import GLOBAL as metrics
 from torch_cases import (BUNDLE_CASES, CLASS_RUN_KINDS, K1_KINDS, LIMB_SPLITS, ROUND_ROW_KINDS,
                          SHARD_EDGE_KINDS, bundle_fields, class_case, class_runs,
                          codes_with_n_runs, edge_band_round, k1_case, poa_case, poa_round,
-                         rand_block, related_genomes, round_rows, shard_edge_case, split_limbs,
-                         spread_slots, state_diff, tied_table)
+                         rand_block, related_genomes, repeat_genomes, round_rows,
+                         shard_edge_case, split_limbs, spread_slots, state_arrays, state_diff,
+                         tied_table, walk_args, walk_genomes, walk_lanes, walk_tensors,
+                         with_sentinel_rows)
 
 pytestmark = pytest.mark.gpu
 
@@ -665,29 +667,154 @@ def fused_case(k=15):
     return LcbEngine(table, cfg.min_block_size, cfg.max_branch_size, cfg.flanking)
 
 
+@pytest.mark.parametrize("steps", [3, "end"])
 @pytest.mark.parametrize("tier", [(64, 32, 64, 128), (512, 16, 512, 1024)])
-def test_fused_carry_cuda_matches_cpu(cuda, tier):
-    """The fused state machine from the same seeded lanes run to the
-    phase's end on the card and on the CPU: every field of the carry
-    equal, at the narrow and the wide tier."""
-    from sibeliaz_tpu_torch.lcb import fused, resident
+def test_fused_carry_cuda_matches_cpu(cuda, tier, steps):
+    """The fused state machine from the same seeded lanes run 3 outer steps
+    and to the phase's end on the card (its walk chunks through K5) and on
+    the CPU (through K5's plain version): every field of the carry equal,
+    and the counters but the seconds, at the narrow and the wide tier."""
+    from sibeliaz_tpu_torch.lcb import fused, kernels, resident
 
     eng = fused_case()
     bundles = make_bundles_device(eng.t, "cpu")[:32]
     CAP, W, IC, PC = tier
-    carries = []
+    limit = fused.MAX_STEPS if steps == "end" else steps
+    carries, counters = [], []
     for dev in ("cuda", "cpu"):
         tb = resident._device_tables(eng, dev)
         ln, _, ovf = resident._seed_lanes_device(tb, bundles, 32, IC, PC)
         zero = torch.zeros(32, dtype=torch.int64, device=dev)
         st = resident.ResidentState(ln, ln, ln, zero, zero.bool())
         active = (torch.arange(32, device=dev) < len(bundles)) & ~ovf
+        launches = kernels.LAUNCHES["lcb_walk"]
+        metrics.counters.clear()
         carry, reading = fused._phase_fused_seg(
             CAP, W, IC >= fused.I_CAP, tb, fused._init_carry(st, active, 32), eng.depth, eng.m,
-            eng.b, eng.flank, eng.b * 2, fused.MAX_STEPS)
-        assert reading[0] == 0 and carry["steps"] > 20
+            eng.b, eng.flank, eng.b * 2, limit)
+        assert kernels.LAUNCHES["lcb_walk"] - launches == (carry["steps"] if dev == "cuda" else 0)
+        if steps == "end":
+            assert reading[0] == 0 and carry["steps"] > 20
+        else:
+            assert reading[0] > 0 and carry["steps"] == steps
         carries.append(carry)
+        counters.append({k: v for k, v in metrics.counters.items() if not k.endswith("_s")})
     assert not state_diff(*carries)
+    assert counters[0] == counters[1] and counters[0]["fused_pushes"] > 0
+
+
+@functools.lru_cache(maxsize=None)
+def walk_engine(kind):
+    """The LCB engine of a K5 case's genomes: the related pair, a 300-copy
+    repeat, or genomes where a walk outgrows the narrow slab."""
+    from sibeliaz_tpu_torch.lcb.oracle import LcbEngine
+
+    if kind == "related":
+        return fused_case()
+    seqs, names = repeat_genomes(3, 300) if kind == "repeat" else walk_genomes(3)
+    cfg = Config(k=15, abundance_threshold=1000)
+    table = pipeline.build_table(seqs, names, cfg, device="cpu")
+    return LcbEngine(table, cfg.min_block_size, cfg.max_branch_size, cfg.flanking)
+
+
+# tests/test_torch_lcb_walk.py's cases: genomes, slab widths, push limit
+# (fused.WALK_CHUNK, resident._MAX_WALK, 2)
+WALK_CASES = {
+    "narrow": ("related", (64, 128), 16),
+    "wide": ("related", (512, 1024), 2048),
+    "bounded": ("related", (64, 128), 2),
+    "many_occurrences": ("repeat", (512, 1024), 2048),
+    "overflow": ("overflow", (64, 128), 16),
+}
+
+
+def walk_inputs(case, rows_given, again):
+    """A K5 case on the card: (engine, tables, state, per-row arguments
+    rows, c, i, s, fwd, tvid, active, last, limit).  Without `rows_given`
+    the rows are every lane in order (the fused engine's form: lanes with
+    no walk inactive, with its padding), else the walking lanes shuffled
+    with sentinel rows (the resident engine's form).  With `again` the
+    state is that after a first walk (rewind and result slabs apart from
+    the live one, best scores set) and new walks start from it."""
+    from sibeliaz_tpu_torch.lcb import kernels
+    from sibeliaz_tpu_torch.lcb.batched_push_device import BIG
+
+    kind, (IC, PC), limit = WALK_CASES[case]
+    eng = walk_engine(kind)
+    tb, st, n_lanes = walk_lanes(eng, 32, IC, PC, "cuda")
+    rng = np.random.default_rng(11)
+    args = walk_args(eng, st, n_lanes, rng)
+    if again:
+        rows, c, i, s, fwd, tvid = walk_tensors(args, "cuda")
+        on = torch.ones_like(fwd)
+        st = kernels.lcb_walk_plain(tb, st, rows, c, i, s, fwd, tvid, on, ~on, eng.m, eng.b,
+                                    eng.flank, limit).st
+        args = walk_args(eng, st, n_lanes, np.random.default_rng(12))
+    if rows_given:
+        rows, c, i, s, fwd, tvid = walk_tensors(with_sentinel_rows(args, 32, rng), "cuda")
+        active = torch.ones_like(fwd)
+        last = torch.from_numpy(rng.random(len(rows)) < 0.5).to("cuda")
+        return eng, tb, st, (rows, c, i, s, fwd, tvid, active, last), limit
+    lane_args = [np.zeros(32, np.int64), np.zeros(32, np.int64), np.ones(32, np.int64),
+                 np.zeros(32, bool), np.full(32, BIG, np.int64)]
+    for q, a in enumerate(args[1:]):
+        lane_args[q][args[0]] = a
+    active = np.zeros(32, bool)
+    active[args[0]] = rng.random(len(args[0])) < 0.9
+    c, i, s, fwd, tvid = walk_tensors(lane_args, "cuda")
+    last = torch.from_numpy(rng.random(32) < 0.5).to("cuda")
+    return eng, tb, st, (None, c, i, s, fwd, tvid, torch.from_numpy(active).to("cuda"), last), \
+        limit
+
+
+def test_lcb_walk_engines_never_run_the_plain_walk_on_the_card(cuda, monkeypatch):
+    """Both device LCB engines on the card walk through K5 alone: with the
+    plain walk made to raise, a phase of 32 bundles through each engine
+    gives eng.process's instance lists and launches K5."""
+    from sibeliaz_tpu_torch.lcb import fused, kernels, resident
+
+    def refuse(*args):
+        raise AssertionError("the plain walk ran on the card")
+
+    monkeypatch.setattr(kernels, "lcb_walk_plain", refuse)
+    eng = fused_case()
+    bundles = make_bundles_device(eng.t, "cpu")[:32]
+    want = [[(x.c, x.s, x.fi, x.bi, x.fdist, x.bdist, x.cmp, x.ffin, x.bfin) for x in insts]
+            for insts in (eng.process(b) for b in bundles)]
+    for fn in (fused.process_phase_fused, resident.process_phase_resident):
+        launches = kernels.LAUNCHES["lcb_walk"]
+        got = fn(eng, bundles, device="cuda")
+        assert [[(x.c, x.s, x.fi, x.bi, x.fdist, x.bdist, x.cmp, x.ffin, x.bfin) for x in insts]
+                for insts in got] == want
+        assert kernels.LAUNCHES["lcb_walk"] > launches
+
+
+@pytest.mark.parametrize("again", [False, True])
+@pytest.mark.parametrize("rows_given", [True, False])
+@pytest.mark.parametrize("case", list(WALK_CASES))
+def test_lcb_walk_matches_plain(cuda, case, rows_given, again):
+    """K5 against its plain version on the card, every output exact (the
+    state's 68 tensors and the ten per-row results), one launch, the
+    inputs unchanged (the three slabs share their tensors, as the engines
+    seed them): the narrow and the full slab widths, mixed directions, at
+    WALK_CHUNK, _MAX_WALK and a limit of 2 pushes, a vertex of hundreds of
+    occurrences, lanes that overflow their slab mid-walk; rows given with
+    sentinels among them or every lane in order; from the seeded state and
+    from the state after a first walk."""
+    from sibeliaz_tpu_torch.lcb import kernels
+
+    eng, tb, st, args, limit = walk_inputs(case, rows_given, again)
+    before = state_arrays(st)
+    launches = kernels.LAUNCHES["lcb_walk"]
+    got = kernels.lcb_walk(tb, st, *args, eng.m, eng.b, eng.flank, limit)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["lcb_walk"] == launches + 1
+    want = kernels.lcb_walk_plain(tb, st, *args, eng.m, eng.b, eng.flank, limit)
+    assert not state_diff(got._asdict(), want._asdict())
+    assert not state_diff(st, before)
+    assert int(got.pushes.max()) >= 1 and bool(state_diff(got.st, st))
+    if case == "overflow" and not again:
+        assert bool((got.overflow & (got.pushes > 0)).any())
 
 
 @pytest.mark.parametrize("patch", [{}, {"SMALL_CAP": 3, "VOTE_BUDGET": 1 << 14},

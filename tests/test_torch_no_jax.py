@@ -165,7 +165,7 @@ def test_no_module_imports_jax_or_the_jax_package():
                    "postprocess/gfa.py", "postprocess/xmfa.py", "postprocess/synteny.py",
                    "parallel/sharded.py", "parallel/multihost.py", "dryrun.py",
                    "lcb/batched_push_device.py", "lcb/resident.py", "lcb/fused.py",
-                   "lcb/batched.py"):
+                   "lcb/batched.py", "lcb/kernels.py"):
         assert os.path.join("sibeliaz_tpu_torch", module) in rel
     for path in files:
         with open(path) as f:

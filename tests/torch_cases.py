@@ -659,3 +659,94 @@ def state_diff(a, b):
     fa, fb = state_arrays(a), state_arrays(b)
     return sorted(set(fa) ^ set(fb)) + [
         key for key in fa if key in fb and not np.array_equal(fa[key], fb[key])]
+
+
+# ---- K5 lcb_walk: lane states and walk arguments from the port alone -------
+
+
+def walk_genomes(seed, copies=100, unit=80, spacer=50):
+    """Genomes in which a walk outgrows a narrow instance slab: a segment X
+    occurs twice in the first genome, once followed by a unit W, and W
+    occurs `copies` times in the second, between random spacers.  A lane at
+    X's end that pushes W's first junction meets W's other copies far from
+    its instances, and each of them is one instance more."""
+    from sibeliaz_tpu_torch.core import alphabet
+
+    rng = np.random.default_rng(seed)
+
+    def rand(n):
+        return alphabet.decode(rng.integers(0, 4, size=n).astype(np.uint8))
+
+    x, w = rand(60), rand(unit)
+    first = np.concatenate([rand(200), x, w, rand(200), x, rand(200)])
+    parts = [rand(spacer)]
+    for _ in range(copies):
+        parts += [w, rand(spacer)]
+    return [first, np.concatenate(parts)], ["Genome1", "Genome2"]
+
+
+def walk_lanes(eng, L, IC, PC, device, bundles=None):
+    """Lanes seeded at (IC, PC) by resident._seed_lanes_device from the
+    first L bundles whose vertex's occurrences fit IC (or `bundles`), as a
+    ResidentState whose three slabs share their tensors, as both engines
+    seed them.  Returns (tables, state, the seeded lanes' count)."""
+    import torch
+
+    from sibeliaz_tpu_torch.lcb import resident
+    from sibeliaz_tpu_torch.lcb.device_bundles import make_bundles_device
+
+    if bundles is None:
+        occ = np.diff(eng.t.occ_off)
+        bundles = [bd for bd in make_bundles_device(eng.t, "cpu") if occ[abs(bd.vid)] <= IC][:L]
+    tb = resident._device_tables(eng, device)
+    ln, _, ovf = resident._seed_lanes_device(tb, bundles, L, IC, PC)
+    assert not bool(ovf.any())
+    zero = torch.zeros(L, dtype=torch.int64, device=device)
+    return tb, resident.ResidentState(ln, ln, ln, zero, zero.bool()), len(bundles)
+
+
+def walk_args(eng, st, n_lanes, rng, reach=4):
+    """Walk arguments [rows, c, i, s, fwd, tvid] (numpy) for every seeded
+    lane with an instance: from its first instance, in a random direction,
+    to the vertex 1 to `reach` junctions on (where the chromosome holds
+    one): walks of several pushes, which the protocol's votes rarely
+    make."""
+    t = eng.t
+    chr_, idx, strand = (getattr(st.ln, f)[:, 0].cpu().numpy() for f in ("chr", "bi", "s"))
+    n = st.ln.n.cpu().numpy()
+    out = []
+    for lane in np.flatnonzero(n[:n_lanes] > 0):
+        c, i, s = int(chr_[lane]), int(idx[lane]), int(strand[lane])
+        fwd = bool(rng.random() < 0.5)
+        step = s if fwd else -s
+        for d in rng.permutation(np.arange(reach, 0, -1)):
+            j = i + step * int(d)
+            if 0 <= j < t.chr_off[c + 1] - t.chr_off[c]:
+                out.append((lane, c, i, s, fwd, s * int(t.jid_flat[t.chr_off[c] + j])))
+                break
+    return [np.array(col, dtype=np.bool_ if q == 4 else np.int64)
+            for q, col in enumerate(zip(*out))]
+
+
+def with_sentinel_rows(args, L, rng):
+    """The walk arguments [rows, c, i, s, fwd, tvid] shuffled, with
+    sentinel rows (row L, as the engines pad them) first, last and right
+    after lane L-1's row, which must be among them."""
+    rows = args[0]
+    assert L - 1 in rows
+    pad = [L, 0, 0, 1, False, 1 << 60]
+    order = list(rng.permutation(len(rows)))
+    at = order.index(int(np.flatnonzero(rows == L - 1)[0]))
+    order[at + 1:at + 1] = [-1]
+    order[:0] = [-1]
+    order.append(-1)
+    return [np.array([a[q] if q >= 0 else p for q in order], dtype=np.asarray(a).dtype)
+            for a, p in zip(args, pad)]
+
+
+def walk_tensors(args, device):
+    """Walk arguments as the wrapper takes them: rows, c, i, s, fwd, tvid
+    on `device`."""
+    import torch
+
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in args]
