@@ -242,6 +242,8 @@ K5_INSTANCE_BYTES, K5_PATH_BYTES, K5_REGISTER_BYTES = 74, 16, 72
 K5_OPS_PER_STEP, K5_OPS_PER_SCORE_TERM = 150, 12
 # per row: the arguments in (five int64, three bools), the results out (ten int64)
 K5_ROW_BYTES = 5 * 8 + 3 + 10 * 8
+# per walking row, each way: its best score (int64) and snapshot flag (bool)
+K5_BEST_BYTES = 8 + 1
 
 
 def check(cond, msg):
@@ -2009,21 +2011,35 @@ class WalkRecorder:
         return out[:WALK_REPLAY_MAX]
 
 
-def k5_bound(w, IC, PC, peak_ops):
-    """K5's roofline bound on one call's data: each walking row's three
-    slabs read and written once, every row's arguments and results, the
-    table words its pushes and occurrence steps read and each push's score
-    terms (the final instance count's), against the operations of those
-    steps and terms; (ms, which, bytes)."""
+def k5_bound(args, w, IC, PC, peak_ops):
+    """K5's roofline bound on one call's data, as the kernel must move it
+    (the wrapper's copy of the state is timed apart, as copy_ms): each
+    walking row's live slab, best score and snapshot flag read once and
+    written once; one rewind slab written for each row whose forward walk
+    raised its best score, one result slab for each row whose raised best
+    score is above 0 (the kernel reads neither of those slabs); every
+    row's arguments and results; the table words its pushes and
+    occurrence steps read and each push's score terms (the final instance
+    count's), against the operations of those steps and terms;
+    (ms, which, bytes)."""
+    st, rows, fwd = args[1], args[2], args[6]
+    L = st.best_score.shape[0]
+    old, new = st.best_score, w.st.best_score
+    if rows is not None:
+        take = rows.clamp(max=L - 1)
+        old, new = old[take], new[take]
     walked = w.pushes > 0
+    raised = walked & (new > old)
+    rewinds, results = int((raised & fwd).sum()), int((raised & (new > 0)).sum())
     slab = IC * K5_INSTANCE_BYTES + PC * K5_PATH_BYTES + K5_REGISTER_BYTES
     terms = int((w.pushes * w.n).sum())
     steps, pushes = int(w.occ_steps.sum()), int(w.pushes.sum())
-    nbytes = (6 * slab * int(walked.sum()) + K5_ROW_BYTES * w.pushes.shape[0]
-              + K5_PUSH_BYTES * pushes + K5_STEP_BYTES * steps + K5_SCORE_BYTES * terms)
+    nbytes = (2 * (slab + K5_BEST_BYTES) * int(walked.sum()) + slab * (rewinds + results)
+              + K5_ROW_BYTES * w.pushes.shape[0] + K5_PUSH_BYTES * pushes
+              + K5_STEP_BYTES * steps + K5_SCORE_BYTES * terms)
     ms, by = bound_ms(nbytes, K5_OPS_PER_STEP * steps + K5_OPS_PER_SCORE_TERM * terms,
                       peak_ops)
-    return ms, by, nbytes
+    return ms, by, nbytes, rewinds, results
 
 
 def k5_step_us(torch, lcb_kernels):
@@ -2070,7 +2086,7 @@ def k5_vs_plain(torch, lcb_kernels, label, args, peak_ops, step_us):
     copy_ms = cuda_ms(torch, lambda: [x.clone() for x in leaves], 5, ahead=True, quiet=True)
     call_ms = cuda_ms(torch, lambda: lcb_kernels.lcb_walk(*args), 10)
     IC, PC = st.ln.chr.shape[1], st.ln.pvid.shape[1]
-    bound, by, nbytes = k5_bound(want, IC, PC, peak_ops)
+    bound, by, nbytes, rewinds, results = k5_bound(args, want, IC, PC, peak_ops)
     longest = int(want.occ_steps.max())
     floor = longest * step_us / 1e3
     print(f"lcb_walk {label}: equal, inputs unchanged | rows {want.pushes.shape[0]} "
@@ -2078,7 +2094,8 @@ def k5_vs_plain(torch, lcb_kernels, label, args, peak_ops, step_us):
           f"{int(want.pushes.sum())} (most {int(want.pushes.max())}), occurrence steps "
           f"{int(want.occ_steps.sum())} (longest row {longest}) | kernel {ms:.4f} ms, state "
           f"copy {copy_ms:.4f} ms, whole call {call_ms:.4f} ms (host included) | plain "
-          f"{plain_ms:.4f} ms | bound {bound:.4f} ms by {by} ({nbytes} bytes) = "
+          f"{plain_ms:.4f} ms | bound {bound:.4f} ms by {by} ({nbytes} bytes; {rewinds} rewind "
+          f"and {results} result slabs written) = "
           f"{100 * bound / ms:.4f}% | chain floor {floor:.4f} ms = {longest} x {step_us:.4f} us"
           f" = {100 * floor / ms:.4f}%")
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,

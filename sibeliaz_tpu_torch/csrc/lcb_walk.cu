@@ -565,15 +565,12 @@ __global__ void __launch_bounds__(kThreads) lcb_chain_probe_kernel(const i64* ta
   if (threadIdx.x == 0) out[0] = v;
 }
 
-}  // namespace
-
-// Threads a block of the walk kernel.
-extern "C" int sz_lcb_walk_threads() { return kThreads; }
-
 // Dynamic shared memory a block takes at slab widths IC and PC.
-extern "C" long long sz_lcb_walk_smem_bytes(int IC, int PC) {
+long long smem_bytes(int IC, int PC) {
   return (static_cast<long long>(kInst) * IC + 2LL * PC) * 8;
 }
+
+}  // namespace
 
 // in_leaves, out_leaves: host arrays of the 68 device pointers of
 // resident._state_leaves (ln, rw, sn: the 22 LANE_FIELDS each; best_score,
@@ -593,7 +590,7 @@ extern "C" int sz_lcb_walk(const long long* in_leaves, const long long* out_leav
                            const long long* args, void* res, long long L, long long A, int IC,
                            int PC, long long k, long long m, long long b, long long flank,
                            int limit, void* stream) {
-  const long long smem = sz_lcb_walk_smem_bytes(IC, PC);
+  const long long smem = smem_bytes(IC, PC);
   if (L < 1 || A < 0 || A > 0x7fffffffLL || IC < 1 || PC < 1 || limit < 0 || smem > kMaxSmem) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
