@@ -11,6 +11,7 @@
     python3 chip_smoke.py --dryrun           # phase 14 alone, see devices_phase
     python3 chip_smoke.py --resident         # phase 15 alone, see resident_phase
     python3 chip_smoke.py --walk             # phase 16 alone, see walk_phase
+    python3 chip_smoke.py --k5-time [OLDER.cu]  # K5 (and an older one) timed, see k5_time
 
 Phases, in order; any failure raises and the exit code is non-zero:
   1. device: the card's name and power limit, and the peak rates the
@@ -145,9 +146,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
      replayed through K5 and its plain version on the card, then the stress
      set (a repeat of 300 copies, walks cut at 2 pushes, lanes outgrowing a
      64-instance slab mid-walk, sentinel rows and lane L-1 in each): every
-     output exact, the inputs unchanged, the kernel's card time beside the
-     copy of the state, the whole call, the plain version, the bound and the
-     chain floor.  `--walk` runs phases 1, 2 and 16 alone.
+     output exact, the state walked in place with no allocation but the
+     results, the kernel's card time (each launch from the restored state)
+     beside the whole call, the plain version, the bound and the chain
+     floors of this step and of the first design's; the walk blocks an SM
+     holds.  `--walk` runs phases 1, 2 and 16 alone.
 The last two lines are a JSON summary of the kernels (time, plain time,
 bound, launches per main path; K1's and K2's "ms" are their one-limb
 instances' and "by_limbs" holds both instances'; K4's "ms" is its shape on
@@ -255,36 +258,48 @@ def phase(title):
     print(f"\n== {title} ==", flush=True)
 
 
-def cuda_ms(torch, fn, reps, ahead=False, quiet=False):
+def cuda_ms(torch, fn, reps, ahead=False, quiet=False, setup=None):
     """Mean milliseconds per call of `fn` on the card, after one warm-up.
-    With `ahead`, the card first spins for AHEAD_CYCLES clocks
-    (torch.cuda._sleep) while the host enqueues every call, so that the time
+    With `ahead`, the card first spins for AHEAD_CYCLES clocks (`ahead`
+    times that where it is a number) (torch.cuda._sleep) while the host
+    enqueues every call, so that the time
     is the card's alone and not the host's rate of enqueueing calls shorter
     than its own overhead; the host's microseconds a call are printed beside
     it (unless `quiet`), and a host that did not finish its enqueueing
-    within the spin fails the check."""
+    within the spin fails the check.  With `setup`, each call is preceded
+    by setup() outside its own pair of events (say, restoring what the
+    call writes in place), and the calls' times are summed."""
+    if setup:
+        setup()
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(reps if setup else 1)]
     spin = torch.cuda.Event(enable_timing=True)
     if ahead:
         spin.record()
-        torch.cuda._sleep(AHEAD_CYCLES)
-    start.record()
+        torch.cuda._sleep(AHEAD_CYCLES * int(ahead))
     t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
+    if setup:
+        for start, end in pairs:
+            setup()
+            start.record()
+            fn()
+            end.record()
+    else:
+        pairs[0][0].record()
+        for _ in range(reps):
+            fn()
+        pairs[0][1].record()
     host = time.perf_counter() - t0
-    end.record()
-    end.synchronize()
+    pairs[-1][1].synchronize()
     if ahead:
-        spun = spin.elapsed_time(start)
+        spun = spin.elapsed_time(pairs[0][0])
         check(host * 1e3 < spun, f"the host took {host * 1e3:.3f} ms to enqueue {reps} calls, "
                                  f"longer than the card's spin of {spun:.3f} ms")
         if not quiet:
             print(f"  (host {host / reps * 1e6:.1f} us a call, card spun {spun:.3f} ms ahead)")
-    return start.elapsed_time(end) / reps
+    return sum(start.elapsed_time(end) for start, end in pairs) / reps
 
 
 # ---- inputs, rebuilt from the seeds the repo's own generators use -------
@@ -1966,18 +1981,25 @@ class WalkRecorder:
     and keeps the arguments of the calls with the most pushes and with the
     longest row (its occurrence steps), WALK_KEEP of each per (engine, slab
     width), so that K5 can be held against its plain version at the main
-    path's own shapes afterwards.  Each call is read once for its counts
-    (a read the engines do not make).  The wrapper it calls still counts
-    each launch."""
+    path's own shapes afterwards: each with a copy of the state as it was
+    before the call, which the walk writes in place.  Each call is read
+    once for its counts (a read the engines do not make).  The wrapper it
+    calls still counts each launch."""
 
     def __init__(self, torch, lcb_kernels):
         self.torch, self.mod, self.kept, self.engine, self.calls = torch, lcb_kernels, {}, None, 0
 
     def __enter__(self):
+        from sibeliaz_tpu_torch.lcb.batched_push_device import (_state_from_leaves,
+                                                                _state_leaves)
+
         real = self.real = self.mod.lcb_walk
 
         def record(*args):
+            # the walk writes the state in place: keep a copy as it was
+            before = _state_from_leaves([x.clone() for x in _state_leaves(args[1])])
             w = real(*args)
+            args = (args[0], before) + args[2:]
             pushes, occ = self.torch.stack([w.pushes.max(), w.occ_steps.max()]).tolist()
             self.calls += 1
             kept = self.kept.setdefault((self.engine, args[1].ln.chr.shape[1]), [])
@@ -2012,9 +2034,8 @@ class WalkRecorder:
 
 
 def k5_bound(args, w, IC, PC, peak_ops):
-    """K5's roofline bound on one call's data, as the kernel must move it
-    (the wrapper's copy of the state is timed apart, as copy_ms): each
-    walking row's live slab, best score and snapshot flag read once and
+    """K5's roofline bound on one call's data, as the kernel must move it:
+    each walking row's live slab, best score and snapshot flag read once and
     written once; one rewind slab written for each row whose forward walk
     raised its best score, one result slab for each row whose raised best
     score is above 0 (the kernel reads neither of those slabs); every
@@ -2022,7 +2043,7 @@ def k5_bound(args, w, IC, PC, peak_ops):
     occurrence steps read and each push's score terms (the final instance
     count's), against the operations of those steps and terms;
     (ms, which, bytes)."""
-    st, rows, fwd = args[1], args[2], args[6]
+    st, rows, fwd = args[1], args[2], args[6]  # st: the state before the walk
     L = st.best_score.shape[0]
     old, new = st.best_score, w.st.best_score
     if rows is not None:
@@ -2043,30 +2064,51 @@ def k5_bound(args, w, IC, PC, peak_ops):
 
 
 def k5_step_us(torch, lcb_kernels):
-    """One dependent step of K5's chain (the chain probe: four dependent
-    loads from L2 and one barrier of 256 threads), in microseconds."""
+    """One dependent step of K5's chain, in microseconds, by each chain
+    probe: {"warp": one load from L2 and a __syncwarp of warp 0 (the
+    walk's step), "block": four dependent loads and a barrier of 256
+    threads (the step of the kernel's first design, thread 0 alone)}."""
     n = 1 << 20
     perm = torch.randperm(n, generator=torch.Generator().manual_seed(16))
     table = torch.empty(n, dtype=torch.int64)
     table[perm] = perm.roll(-1)  # one cycle through every entry
     table = table.cuda()
     iters = 20000
-    return cuda_ms(torch, lambda: lcb_kernels.chain_probe(table, iters), 3) * 1e3 / iters
+    return {step: cuda_ms(torch, lambda: lcb_kernels.chain_probe(table, iters, step), 3) * 1e3
+            / iters for step in ("warp", "block")}
 
 
 def k5_vs_plain(torch, lcb_kernels, label, args, peak_ops, step_us):
-    """K5 against its plain version on one call's arguments on the card:
-    every output exact and the inputs unchanged, with the kernel's card
-    time alone (launched ahead into the same buffers), the copy of the
-    state its wrapper makes, the wrapper's whole call (host included), the
-    plain version's time, the bound and the chain floor.  Returns a dict."""
-    from sibeliaz_tpu_torch.lcb.resident import _state_leaves
+    """K5 against its plain version on one call's arguments on the card
+    (args[1]: the state before the walk, left as it is): every output
+    exact, the state walked in place (the call returns the tensors it was
+    given) and the call's only allocation its results; the kernel's card
+    time alone, each launch from the restored state (the restore untimed),
+    the wrapper's whole call (host included, from the restored state), the
+    plain version's time, the bound and both chain floors.  Returns a
+    dict."""
+    from sibeliaz_tpu_torch.lcb.batched_push_device import _state_from_leaves, _state_leaves
 
-    st = args[1]
+    st0 = args[1]
+    leaves0 = _state_leaves(st0)
+    st = _state_from_leaves([x.clone() for x in leaves0])
     leaves = _state_leaves(st)
-    before = [x.clone() for x in leaves]
-    got = lcb_kernels.lcb_walk(*args)
+    walk_args = (args[0], st) + args[2:]
+
+    def restore():
+        for x, y in zip(leaves, leaves0):
+            x.copy_(y)
+
     torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    got = lcb_kernels.lcb_walk(*walk_args)
+    grew = torch.cuda.memory_allocated() - allocated
+    torch.cuda.synchronize()
+    A = args[3].shape[0]
+    check(grew <= -(-10 * A * 8 // 512) * 512,
+          f"lcb_walk allocated {grew} bytes beside its results ({label})")
+    check(all(x is y for x, y in zip(_state_leaves(got.st), leaves)),
+          f"lcb_walk returned other tensors than the state it walked ({label})")
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -2074,33 +2116,39 @@ def k5_vs_plain(torch, lcb_kernels, label, args, peak_ops, step_us):
     end.record()
     end.synchronize()
     plain_ms = start.elapsed_time(end)
-    pairs = list(zip(_state_leaves(got.st), _state_leaves(want.st))) + list(zip(got[1:], want[1:]))
+    pairs = list(zip(leaves, _state_leaves(want.st))) + list(zip(got[1:], want[1:]))
     err = max(int((a.long() - b.long()).abs().max()) if a.numel() else 0 for a, b in pairs)
     check(err == 0, f"lcb_walk differs from its plain version ({label}): max abs err {err}")
-    check(all(torch.equal(a, b) for a, b in zip(before, leaves)),
-          f"lcb_walk wrote an input ({label})")
-    out = [x.clone() for x in leaves]
-    res = torch.empty((10, args[3].shape[0]), dtype=torch.int64, device="cuda")
-    ms = cuda_ms(torch, lambda: lcb_kernels.launch_into(*args, out, res), 10, ahead=True,
-                 quiet=True)
-    copy_ms = cuda_ms(torch, lambda: [x.clone() for x in leaves], 5, ahead=True, quiet=True)
-    call_ms = cuda_ms(torch, lambda: lcb_kernels.lcb_walk(*args), 10)
+    res = torch.empty((10, A), dtype=torch.int64, device="cuda")
+    # the restore is 68 copies a launch: the card spins 8 x AHEAD_CYCLES
+    ms = cuda_ms(torch, lambda: lcb_kernels.launch_into(*walk_args, res), 10, ahead=8,
+                 quiet=True, setup=restore)
+    call_s = 0.0
+    for _ in range(10):
+        restore()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lcb_kernels.lcb_walk(*walk_args)
+        torch.cuda.synchronize()
+        call_s += time.perf_counter() - t0
+    call_ms = call_s * 1e3 / 10
     IC, PC = st.ln.chr.shape[1], st.ln.pvid.shape[1]
     bound, by, nbytes, rewinds, results = k5_bound(args, want, IC, PC, peak_ops)
     longest = int(want.occ_steps.max())
-    floor = longest * step_us / 1e3
-    print(f"lcb_walk {label}: equal, inputs unchanged | rows {want.pushes.shape[0]} "
+    floor, floor_block = (longest * step_us[step] / 1e3 for step in ("warp", "block"))
+    print(f"lcb_walk {label}: equal, walked in place | rows {want.pushes.shape[0]} "
           f"(walking {int((want.pushes > 0).sum())}), IC {IC} PC {PC}, pushes "
           f"{int(want.pushes.sum())} (most {int(want.pushes.max())}), occurrence steps "
-          f"{int(want.occ_steps.sum())} (longest row {longest}) | kernel {ms:.4f} ms, state "
-          f"copy {copy_ms:.4f} ms, whole call {call_ms:.4f} ms (host included) | plain "
-          f"{plain_ms:.4f} ms | bound {bound:.4f} ms by {by} ({nbytes} bytes; {rewinds} rewind "
-          f"and {results} result slabs written) = "
-          f"{100 * bound / ms:.4f}% | chain floor {floor:.4f} ms = {longest} x {step_us:.4f} us"
-          f" = {100 * floor / ms:.4f}%")
+          f"{int(want.occ_steps.sum())} (longest row {longest}) | kernel {ms:.4f} ms, whole "
+          f"call {call_ms:.4f} ms (host included) | plain {plain_ms:.4f} ms | bound "
+          f"{bound:.4f} ms by {by} ({nbytes} bytes; {rewinds} rewind and {results} result "
+          f"slabs written) = {100 * bound / ms:.4f}% | chain floor {floor:.4f} ms = {longest} x "
+          f"{step_us['warp']:.4f} us = {100 * floor / ms:.4f}% (the first design's step, "
+          f"no floor of this one: {floor_block:.4f} ms = {longest} x "
+          f"{step_us['block']:.4f} us)")
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "copy_ms": copy_ms, "call_ms": call_ms, "chain_floor_ms": floor, "occ": longest,
-            "walk": want}
+            "call_ms": call_ms, "chain_floor_ms": floor, "chain_floor_block_ms": floor_block,
+            "occ": longest, "walk": want}
 
 
 def walk_stress(torch, pipeline, Config, cases):
@@ -2121,7 +2169,7 @@ def walk_stress(torch, pipeline, Config, cases):
         cfg = Config(k=15, abundance_threshold=1000)
         table = pipeline.build_table(seqs, names, cfg, device="cuda")
         eng = LcbEngine(table, cfg.min_block_size, cfg.max_branch_size, cfg.flanking)
-        tb, st, n_lanes = cases.walk_lanes(eng, WALK_LANES, IC, PC, "cuda")
+        tb, st, n_lanes = cases.walk_lanes(eng, WALK_LANES, IC, PC, "cuda", apart=True)
         rng = np.random.default_rng(11)
         walks = cases.walk_args(eng, st, n_lanes, rng)
         rows, c, i, s, fwd, tvid = cases.walk_tensors(
@@ -2132,23 +2180,16 @@ def walk_stress(torch, pipeline, Config, cases):
     return out
 
 
-def walk_phase(torch, mods, peak_ops, label):
-    """Phase 16: K5 lcb_walk against its plain version on the card.  The
-    walk calls of examples/' first phase (256 bundles, k=15) through the
-    fused and the resident engine are recorded (WalkRecorder), and the
-    calls with the most pushes and the longest rows of each engine and slab
-    width replayed; then the stress set.  Each exact, the inputs unchanged,
-    with times, bound and chain floor.  Returns the summary of the heaviest
-    recorded call (the longest row) and the largest error of all."""
-    (cases, _cli, pipeline, _device_poa, _msa, _poa_ref, _kernels, _align_kernels, Config,
+def recorded_walk_calls(torch, mods, lcb_kernels):
+    """examples/' first phase (256 bundles, k=15) through the fused and the
+    resident engine on the card, each equal to eng.process, with K5's calls
+    recorded: the WalkRecorder."""
+    (_cases, _cli, pipeline, _device_poa, _msa, _poa_ref, _kernels, _align_kernels, Config,
      _alphabet, fasta, metrics) = mods
     from sibeliaz_tpu_torch.lcb import fused, resident
-    from sibeliaz_tpu_torch.lcb import kernels as lcb_kernels
     from sibeliaz_tpu_torch.lcb.device_bundles import make_bundles_device
     from sibeliaz_tpu_torch.lcb.oracle import LcbEngine
 
-    phase(f"16 K5 lcb_walk against its plain version {label}")
-    t_phase = time.time()
     recs = fasta.read_many([os.path.join(EXAMPLES, "genome1.fa"),
                             os.path.join(EXAMPLES, "genome2.fa")])
     cfg = Config(k=15)
@@ -2169,9 +2210,137 @@ def walk_phase(torch, mods, peak_ops, label):
                                  "recorded: instances differ from eng.process's")
             print(f"examples/ phase 1, {rec.engine} engine, recorded: {time.time() - t0:.4f} s"
                   f" (each walk call read once for its counts), equal to eng.process")
+    return rec
+
+
+def build_older_k5(cudabuild, lcb_kernels, out_dir, older):
+    """An older csrc/lcb_walk.cu with the first design's C interface (the
+    state's 68 input pointers, then 68 output pointers whose tensors start
+    as copies of the inputs), built alone with nvcc; its -Xptxas -v report
+    printed.  A function (K5's arguments, the output leaves, [10, A]
+    results) that launches it."""
+    lib = os.path.join(out_dir, "k5_older.so")
+    proc = subprocess.run([cudabuild._nvcc(), *cudabuild.NVCC_FLAGS, "-shared", "-o", lib, older],
+                          capture_output=True, text=True)
+    check(proc.returncode == 0, f"K5 {older} did not build:\n{proc.stderr}")
+    print(f"K5 {older}:")
+    print_ptxas(proc.stderr)
+    walk = ctypes.CDLL(lib).sz_lcb_walk
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    walk.argtypes = [vp] * 6 + [i64, i64, i32, i32] + [i64] * 4 + [i32, vp]
+    walk.restype = ctypes.c_int
+
+    def launch(torch, args, out, res):
+        from sibeliaz_tpu_torch.lcb.batched_push_device import _state_leaves
+
+        tb, st, rows, c, i, s, fwd, tvid, active, last, m, b, flank, limit = args
+        tables = [getattr(tb, f) for f in lcb_kernels.TABLE_FIELDS]
+        lens = [tb.chr_off.shape[0], tb.chr_len.shape[0], tb.jid.shape[0],
+                tb.used_pfx.shape[0], tb.used.shape[0], tb.seq_off.shape[0], tb.seq.shape[0],
+                tb.occ_off.shape[0], tb.occ_chr.shape[0]]
+        arrays = [lcb_kernels._array([x.data_ptr() for x in group])
+                  for group in (_state_leaves(st), out, tables)]
+        arrays += [lcb_kernels._array(lens), lcb_kernels._array(
+            [0 if rows is None else rows.data_ptr()]
+            + [x.data_ptr() for x in (c, i, s, fwd, tvid, active, last)])]
+        status = walk(*(ctypes.cast(a, ctypes.c_void_p) for a in arrays),
+                      ctypes.c_void_p(res.data_ptr()), st.ln.chr.shape[0], res.shape[1],
+                      st.ln.chr.shape[1], st.ln.pvid.shape[1], tb.k, m, b, flank, limit,
+                      ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        check(status == 0, f"K5 {older}: CUDA error {status}")
+
+    return launch
+
+
+def k5_time(torch, mods, peak_ops, cudabuild, out_dir, older):
+    """--k5-time [OLDER.cu]: K5 (and an older csrc/lcb_walk.cu of the first
+    design's C interface, where given) on the recorded call with the largest
+    bound of each engine and slab width (recorded_walk_calls) and on the
+    stress set's repeat: each exact against the plain version, then timed
+    over 10 launches, each from the restored state, in turns (older, K5, K5,
+    older), with the restore untimed and, the second time, the card's L2
+    flushed after it by a read of 192 MB (untimed), so that no launch
+    stores over the restore's dirty lines."""
+    from sibeliaz_tpu_torch.lcb import kernels as lcb_kernels
+    from sibeliaz_tpu_torch.lcb.batched_push_device import _state_from_leaves, _state_leaves
+
+    cases, pipeline, Config = mods[0], mods[2], mods[8]
+    print("K5 (the port's library):")
+    print_ptxas(cudabuild.build()[1])
+    older_launch = build_older_k5(cudabuild, lcb_kernels, out_dir, older) if older else None
+    rec = recorded_walk_calls(torch, mods, lcb_kernels)
+    heaviest = {}
+    for name, args in rec.calls_to_replay():
+        want = lcb_kernels.lcb_walk_plain(*args)
+        IC, PC = args[1].ln.chr.shape[1], args[1].ln.pvid.shape[1]
+        bound = k5_bound(args, want, IC, PC, peak_ops)[0]
+        group = " ".join(name.split()[:3])
+        if group not in heaviest or bound > heaviest[group][0]:
+            heaviest[group] = (bound, name, args, want)
+    repeat = walk_stress(torch, pipeline, Config, cases)[0]
+    calls = list(heaviest.values()) + [(None, *repeat, lcb_kernels.lcb_walk_plain(*repeat[1]))]
+    flush = torch.ones(24 << 20, dtype=torch.int64, device="cuda")
+    for bound, name, args, want in calls:
+        leaves0 = _state_leaves(args[1])
+        A = args[3].shape[0]
+        st = _state_from_leaves([x.clone() for x in leaves0])
+        kernels_ = {"K5": (st, lambda res: lcb_kernels.launch_into(args[0], st, *args[2:], res))}
+        if older_launch:
+            out = [x.clone() for x in leaves0]
+            kernels_["older"] = (_state_from_leaves(out),
+                                 lambda res: older_launch(torch, args, out, res))
+        times = {}
+        for who in ["older", "K5", "K5", "older"]:
+            if who not in kernels_:
+                continue
+            state, launch = kernels_[who]
+            res = torch.empty((10, A), dtype=torch.int64, device="cuda")
+            for flushed in (False, True):
+                def restore():
+                    for x, y in zip(_state_leaves(state), leaves0):
+                        x.copy_(y)
+                    if flushed:
+                        flush.sum()
+
+                times.setdefault((who, flushed), []).append(cuda_ms(
+                    torch, lambda: launch(res), 10, ahead=8, quiet=True, setup=restore))
+            pairs = list(zip(_state_leaves(state), _state_leaves(want.st)))
+            pairs += [(res[q][:A], w) for q, w in enumerate(want[1:])] if who == "older" else [
+                (res[q].view(torch.uint8)[:A] if w.dtype == torch.bool else res[q], w)
+                for q, w in enumerate(want[1:])]
+            err = max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
+                      for a, b in pairs)
+            check(err == 0, f"K5 ({who}) differs from the plain version ({name})")
+        if bound is None:
+            IC, PC = args[1].ln.chr.shape[1], args[1].ln.pvid.shape[1]
+            bound = k5_bound(args, want, IC, PC, peak_ops)[0]
+        print(f"k5 {name}: exact | bound {bound:.4f} ms | " + " | ".join(
+            f"{who} {'restored + L2 flushed' if fl else 'restored'} "
+            + " / ".join(f"{t:.4f}" for t in ts) + " ms"
+            + f" ({100 * bound / min(ts):.1f}%)" for (who, fl), ts in times.items()))
+
+
+def walk_phase(torch, mods, peak_ops, label):
+    """Phase 16: K5 lcb_walk against its plain version on the card.  The
+    walk calls of examples/' first phase (256 bundles, k=15) through the
+    fused and the resident engine are recorded (WalkRecorder), and the
+    calls with the most pushes and the longest rows of each engine and slab
+    width replayed; then the stress set.  Each exact and walked in place,
+    with times, bound and chain floors.  Returns the summary of the heaviest
+    recorded call (the longest row) and the largest error of all."""
+    cases, pipeline, Config = mods[0], mods[2], mods[8]
+    from sibeliaz_tpu_torch.lcb import kernels as lcb_kernels
+
+    phase(f"16 K5 lcb_walk against its plain version {label}")
+    t_phase = time.time()
+    rec = recorded_walk_calls(torch, mods, lcb_kernels)
     calls = rec.calls_to_replay()
     print(f"recorded {rec.calls} walk calls; replaying {len(calls)}")
     step_us = k5_step_us(torch, lcb_kernels)
+    print(f"chain probes: {step_us['warp']:.4f} us a step (one L2 load, a __syncwarp), "
+          f"{step_us['block']:.4f} us (four L2 loads, a barrier of 256 threads) | walk blocks "
+          f"an SM: {lcb_kernels.blocks_per_sm(512, 1024)} at IC 512 PC 1024, "
+          f"{lcb_kernels.blocks_per_sm(64, 128)} at IC 64 PC 128")
     results = [(name, k5_vs_plain(torch, lcb_kernels, name, args, peak_ops, step_us))
                for name, args in calls]
     stress = [(name, k5_vs_plain(torch, lcb_kernels, name, args, peak_ops, step_us))
@@ -2192,8 +2361,8 @@ def walk_phase(torch, mods, peak_ops, label):
                   f"(median {sorted(times)[len(times) // 2]:.4f})")
     print(f"heaviest recorded call: {heaviest_name} | phase 16 in {time.time() - t_phase:.4f} s "
           f"{label}")
-    summary = {k: heaviest[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "copy_ms",
-                                        "call_ms", "chain_floor_ms")}
+    summary = {k: heaviest[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "call_ms",
+                                        "chain_floor_ms", "chain_floor_block_ms")}
     summary["call"] = heaviest_name
     return summary, err
 
@@ -2381,6 +2550,7 @@ def main(argv):
     k2_time = argv == ["--k2-time"]
     k1_time = argv == ["--k1-time"]
     k4_time_args = argv[1:] if argv[:1] == ["--k4-time"] and len(argv) <= 2 else None
+    k5_time_args = argv[1:] if argv[:1] == ["--k5-time"] and len(argv) <= 2 else None
     sharded_only = argv == ["--sharded"]
     fused_only = argv == ["--fused"]
     dryrun_only = argv == ["--dryrun"]
@@ -2391,10 +2561,11 @@ def main(argv):
     elif argv[:1] == ["--k3-time"] and len(argv) == 2:
         time_kinds = argv[1].split(",")
     elif argv and not (k2_time or k1_time or sharded_only or fused_only or dryrun_only
-                       or resident_only or walk_only or k4_time_args is not None):
+                       or resident_only or walk_only or k4_time_args is not None
+                       or k5_time_args is not None):
         print("usage: python3 chip_smoke.py [--k3-replay DIR | --k3-time KIND[,KIND...] | "
               "--k2-time | --k1-time | --k4-time [OLDER_ROUND_APPEND.cu] | --sharded | "
-              "--fused | --dryrun | --resident | --walk]",
+              "--fused | --dryrun | --resident | --walk | --k5-time [OLDER_LCB_WALK.cu]]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -2496,6 +2667,12 @@ def main(argv):
         return 0
     if walk_only:
         walk_phase(torch, mods, peak_ops, label)
+        tmp.cleanup()
+        print(smi)
+        return 0
+    if k5_time_args is not None:
+        k5_time(torch, mods, peak_ops, cudabuild, tmp.name,
+                k5_time_args[0] if k5_time_args else None)
         tmp.cleanup()
         print(smi)
         return 0
@@ -2710,8 +2887,8 @@ def main(argv):
          "launches": paths["examples/ --lcb-engine tpu-fused -n"]["lcb_walk"],
          "launches_by_path": by_path("lcb_walk"), "max_abs_err": k5_err,
          **{key: k5[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
-         "call": k5["call"], "copy_ms": k5["copy_ms"], "call_ms": k5["call_ms"],
-         "chain_floor_ms": k5["chain_floor_ms"], "library_ms": None},
+         "call": k5["call"], "call_ms": k5["call_ms"], "chain_floor_ms": k5["chain_floor_ms"],
+         "chain_floor_block_ms": k5["chain_floor_block_ms"], "library_ms": None},
     ]}
     print()
     print(smi)

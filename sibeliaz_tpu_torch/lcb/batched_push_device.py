@@ -26,7 +26,12 @@ and lanes are plain dataclasses of tensors on one device (no pytree
 registration); `DeviceTables.build` takes the device; the occurrence loop's
 bound is a host int that the caller read from the card (the JAX package's
 traced `fori_loop` bound); the complement table is built once per device.
-Every op is out of place, so lane tensors may be shared between slabs.
+Every op here is out of place, so lane tensors may be shared between
+slabs; K5's kernel walks the state in place, so the engines seed the three
+slabs as tensors of their own (`seed_state`).  Below the push: the lane
+state both device engines keep (`ResidentState`, its leaves, the row
+scatter) and K5's plain push step (`_push_score_snap`, `_score_of`), here
+so that lcb/kernels.py imports no engine.
 Left out: the host LaneState round trip (`from_host`, `to_host`,
 `_pad_lanes`, `_run_push`, `push_*_batch_device`), the test-only slices
 that lead to it (ROADMAP "Do not port"), and `I_CAP`'s module
@@ -41,6 +46,7 @@ import numpy as np
 import torch
 
 from sibeliaz_tpu_torch.junctions.table import JunctionTable
+from sibeliaz_tpu_torch.lcb.oracle import NEG_INF_SCORE
 
 I_CAP = 512  # instances per lane (sibeliaz_tpu/lcb/batched_push.py:30)
 P_CAP = 1024  # path vertices per lane
@@ -397,3 +403,97 @@ def _push_impl_traced(max_occ: int, fwd, tb: DeviceTables, ln: DeviceLanes,
         lv=torch.where(success & ~fwd, eu, ln.lv),
     )
     return out, success
+
+
+# --------------------------------------------------------------------------
+# the lane state of both device engines, and the push + score + snapshot
+# step of K5's plain version (lcb/kernels.py)
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ResidentState:
+    ln: DeviceLanes  # live lane state
+    rw: DeviceLanes  # rewind slab: state at the best forward prefix
+    sn: DeviceLanes  # result slab: good list at the best positive score
+    best_score: torch.Tensor  # [L] int64
+    has_snap: torch.Tensor  # [L] bool: ever improved with positive score
+
+
+def _lanes_where(mask, a: DeviceLanes, b: DeviceLanes) -> DeviceLanes:
+    def sel(x, y):
+        return torch.where(mask.view((-1,) + (1,) * (x.dim() - 1)), x, y)
+
+    return DeviceLanes(*(sel(getattr(a, f), getattr(b, f)) for f in LANE_FIELDS))
+
+
+def _state_leaves(st: ResidentState) -> list:
+    """The state's lane-leading tensors, in a fixed order."""
+    return ([getattr(lanes, f) for lanes in (st.ln, st.rw, st.sn) for f in LANE_FIELDS]
+            + [st.best_score, st.has_snap])
+
+
+def _state_from_leaves(leaves) -> ResidentState:
+    n = len(LANE_FIELDS)
+    return ResidentState(*(DeviceLanes(*leaves[q * n:(q + 1) * n]) for q in range(3)),
+                         best_score=leaves[3 * n], has_snap=leaves[3 * n + 1])
+
+
+def _scatter_rows(full, rows, part):
+    """`full` with its rows `rows` replaced by the rows of `part` (out of
+    place); a row index of len(full) or more is dropped (JAX's
+    `.at[rows].set(..., mode="drop")`): it lands on a scratch row past the
+    end."""
+    L = full.shape[0]
+    return torch.cat([full, full[:1]]).index_copy(0, rows.clamp(max=L), part)[:L]
+
+
+def seed_state(ln: DeviceLanes) -> ResidentState:
+    """A phase's or tier's state from its seeded lanes: the live, rewind and
+    result slabs copies of ln, each of the 68 tensors its own (K5 walks the
+    state in place, so no two may share storage), best scores 0, no
+    snapshot."""
+    L = ln.chr.shape[0]
+    dev = ln.chr.device
+
+    def copy():
+        return DeviceLanes(*(getattr(ln, f).clone() for f in LANE_FIELDS))
+
+    return ResidentState(ln=copy(), rw=copy(), sn=copy(),
+                         best_score=torch.zeros(L, dtype=torch.int64, device=dev),
+                         has_snap=torch.zeros(L, dtype=torch.bool, device=dev))
+
+
+def _score_of(tb: DeviceTables, ln: DeviceLanes, flank: int):
+    col = torch.arange(ln.chr.shape[1], device=ln.chr.device)[None, :]
+    live = (col < ln.n[:, None]) & (ln.good_seq >= 0)
+    nj = tb.jpos.shape[0] - 1
+    base = tb.chr_off[_clip(ln.chr, tb.chr_off.shape[0] - 2)]
+    jf = tb.jpos[_clip(base + ln.fi, nj)]
+    jb = tb.jpos[_clip(base + ln.bi, nj)]
+    real = (jf - jb).abs()
+    right_pen = ln.right_flank[:, None] - ln.bdist
+    left_pen = -ln.left_flank[:, None] + ln.fdist
+    bad = live & ((left_pen >= flank) | (right_pen >= flank))
+    contrib = torch.where(live, real - (right_pen + left_pen) ** 2, 0)
+    total = contrib.sum(dim=1)
+    return torch.where(bad.any(dim=1), NEG_INF_SCORE, total)
+
+
+def _push_score_snap(max_occ: int, fwd, tb: DeviceTables, st: ResidentState,
+                     eu, ev, ech, elen, evalid, m: int, b: int, flank: int):
+    """One mixed-direction push + score + snapshot maintenance; fwd is a
+    per-lane bool vector."""
+    out, success = _push_impl_traced(max_occ, fwd, tb, st.ln, eu, ev, ech, elen, evalid, m, b)
+    score = _score_of(tb, out, flank)
+    improved = success & (score > st.best_score)
+    best_score = torch.where(improved, score, st.best_score)
+    # forward pushes only happen during the forward sweep (the rewind is a
+    # slab restore, not a replay), so copy-on-improve maintains the rewind
+    # slab exactly at `best_right` (blocksfinder.h:271-284 semantics)
+    rw = _lanes_where(improved & fwd, out, st.rw)
+    snap = improved & (score > 0)
+    sn = _lanes_where(snap, out, st.sn)
+    new_st = ResidentState(ln=out, rw=rw, sn=sn, best_score=best_score,
+                           has_snap=st.has_snap | snap)
+    return new_st, success, score, improved, out.n, out.overflow

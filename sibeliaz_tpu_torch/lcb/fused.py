@@ -37,8 +37,12 @@ A port of sibeliaz_tpu/lcb/fused.py.  How it differs:
     their largest instance count, the step's walk counts) once a step, and
     the used-retry reads whether any lane needs it (`lax.cond`); the walk
     chunk is one call of K5 `lcb_walk` (lcb/kernels.py, shared with the
-    resident engine), which on the card reads nothing (on the CPU its plain
-    version reads each push's bound, uncounted).  Each read adds one to the
+    resident engine), which on the card walks the carry's state in place
+    and reads nothing (on the CPU its plain version reads each push's
+    bound, uncounted).  The tier's seeding (`seed_state`) gives the three
+    slabs tensors of their own, the rewind's `_lanes_where` and the
+    compaction's gathers and folds make new ones, and no holder of a
+    pre-walk state reads it after the walk.  Each read adds one to the
     `fused_host_syncs` counter;
   * no segmented dispatch and no segment controller (the JAX package's
     `SEG_STEPS`, `SEG_TARGET_S`, `_SEG_MAX`, `_seg_state`: they existed
@@ -106,18 +110,19 @@ from sibeliaz_tpu_torch.lcb.batched_push_device import (
     P_CAP,
     DeviceLanes,
     DeviceTables,
+    ResidentState,
+    _lanes_where,
+    _state_from_leaves,
+    _state_leaves,
+    seed_state,
 )
 from sibeliaz_tpu_torch.lcb.oracle import Bundle, Instance, LcbEngine
 from sibeliaz_tpu_torch.lcb.resident import (
     PHASE_LANES,
-    ResidentState,
     _device_tables,
-    _lanes_where,
     _pad_pow2,
     _seed_lanes,
     _seed_lanes_device,
-    _state_from_leaves,
-    _state_leaves,
     _tensor,
     _vote_gathered,
     check_device,
@@ -357,9 +362,7 @@ class _LaneRun:
         L = len(n)
         dev = tb.jid.device
         active0 = (np.arange(L) < n_bundles) & ~seed_ovf
-        zl = torch.zeros(L, dtype=torch.int64, device=dev)
-        st = ResidentState(ln=ln, rw=ln, sn=ln, best_score=zl,
-                           has_snap=torch.zeros(L, dtype=torch.bool, device=dev))
+        st = seed_state(ln)
         self.tier = (CAP, W, IC >= I_CAP, tb)
         self.protocol = (eng.depth, eng.m, eng.b, eng.flank, eng.b * 2)
         self.dev = dev

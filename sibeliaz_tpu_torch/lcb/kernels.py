@@ -5,11 +5,11 @@ in one launch: for each walking lane, up to `limit` pushes from its
 iterator (chr c, idx i, strand s) one junction on in its direction fwd,
 toward its target vid tvid, until it gets there or overflows; each push is
 PointPushBack/Front over the pushed vertex's occurrences, the score and
-the snapshot maintenance (resident._push_score_snap).  One thread block
-walks one lane, the lane's slab in shared memory, and nothing is read back
-between pushes.  It computes what the `jax.lax.while_loop` of
-sibeliaz_tpu/lcb/resident.py::_walk_device and fused.py::_walk_chunk
-computes, with the occurrence `fori_loop` of
+the snapshot maintenance (batched_push_device._push_score_snap).  One
+thread block walks one lane, the lane's slab in shared memory, and
+nothing is read back between pushes.  It computes what the
+`jax.lax.while_loop` of sibeliaz_tpu/lcb/resident.py::_walk_device and
+fused.py::_walk_chunk computes, with the occurrence `fori_loop` of
 batched_push_device._push_impl_traced inside each push.
 
 The wrapper routes by the device of the tensors it is given: a CPU tensor
@@ -25,11 +25,13 @@ not active, is left as it was, so the lockstep walk of L lanes equals
 each lane walked alone: the kernel's one block a lane rests on that.
 LAUNCHES counts kernel launches; the plain version does not count.
 
-Both versions are out of place.  The kernel's output buffers are copies
-of the input state's tensors, and it writes only those: the engines seed
-with ResidentState(ln=ln, rw=ln, sn=ln), so the three slabs may share
-tensors, and an update in place would write the rewind and result slabs
-through the live one.
+On the card the state is walked in place: the kernel writes the walked
+rows of ln, rw, sn, best_score and has_snap into the tensors it was
+given, and the call allocates only its [10, A] results.  So no two of the
+state's 68 tensors may overlap (the wrapper refuses such a state before
+it launches, from the tensors' data pointers and sizes), and both engines
+seed the three slabs as tensors of their own (`seed_state`).  The plain
+version stays out of place, so on the CPU the slabs may share tensors.
 
 Besides the walk's results, each row reports its pushes and its
 occurrence steps (the pushed vertices' occurrence counts, summed).  The
@@ -50,16 +52,14 @@ from sibeliaz_tpu_torch.lcb.batched_push_device import (
     INSTANCE_FIELDS,
     LANE_FIELDS,
     DeviceTables,
-    _clip,
-    edge_of,
-)
-from sibeliaz_tpu_torch.lcb.resident import (
     ResidentState,
+    _clip,
     _push_score_snap,
     _scatter_rows,
     _score_of,
     _state_from_leaves,
     _state_leaves,
+    edge_of,
 )
 from sibeliaz_tpu_torch.utils import cudabuild
 
@@ -156,6 +156,26 @@ def _require(t: torch.Tensor, dtype: torch.dtype, shape, name: str) -> None:
                          f"got {t.dtype} {tuple(t.shape)}")
 
 
+def overlapping(leaves, others=()):
+    """The first pair (a, b) of tensors that overlap in memory, where a is
+    a state leaf and b another leaf or, numbered past the leaves, one of
+    `others` (read-only inputs, which may overlap each other); None where
+    none does.  From data pointers and sizes alone: it reads no tensor."""
+    def span(t):
+        n = t.numel() * t.element_size()
+        return (t.data_ptr(), t.data_ptr() + n) if n else None
+
+    spans = sorted((s[0], s[1], q) for q, s in enumerate(map(span, leaves)) if s)
+    for (_, end, a), (start, _, b) in zip(spans, spans[1:]):
+        if start < end:
+            return min(a, b), max(a, b)
+    for b, s in enumerate(map(span, others)):
+        for lo, hi, a in spans if s else ():
+            if s[0] < hi and lo < s[1]:
+                return a, len(leaves) + b
+    return None
+
+
 def _array(values) -> ctypes.Array:
     """A host array of int64 values (device pointers, lengths) for the C
     call; the caller keeps it alive through the call."""
@@ -165,11 +185,13 @@ def _array(values) -> ctypes.Array:
 def lcb_walk(tb: DeviceTables, st: ResidentState, rows: Optional[torch.Tensor], c, i, s, fwd,
              tvid, active, last, m: int, b: int, flank: int, limit: int) -> Walk:
     """K5.  tb: the phase's tables; st: the lane state ([L, IC] instance
-    slabs, [L, PC] path tables, [L] registers; rw and sn may share tensors
-    with ln); rows: None, or [A] int64 lanes (distinct below L, sentinels
-    at L or more); c, i, s, tvid: [A] int64; fwd, active, last: [A] bool;
-    limit: the most pushes a row makes.  Returns a Walk; the input state is
-    not written."""
+    slabs, [L, PC] path tables, [L] registers); rows: None, or [A] int64
+    lanes (distinct below L, sentinels at L or more); c, i, s, tvid: [A]
+    int64; fwd, active, last: [A] bool; limit: the most pushes a row makes.
+    Returns a Walk.  On CUDA tensors the walk writes st in place (no two of
+    its tensors may overlap, nor any input overlap one of them) and the
+    Walk's state is st's own tensors; on CPU tensors st is not written and
+    its slabs may share tensors."""
     leaves = _state_leaves(st)
     per_row = [c, i, s, fwd, tvid, active, last] + ([] if rows is None else [rows])
     tables = [getattr(tb, f) for f in TABLE_FIELDS]
@@ -196,33 +218,44 @@ def lcb_walk(tb: DeviceTables, st: ResidentState, rows: Optional[torch.Tensor], 
         raise ValueError("jpos and jid, and occ_chr and occ_idx, must be of one length each")
     if limit < 0:
         raise ValueError(f"limit must be >= 0, got {limit}")
+    pair = overlapping(leaves, per_row + tables)
+    if pair is not None:
+        names = _leaf_names() + [f"argument {q}" for q in range(len(per_row))] + [
+            f"tables.{f}" for f in TABLE_FIELDS]
+        raise ValueError(f"lcb_walk writes the state in place: {names[pair[0]]} overlaps "
+                         f"{names[pair[1]]} (give each of the state's tensors its own "
+                         "storage, as seed_state does)")
     with torch.cuda.device(c.device):
-        out = [x.clone() for x in leaves]
         res = torch.empty((len(Walk._fields) - 1, A), dtype=torch.int64, device=c.device)
         if A:
-            launch_into(tb, st, rows, c, i, s, fwd, tvid, active, last, m, b, flank, limit,
-                        out, res)
+            launch_into(tb, st, rows, c, i, s, fwd, tvid, active, last, m, b, flank, limit, res)
+    # the kernel writes last, at_target and overflow as bytes at the start
+    # of their rows: views, no copies
     bools = {"last", "at_target", "overflow"}
-    return Walk(_state_from_leaves(out), *(
-        res[q].bool() if name in bools else res[q]
+    return Walk(st, *(
+        res[q].view(torch.uint8)[:A].view(torch.bool) if name in bools else res[q]
         for q, name in enumerate(Walk._fields[1:])))
 
 
+def _leaf_names() -> list:
+    return [f"{slab}.{f}" for slab in ("ln", "rw", "sn") for f in LANE_FIELDS] + [
+        "best_score", "has_snap"]
+
+
 def launch_into(tb: DeviceTables, st: ResidentState, rows, c, i, s, fwd, tvid, active, last,
-                m: int, b: int, flank: int, limit: int, out, res) -> None:
-    """Launches K5 on arguments lcb_walk has checked (A >= 1 rows), into
-    `out` (the state's tensors, each a copy of its input, in
-    resident._state_leaves order) and `res` ([10, A] int64, the per-row
-    results in Walk's order).  Given the same inputs and fresh copies, a
-    launch writes the same values, so a timing loop may launch again into
-    the same buffers (chip_smoke.py's K5 times)."""
+                m: int, b: int, flank: int, limit: int, res) -> None:
+    """Launches K5 on arguments lcb_walk has checked (A >= 1 rows), walking
+    st in place, into `res` ([10, A] int64, the per-row results in Walk's
+    order; last, at_target and overflow as bytes at the start of their
+    rows).  A launch from the same state writes the same values, so a
+    timing loop restores the state before each launch (chip_smoke.py's K5
+    times)."""
     L, IC = st.ln.chr.shape
     tables = [getattr(tb, f) for f in TABLE_FIELDS]
     lens = [tb.chr_off.shape[0], tb.chr_len.shape[0], tb.jid.shape[0], tb.used_pfx.shape[0],
             tb.used.shape[0], tb.seq_off.shape[0], tb.seq.shape[0], tb.occ_off.shape[0],
             tb.occ_chr.shape[0]]
-    arrays = [_array([x.data_ptr() for x in group])
-              for group in (_state_leaves(st), out, tables)]
+    arrays = [_array([x.data_ptr() for x in group]) for group in (_state_leaves(st), tables)]
     arrays += [_array(lens), _array([0 if rows is None else rows.data_ptr()]
                                     + [x.data_ptr() for x in (c, i, s, fwd, tvid, active, last)])]
     dev = c.device
@@ -236,18 +269,33 @@ def launch_into(tb: DeviceTables, st: ResidentState, rows, c, i, s, fwd, tvid, a
     LAUNCHES["lcb_walk"] += 1
 
 
-def chain_probe(table: torch.Tensor, iters: int) -> torch.Tensor:
-    """Launches K5's chain probe: `iters` steps of four dependent loads
-    from L2 (a pointer chase over `table`, int64 indices into itself) and
-    one barrier of a walk block's threads, the least one occurrence step
-    of the walk can cost.  The caller times it (chip_smoke.py's chain
-    floor).  Returns the chase's last index."""
+def chain_probe(table: torch.Tensor, iters: int, step: str = "warp") -> torch.Tensor:
+    """Launches one of K5's chain probes, `iters` steps of a pointer chase
+    over `table` (int64 indices into itself) served from L2: with step
+    "warp", one load a step and a __syncwarp of a walk block's warp 0, the
+    least one occurrence step of the walk can cost (its one round of table
+    loads at the candidate's end); with "block", four dependent loads and a
+    barrier of 256 threads, the step of the kernel's first design, in which
+    thread 0 ran each step and the block met twice a step.  The caller
+    times it (chip_smoke.py's chain floor).  Returns the chase's last
+    index."""
     _require(table, torch.int64, None, "table")
+    fn = {"warp": "sz_lcb_step_probe", "block": "sz_lcb_chain_probe"}[step]
     out = torch.empty(1, dtype=torch.int64, device=table.device)
     with torch.cuda.device(table.device):
-        status = cudabuild.load().sz_lcb_chain_probe(
+        status = getattr(cudabuild.load(), fn)(
             ctypes.c_void_p(table.data_ptr()), iters, ctypes.c_void_p(out.data_ptr()),
             ctypes.c_void_p(torch.cuda.current_stream(table.device).cuda_stream))
     if status != 0:
         raise RuntimeError(f"chain probe launch failed: CUDA error {status}")
     return out
+
+
+def blocks_per_sm(IC: int, PC: int, device="cuda") -> int:
+    """The walk blocks an SM of `device` holds at once at slab widths IC
+    and PC (the CUDA occupancy calculator)."""
+    with torch.cuda.device(device):
+        got = cudabuild.load().sz_lcb_walk_blocks_per_sm(IC, PC)
+    if got < 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {-got}")
+    return got

@@ -105,8 +105,10 @@ SIGNATURES = {
     "sz_round_tile_rows": [],
     "sz_round_scratch_bytes": [_i64, _i32],
     "sz_round_append": [_vp, _vp, _vp, _i64, _i64, _i32, _i32, _i32, _i64] + [_vp] * 7,
-    "sz_lcb_walk": [_vp] * 6 + [_i64, _i64, _i32, _i32] + [_i64] * 4 + [_i32, _vp],
+    "sz_lcb_walk": [_vp] * 5 + [_i64, _i64, _i32, _i32] + [_i64] * 4 + [_i32, _vp],
+    "sz_lcb_walk_blocks_per_sm": [_i32, _i32],
     "sz_lcb_chain_probe": [_vp, _i32, _vp, _vp],
+    "sz_lcb_step_probe": [_vp, _i32, _vp, _vp],
 }
 _RESTYPES = {"sz_class_scratch_bytes": _i64, "sz_round_scratch_bytes": _i64}
 

@@ -26,7 +26,7 @@ from torch_cases import (BUNDLE_CASES, CLASS_RUN_KINDS, K1_KINDS, LIMB_SPLITS, R
                          SHARD_EDGE_KINDS, bundle_fields, class_case, class_runs,
                          codes_with_n_runs, edge_band_round, k1_case, poa_case, poa_round,
                          rand_block, related_genomes, repeat_genomes, round_rows,
-                         shard_edge_case, split_limbs, spread_slots, state_arrays, state_diff,
+                         shard_edge_case, split_limbs, spread_slots, state_apart, state_diff,
                          tied_table, walk_args, walk_genomes, walk_lanes, walk_tensors,
                          with_sentinel_rows)
 
@@ -684,8 +684,7 @@ def test_fused_carry_cuda_matches_cpu(cuda, tier, steps):
     for dev in ("cuda", "cpu"):
         tb = resident._device_tables(eng, dev)
         ln, _, ovf = resident._seed_lanes_device(tb, bundles, 32, IC, PC)
-        zero = torch.zeros(32, dtype=torch.int64, device=dev)
-        st = resident.ResidentState(ln, ln, ln, zero, zero.bool())
+        st = resident.seed_state(ln)  # as the engines seed it: K5 walks it in place
         active = (torch.arange(32, device=dev) < len(bundles)) & ~ovf
         launches = kernels.LAUNCHES["lcb_walk"]
         metrics.counters.clear()
@@ -728,27 +727,30 @@ WALK_CASES = {
 }
 
 
-def walk_inputs(case, rows_given, again):
+def walk_inputs(case, rows_given, again, widths=None):
     """A K5 case on the card: (engine, tables, state, per-row arguments
     rows, c, i, s, fwd, tvid, active, last, limit).  Without `rows_given`
     the rows are every lane in order (the fused engine's form: lanes with
     no walk inactive, with its padding), else the walking lanes shuffled
     with sentinel rows (the resident engine's form).  With `again` the
     state is that after a first walk (rewind and result slabs apart from
-    the live one, best scores set) and new walks start from it."""
+    the live one, best scores set) and new walks start from it.  The state
+    is seeded as the engines seed it, each of its tensors its own, at the
+    case's slab widths or at `widths`."""
     from sibeliaz_tpu_torch.lcb import kernels
     from sibeliaz_tpu_torch.lcb.batched_push_device import BIG
 
     kind, (IC, PC), limit = WALK_CASES[case]
+    IC, PC = widths or (IC, PC)
     eng = walk_engine(kind)
-    tb, st, n_lanes = walk_lanes(eng, 32, IC, PC, "cuda")
+    tb, st, n_lanes = walk_lanes(eng, 32, IC, PC, "cuda", apart=True)
     rng = np.random.default_rng(11)
     args = walk_args(eng, st, n_lanes, rng)
     if again:
         rows, c, i, s, fwd, tvid = walk_tensors(args, "cuda")
         on = torch.ones_like(fwd)
-        st = kernels.lcb_walk_plain(tb, st, rows, c, i, s, fwd, tvid, on, ~on, eng.m, eng.b,
-                                    eng.flank, limit).st
+        st = state_apart(kernels.lcb_walk_plain(tb, st, rows, c, i, s, fwd, tvid, on, ~on,
+                                                eng.m, eng.b, eng.flank, limit).st)
         args = walk_args(eng, st, n_lanes, np.random.default_rng(12))
     if rows_given:
         rows, c, i, s, fwd, tvid = walk_tensors(with_sentinel_rows(args, 32, rng), "cuda")
@@ -789,32 +791,114 @@ def test_lcb_walk_engines_never_run_the_plain_walk_on_the_card(cuda, monkeypatch
         assert kernels.LAUNCHES["lcb_walk"] > launches
 
 
+def walk_checked(eng, tb, st, args, limit):
+    """One K5 call on the card against the plain version on a copy of the
+    state taken first: every output exact (the state's 68 tensors in every
+    column and the ten per-row results), one launch, the state walked in
+    place (the call returns the tensors it was given) with no allocation
+    but its results (the caching allocator's 512-byte granules), the lanes
+    no walking row names unchanged bit for bit.  Returns (K5's Walk, the
+    state before the walk)."""
+    from sibeliaz_tpu_torch.lcb import kernels
+    from sibeliaz_tpu_torch.lcb.batched_push_device import _state_leaves
+
+    before = state_apart(st)
+    want = kernels.lcb_walk_plain(tb, before, *args, eng.m, eng.b, eng.flank, limit)
+    A = args[1].shape[0]
+    launches = kernels.LAUNCHES["lcb_walk"]
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    got = kernels.lcb_walk(tb, st, *args, eng.m, eng.b, eng.flank, limit)
+    assert torch.cuda.memory_allocated() - allocated <= -(-10 * A * 8 // 512) * 512
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["lcb_walk"] == launches + 1
+    assert all(x is y for x, y in zip(_state_leaves(got.st), _state_leaves(st)))
+    assert not state_diff(got._asdict(), want._asdict())
+    L = st.ln.chr.shape[0]
+    rows = torch.arange(L, device="cuda") if args[0] is None else args[0]
+    walked = set(rows[got.pushes > 0].tolist())
+    quiet = torch.tensor([q for q in range(L) if q not in walked], dtype=torch.int64,
+                         device="cuda")
+    for x, y in zip(_state_leaves(st), _state_leaves(before)):
+        assert torch.equal(x[quiet], y[quiet])
+    return got, before
+
+
 @pytest.mark.parametrize("again", [False, True])
 @pytest.mark.parametrize("rows_given", [True, False])
 @pytest.mark.parametrize("case", list(WALK_CASES))
 def test_lcb_walk_matches_plain(cuda, case, rows_given, again):
-    """K5 against its plain version on the card, every output exact (the
-    state's 68 tensors and the ten per-row results), one launch, the
-    inputs unchanged (the three slabs share their tensors, as the engines
-    seed them): the narrow and the full slab widths, mixed directions, at
-    WALK_CHUNK, _MAX_WALK and a limit of 2 pushes, a vertex of hundreds of
-    occurrences, lanes that overflow their slab mid-walk; rows given with
+    """K5 against its plain version on the card (walk_checked: every output
+    exact, the state walked in place with no allocation but the results,
+    the lanes no walking row names, sentinels' included, unchanged): the
+    narrow and the full slab widths, mixed directions, at WALK_CHUNK,
+    _MAX_WALK and a limit of 2 pushes, a vertex of hundreds of occurrences
+    (the repeat), lanes that overflow their slab mid-walk; rows given with
     sentinels among them or every lane in order; from the seeded state and
     from the state after a first walk."""
-    from sibeliaz_tpu_torch.lcb import kernels
-
     eng, tb, st, args, limit = walk_inputs(case, rows_given, again)
-    before = state_arrays(st)
-    launches = kernels.LAUNCHES["lcb_walk"]
-    got = kernels.lcb_walk(tb, st, *args, eng.m, eng.b, eng.flank, limit)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["lcb_walk"] == launches + 1
-    want = kernels.lcb_walk_plain(tb, st, *args, eng.m, eng.b, eng.flank, limit)
-    assert not state_diff(got._asdict(), want._asdict())
-    assert not state_diff(st, before)
-    assert int(got.pushes.max()) >= 1 and bool(state_diff(got.st, st))
+    got, before = walk_checked(eng, tb, st, args, limit)
+    assert int(got.pushes.max()) >= 1 and bool(state_diff(st, before))
     if case == "overflow" and not again:
         assert bool((got.overflow & (got.pushes > 0)).any())
+
+
+def test_lcb_walk_allocates_only_its_results(cuda):
+    """A walk call of 32 rows (every lane in order) allocates its [10, 32]
+    results and nothing else: 2,560 bytes, five whole granules of the
+    caching allocator."""
+    from sibeliaz_tpu_torch.lcb import kernels
+
+    eng, tb, st, args, limit = walk_inputs("wide", False, False)
+    assert args[1].shape[0] == 32
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    got = kernels.lcb_walk(tb, st, *args, eng.m, eng.b, eng.flank, limit)
+    assert torch.cuda.memory_allocated() - allocated <= 10 * 32 * 8
+    torch.cuda.synchronize()
+    assert int(got.pushes.max()) >= 1
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("widths", [(60, 100), (61, 101), (64, 128)])
+def test_lcb_walk_at_other_widths(cuda, widths, offset):
+    """Slab widths the engines never use, whose byte rows (IC 60, 61) or
+    int64 rows (IC 61, PC 101) are no multiple of 16 bytes, and every
+    state tensor a view one element past a 16-byte boundary (offset 1): the
+    rows that bulk copies cannot take go by the vectorised loop, exact as
+    walk_checked holds them, rows given with sentinels and every lane in
+    order."""
+    from sibeliaz_tpu_torch.lcb.batched_push_device import _state_from_leaves, _state_leaves
+
+    for rows_given in (True, False):
+        eng, tb, st, args, limit = walk_inputs("narrow", rows_given, False, widths)
+        if offset:
+            def shifted(x):
+                home = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+                view = home[offset:].view(x.shape)
+                view.copy_(x)
+                return view
+
+            st = _state_from_leaves([shifted(x) for x in _state_leaves(st)])
+            assert st.ln.chr.data_ptr() % 16 == 8
+        got, _ = walk_checked(eng, tb, st, args, limit)
+        assert int(got.pushes.max()) >= 1
+
+
+def test_lcb_walk_refuses_an_overlapping_state(cuda):
+    """A state whose slabs share their tensors (ln = rw = sn) is refused on
+    the card before any launch, with the leaves named; nothing falls back."""
+    from sibeliaz_tpu_torch.lcb import kernels
+
+    eng = walk_engine("related")
+    tb, st, n_lanes = walk_lanes(eng, 32, 64, 128, "cuda")
+    rows, c, i, s, fwd, tvid = walk_tensors(walk_args(eng, st, n_lanes, np.random.default_rng(11)),
+                                            "cuda")
+    on = torch.ones_like(fwd)
+    launches = kernels.LAUNCHES["lcb_walk"]
+    with pytest.raises(ValueError, match="overlaps"):
+        kernels.lcb_walk(tb, st, rows, c, i, s, fwd, tvid, on, ~on, eng.m, eng.b, eng.flank, 16)
+    assert kernels.LAUNCHES["lcb_walk"] == launches
 
 
 @pytest.mark.parametrize("patch", [{}, {"SMALL_CAP": 3, "VOTE_BUDGET": 1 << 14},

@@ -170,3 +170,30 @@ def test_cli_tpu_fused_matches_native(tmp_path):
     assert (tmp_path / "fused" / "blocks_coords.gff").read_bytes() == want
     assert want.count(b"\n") > 5
     assert metrics.counters["fused_phases"] >= 1
+
+
+def test_walk_calls_get_a_state_apart(monkeypatch):
+    """Every K5 call of a phase (escalating from the narrow tier, with lane
+    compaction) gets a state whose 68 tensors overlap neither each other
+    nor the call's other inputs, as K5 on the card needs (it walks the
+    state in place): the seeding (`seed_state`), the steps' rewinds and the
+    compaction's gathers and folds each make tensors of their own."""
+    from sibeliaz_tpu_torch.lcb import kernels
+
+    monkeypatch.setattr(fused, "SMALL_CAP", 3)
+    monkeypatch.setattr(fused, "COMPACT_MIN", 8)
+    eng, bundles, _ = phase_case("plain")
+    seen = []
+    real = kernels.lcb_walk
+
+    def checked(tb, st, rows, *rest):
+        per_row = [x for x in (rows, *rest[:7]) if x is not None]
+        tables = [getattr(tb, f) for f in kernels.TABLE_FIELDS]
+        seen.append(kernels.overlapping(fused._state_leaves(st), per_row + tables))
+        return real(tb, st, rows, *rest)
+
+    monkeypatch.setattr(kernels, "lcb_walk", checked)
+    metrics.counters.clear()
+    fused.process_phase_fused(eng, bundles, device="cpu")
+    assert metrics.counters["fused_compactions"] > 0 and metrics.counters["fused_lanes_tier1"]
+    assert len(seen) > 20 and seen == [None] * len(seen)

@@ -240,3 +240,53 @@ def test_no_input_is_written(case):
     changed = {id(x) for x, y in zip(resident._state_leaves(got.st), resident._state_leaves(st))
                if not torch.equal(x, y)}
     assert changed and not changed & ins
+
+
+def test_kernels_module_loads_no_engine():
+    """lcb/kernels.py sits below both engines: importing it loads neither
+    lcb.resident nor lcb.fused (what the plain walk needs lives in
+    lcb/batched_push_device.py, which resident.py re-exports)."""
+    import subprocess
+    import sys
+
+    code = ("import sys; import sibeliaz_tpu_torch.lcb.kernels; "
+            "print(sorted(m for m in sys.modules if m.startswith('sibeliaz_tpu_torch.lcb.')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         check=True).stdout
+    loaded = eval(out)
+    assert "sibeliaz_tpu_torch.lcb.kernels" in loaded
+    assert "sibeliaz_tpu_torch.lcb.resident" not in loaded
+    assert "sibeliaz_tpu_torch.lcb.fused" not in loaded
+    assert resident.ResidentState is kernels.ResidentState
+    assert resident._push_score_snap is kernels._push_score_snap
+
+
+def test_overlapping_flags_shared_storage():
+    """The wrapper's host-side overlap check, from data pointers and sizes:
+    it flags the slabs sharing their tensors (ln = rw = sn, and the seeding
+    kernel's fi = bi = cmp within ln), an input overlapping a leaf and two
+    leaves that are overlapping views of one buffer; it passes the engines'
+    seeded state (`seed_state`), disjoint views of one buffer, and inputs
+    that overlap only each other."""
+    _, tb, st, (rows, c, *_), _ = walk_case("narrow")
+    leaves = resident._state_leaves(st)
+    n = len(kernels.LANE_FIELDS)
+
+    def shared(state):
+        got = kernels.overlapping(resident._state_leaves(state))
+        return got and [resident._state_leaves(state)[q].data_ptr() for q in got]
+
+    a, b = shared(st)
+    assert a == b  # one tensor twice: rw and sn are ln, and fi is bi within it
+    copies = [resident.DeviceLanes(*(x.clone() for x in leaves[q * n:(q + 1) * n]))
+              for q in (1, 2)]
+    a, b = shared(resident.ResidentState(st.ln, *copies, st.best_score, st.has_snap))
+    assert a == b  # fi is bi, fdist is bdist within the seeding kernel's ln
+    apart = resident.seed_state(st.ln)
+    ok = resident._state_leaves(apart)
+    assert kernels.overlapping(ok) is None
+    assert kernels.overlapping(ok, [rows, c, c[1:], tb.jid]) is None
+    assert kernels.overlapping(ok, [rows, ok[5][1:]]) == (5, len(ok) + 1)
+    home = torch.zeros(2 * ok[0].numel(), dtype=torch.int64).view(2, *ok[0].shape)
+    assert kernels.overlapping([home[0], home[1]]) is None
+    assert kernels.overlapping([home[0], home.view(-1)[1:1 + ok[0].numel()]]) == (0, 1)

@@ -288,3 +288,29 @@ def test_resident_refuses_cuda_without_card(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resident.run_resident(eng)
     assert not eng.blocks
+
+
+def test_walk_calls_get_a_state_apart(monkeypatch):
+    """Every K5 call of a phase of 44 bundles (votes, walks and rewinds)
+    gets a state whose 68 tensors overlap neither each other nor the
+    call's other inputs, as K5 on the card needs (it walks the state in
+    place): `seed_state` seeds the three slabs apart, and the rewinds'
+    scatters make tensors of their own."""
+    from sibeliaz_tpu_torch.lcb import kernels
+
+    eng, bundles, _ = phase_case()
+    seen = []
+    real = kernels.lcb_walk
+
+    def checked(tb, st, rows, *rest):
+        per_row = [x for x in (rows, *rest[:7]) if x is not None]
+        tables = [getattr(tb, f) for f in kernels.TABLE_FIELDS]
+        seen.append(kernels.overlapping(resident._state_leaves(st), per_row + tables))
+        return real(tb, st, rows, *rest)
+
+    monkeypatch.setattr(kernels, "lcb_walk", checked)
+    metrics.counters.clear()
+    resident.process_phase_resident(eng, bundles, device="cpu")
+    assert metrics.counters["resident_rewind_s"] > 0
+    assert len(seen) == metrics.counters["resident_walk_calls"] > 10
+    assert seen == [None] * len(seen)

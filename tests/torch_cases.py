@@ -685,11 +685,14 @@ def walk_genomes(seed, copies=100, unit=80, spacer=50):
     return [first, np.concatenate(parts)], ["Genome1", "Genome2"]
 
 
-def walk_lanes(eng, L, IC, PC, device, bundles=None):
+def walk_lanes(eng, L, IC, PC, device, bundles=None, apart=False):
     """Lanes seeded at (IC, PC) by resident._seed_lanes_device from the
     first L bundles whose vertex's occurrences fit IC (or `bundles`), as a
-    ResidentState whose three slabs share their tensors, as both engines
-    seed them.  Returns (tables, state, the seeded lanes' count)."""
+    ResidentState whose three slabs share their tensors (which K5's plain
+    version, out of place, takes) or, with `apart`, as both engines seed
+    them: each of its 68 tensors its own (`seed_state`; K5 on the card
+    walks the state in place).  Returns (tables, state, the seeded lanes'
+    count)."""
     import torch
 
     from sibeliaz_tpu_torch.lcb import resident
@@ -701,6 +704,8 @@ def walk_lanes(eng, L, IC, PC, device, bundles=None):
     tb = resident._device_tables(eng, device)
     ln, _, ovf = resident._seed_lanes_device(tb, bundles, L, IC, PC)
     assert not bool(ovf.any())
+    if apart:
+        return tb, resident.seed_state(ln), len(bundles)
     zero = torch.zeros(L, dtype=torch.int64, device=device)
     return tb, resident.ResidentState(ln, ln, ln, zero, zero.bool()), len(bundles)
 
@@ -726,6 +731,13 @@ def walk_args(eng, st, n_lanes, rng, reach=4):
                 break
     return [np.array(col, dtype=np.bool_ if q == 4 else np.int64)
             for q, col in enumerate(zip(*out))]
+
+
+def state_apart(st):
+    """A copy of a lane state with each of its 68 tensors its own."""
+    from sibeliaz_tpu_torch.lcb.batched_push_device import _state_from_leaves, _state_leaves
+
+    return _state_from_leaves([x.clone() for x in _state_leaves(st)])
 
 
 def with_sentinel_rows(args, L, rng):
