@@ -12,6 +12,8 @@
     python3 chip_smoke.py --resident         # phase 15 alone, see resident_phase
     python3 chip_smoke.py --walk             # phase 16 alone, see walk_phase
     python3 chip_smoke.py --k5-time [OLDER.cu]  # K5 (and an older one) timed, see k5_time
+    python3 chip_smoke.py --vote [OLDER.py]  # phase 17 alone (an older lcb/kernels.py's
+                                             # K5 wrapper timed beside), see vote_phase
 
 Phases, in order; any failure raises and the exit code is non-zero:
   1. device: the card's name and power limit, and the peak rates the
@@ -150,13 +152,28 @@ Phases, in order; any failure raises and the exit code is non-zero:
      results, the kernel's card time (each launch from the restored state)
      beside the whole call, the plain version, the bound and the chain
      floors of this step and of the first design's; the walk blocks an SM
-     holds.  `--walk` runs phases 1, 2 and 16 alone.
+     holds.  `--walk` runs phases 1, 2 and 16 alone;
+ 17. K6 lcb_vote (lcb/kernels.py), which phases 13-15 ran end to end (their
+     lcb_vote launches printed and held to the engines' vote calls, and
+     13a's host syncs a step to at most 1.05): examples/' first phase
+     through the fused and the resident engine with K6's calls recorded,
+     the heaviest of each engine and tier replayed through K6 and its plain
+     version on the card, then the stress set (tests/torch_cases.py's
+     VOTE_CASES, each without and with the used-retry; the spill cases'
+     valid rows through the workspace, 16 of them taking its 8 slices in
+     turn, and again with one slice; no other row): every output exact,
+     the kernel's card time, the whole call, the plain version, the bound;
+     the wrappers' host costs (K5's and K6's, queueing and synchronised,
+     the tables checked every call and once a DeviceTables object).
+     `--vote` runs phases 1, 2 and 17 alone.
 The last two lines are a JSON summary of the kernels (time, plain time,
 bound, launches per main path; K1's and K2's "ms" are their one-limb
 instances' and "by_limbs" holds both instances'; K4's "ms" is its shape on
 the examples/large streamed passes, named in "shape", and "by_shape" holds
 its eight timed shapes; K5's is the recorded call with the longest row,
-named in "call") and {"ok": true, "device": {...}}.  It
+named in "call"; K6's the recorded call with the largest bound, named in
+"call", with the host costs in "host_ms") and {"ok": true, "device":
+{...}}.  It
 imports neither jax nor sibeliaz_tpu.
 """
 
@@ -247,6 +264,21 @@ K5_OPS_PER_STEP, K5_OPS_PER_SCORE_TERM = 150, 12
 K5_ROW_BYTES = 5 * 8 + 3 + 10 * 8
 # per walking row, each way: its best score (int64) and snapshot flag (bool)
 K5_BEST_BYTES = 8 + 1
+
+
+# phase 17: the recorded K6 calls kept per (engine, CAP, W).  What K6's
+# function moves, bytes: a row's arguments (idx and three bools) and six
+# int64 outputs; a valid row's n, pn and rv or lv; a live column's six
+# instance fields; a voting instance's chromosome offset and end junction
+# id, and for one at the path end three positions and a chromosome length;
+# an evaluated window slot's position, junction id and used flag; and of
+# a row's pvid row, the 32-byte sectors its path searches probe.  Its
+# operations: a slot's pvid search (up to ten probes of ~4) and ~30
+# compares and selects; an alive entry's hash insert, ~20.
+VOTE_KEEP = 4
+K6_ROW_BYTES, K6_REGISTER_BYTES, K6_COLUMN_BYTES = 8 + 3 + 6 * 8, 3 * 8, 6 * 8
+K6_END_BYTES, K6_WINDOW_BYTES, K6_SLOT_BYTES = 2 * 8, 4 * 8, 8 + 8 + 1
+K6_OPS_PER_SLOT, K6_OPS_PER_ENTRY = 70, 20
 
 
 def check(cond, msg):
@@ -1722,6 +1754,10 @@ def fused_phase(torch, mods, tmp_dir, large_fa, label):
           f"launches of the --lcb-engine tpu-fused -n run: {launches}")
     check(counters.get("fused_phases", 0) > 0, f"the fused engine did not run: {counters}")
     steps = sum(v for k, v in counters.items() if k.startswith("fused_steps_tier"))
+    check(launches["lcb_vote"] == steps, f"{launches['lcb_vote']} lcb_vote launches for {steps} "
+          "outer steps: a vote went past K6")
+    check(counters["fused_host_syncs"] / steps <= 1.05,
+          f"{counters['fused_host_syncs'] / steps:.4f} host syncs a step, more than 1.05")
     print(f"examples/ --lcb-engine tpu-fused -n: GFF byte-equal to the golden | lcb_engine "
           f"{lcb_s['tpu-fused']:.4f} s (native {lcb_s['native']:.4f} s) | CLI wall {wall:.4f} s "
           f"| outer steps {steps} | host syncs per step "
@@ -1743,8 +1779,8 @@ def fused_phase(torch, mods, tmp_dir, large_fa, label):
         t0 = time.time()
         runs[dev] = instance_keys(fused.process_phase_fused(eng, bundles, device=dev))
         print(f"examples/ phase 1 on {dev}: {time.time() - t0:.4f} s | "
-              f"{fused_counters(metrics)} | lcb_walk launches {lcb_kernels.LAUNCHES['lcb_walk']} "
-              f"{label}")
+              f"{fused_counters(metrics)} | lcb_walk launches {lcb_kernels.LAUNCHES['lcb_walk']}"
+              f", lcb_vote {lcb_kernels.LAUNCHES['lcb_vote']} {label}")
     t0 = time.time()
     oracle = instance_keys(eng.process(b) for b in bundles)
     check(runs["cuda"] == runs["cpu"], "examples/ phase 1: the card's instances differ from "
@@ -1765,18 +1801,23 @@ def fused_phase(torch, mods, tmp_dir, large_fa, label):
     bundles = make_bundles_device(table, "cuda")
     per_phase = []
 
-    large_launches = 0
+    large_launches = {"lcb_walk": 0, "lcb_vote": 0}
 
     def checked_phase(eng, batch):
-        nonlocal large_launches
         metrics.counters.clear()
         lcb_kernels.reset_launches()
         t0 = time.time()
         got = fused.process_phase_fused(eng, batch, device="cuda")
         secs = time.time() - t0
-        large_launches += lcb_kernels.LAUNCHES["lcb_walk"]
+        for kernel in large_launches:
+            large_launches[kernel] += lcb_kernels.LAUNCHES[kernel]
         counters = fused_counters(metrics)
         counters["lcb_walk launches"] = lcb_kernels.LAUNCHES["lcb_walk"]
+        counters["lcb_vote launches"] = lcb_kernels.LAUNCHES["lcb_vote"]
+        steps = sum(v for k, v in counters.items() if k.startswith("fused_steps_tier"))
+        check(lcb_kernels.LAUNCHES["lcb_vote"] == steps, f"examples/large phase "
+              f"{len(per_phase) + 1}: {lcb_kernels.LAUNCHES['lcb_vote']} lcb_vote launches for "
+              f"{steps} outer steps")
         t0 = time.time()
         want = [eng.process(b) for b in batch]
         check(instance_keys(got) == instance_keys(want),
@@ -1791,11 +1832,11 @@ def fused_phase(torch, mods, tmp_dir, large_fa, label):
     mean = sum(per_phase) / len(per_phase)
     print(f"examples/large k=25: {len(bundles)} bundles, {n_phases} phases | the first "
           f"{len(per_phase)} on the card {sum(per_phase):.4f} s ({mean:.4f} s a phase) | "
-          f"extrapolated full run {mean * n_phases:.1f} s | lcb_walk launches {large_launches} "
+          f"extrapolated full run {mean * n_phases:.1f} s | launches {large_launches} "
           f"{label}")
-    check(large_launches > 0, "examples/large: the fused engine launched no lcb_walk")
+    check(all(large_launches.values()), f"examples/large: launches {large_launches}")
     return launches, {"lcb_s": lcb_s["tpu-fused"], "first_phase": runs["cuda"],
-                      "large_launches": {"lcb_walk": large_launches}}
+                      "large_launches": large_launches}
 
 
 def resident_counters(metrics):
@@ -1873,10 +1914,13 @@ def resident_phase(torch, mods, tmp_dir, large_fa, fused13, traced_phase, label)
         lcb_s[engine] = {t["stage"]: t["seconds"] for t in metrics.timings}["lcb_engine"]
     launches = {**kernels.LAUNCHES, **align_kernels.LAUNCHES, **lcb_kernels.LAUNCHES}
     counters = resident_counters(metrics)
-    check({k: v for k, v in launches.items() if k != "lcb_walk"} == {
+    check({k: v for k, v in launches.items() if k not in ("lcb_walk", "lcb_vote")} == {
         "front_half": 1, "class_analysis": 1, "round_append": 0, "poa_dp_tb": 0}
         and launches["lcb_walk"] > 0, f"launches of the --lcb-engine tpu -n run: {launches}")
     check(counters.get("resident_phases", 0) > 0, f"the resident engine did not run: {counters}")
+    check(launches["lcb_vote"] == counters["resident_vote_calls"],
+          f"{launches['lcb_vote']} lcb_vote launches for {counters['resident_vote_calls']} vote "
+          "calls: a vote went past K6")
     rounds = counters["resident_rounds"]
     fused_s = "not run in this mode" if fused13 is None else f"{fused13['lcb_s']:.4f} s"
     print(f"examples/ --lcb-engine tpu -n: GFF byte-equal to the golden | lcb_engine "
@@ -1909,7 +1953,8 @@ def resident_phase(torch, mods, tmp_dir, large_fa, fused13, traced_phase, label)
         secs[how] = time.time() - t0
         print(f"examples/ phase 1, {how} engine on the card: {secs[how]:.4f} s | "
               f"{resident_counters(metrics) if how == 'resident' else fused_counters(metrics)} "
-              f"| lcb_walk launches {lcb_kernels.LAUNCHES['lcb_walk']} {label}")
+              f"| lcb_walk launches {lcb_kernels.LAUNCHES['lcb_walk']}, lcb_vote "
+              f"{lcb_kernels.LAUNCHES['lcb_vote']} {label}")
     oracle = instance_keys(eng.process(b) for b in bundles)
     check(runs["resident"] == oracle, "examples/ phase 1: the resident engine's instances "
           "differ from eng.process's")
@@ -2367,6 +2412,373 @@ def walk_phase(torch, mods, peak_ops, label):
     return summary, err
 
 
+class VoteRecorder:
+    """While active, wraps K6's wrapper, which both device LCB engines call
+    (once a vote call of the resident engine, once an outer step of the
+    fused engine), and keeps the VOTE_KEEP heaviest calls per (engine, CAP,
+    W) as called (the tier), heaviest by the elements the call votes over
+    (its valid rows' live columns, summed, times W; one read of the card a
+    call, which the engines do not make), each with a copy of the lane
+    columns the vote reads (the walk writes the lanes in place afterwards),
+    so that K6 can be held against its plain version at the main path's own
+    shapes afterwards.  The wrapper it calls still counts each launch."""
+
+    def __init__(self, torch, lcb_kernels):
+        self.torch, self.mod, self.kept, self.engine, self.calls = torch, lcb_kernels, {}, None, 0
+
+    def __enter__(self):
+        import dataclasses
+
+        from sibeliaz_tpu_torch.lcb.vote import vote_columns
+
+        real = self.real = self.mod.lcb_vote
+        fields = self.mod.VOTE_LANE_FIELDS
+
+        def record(CAP, W, tb, ln, idx, valid, forward, try_used, depth, b, n_max=None,
+                   retry=False, spilled=None):
+            CAPx = vote_columns(CAP, ln.chr.shape[1], n_max)
+            live = self.torch.where(valid, ln.n.index_select(0, idx).clamp(max=CAPx), 0)
+            weight = int(live.sum()) * W
+            self.calls += 1
+            kept = self.kept.setdefault((self.engine, CAP, W), [])
+            if len(kept) < VOTE_KEEP or weight > kept[-1][0]:
+                copy = dataclasses.replace(ln, **{f: getattr(ln, f).clone() for f in fields})
+                args = (CAP, W, tb, copy, idx.clone(), valid.clone(), forward.clone(),
+                        try_used.clone(), depth, b, n_max, retry)
+                kept.append((weight, self.calls, args))
+                kept.sort(key=lambda c: (-c[0], c[1]))
+                del kept[VOTE_KEEP:]
+            return real(CAP, W, tb, ln, idx, valid, forward, try_used, depth, b, n_max,
+                        retry=retry, spilled=spilled)
+
+        self.mod.lcb_vote = record
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.lcb_vote = self.real
+
+    def calls_to_replay(self):
+        """[(label, arguments)]: each group's kept calls, heaviest first."""
+        return [(f"{engine} CAP {CAP} W {W} call {n} ({weight} elements)", args)
+                for (engine, CAP, W), kept in sorted(self.kept.items())
+                for weight, n, args in kept]
+
+
+def vote_plain_of(args):
+    """The plain version of a recorded or stress K6 call, on its tensors'
+    device."""
+    from sibeliaz_tpu_torch.lcb import vote
+
+    *call, retry = args
+    return (vote.vote_retry_plain if retry else vote.vote_plain)(*call)
+
+
+def path_sectors(torch, pvid, vid, searched):
+    """[A]: the distinct 32-byte sectors of each row's pvid row ([A, PC]
+    int64) that the binary searches of its searched slots probe, replayed
+    on the host as torch.searchsorted (left, over the whole row) and K6
+    run them."""
+    A, PC = pvid.shape
+    pvid, vid, searched = pvid.cpu(), vid.reshape(A, -1).cpu(), searched.reshape(A, -1).cpu()
+    r, q = searched.nonzero(as_tuple=True)
+    v = vid[r, q]
+    lo, hi = torch.zeros_like(v), torch.full_like(v, PC)
+    per_row = PC // 4 + 1
+    probes = []
+    while True:
+        go = lo < hi
+        if not bool(go.any()):
+            break
+        mid = lo + (hi - lo) // 2
+        probes.append((r * per_row + mid // 4)[go])
+        below = pvid[r, mid.clamp(max=PC - 1)] < v
+        lo = torch.where(go & below, mid + 1, lo)
+        hi = torch.where(go & ~below, mid, hi)
+    if not probes:
+        return torch.zeros(A, dtype=torch.int64)
+    return torch.bincount(torch.cat(probes).unique() // per_row, minlength=A)
+
+
+def k6_bound(torch, args, peak_ops):
+    """K6's roofline bound on one call's data, as the function must move it
+    (counted from vote.window_lengths and vote.searched_slots, the plain
+    version's windows): each row's arguments and outputs; each valid row's
+    three registers and its live columns' six instance fields; each voting
+    instance's end words (chromosome offset, junction id), and for one at
+    the lane's path end three positions and a chromosome length more; each
+    evaluated window slot's position, junction id and used flag (a window's
+    alive length and the slot that ends it, at most W; with the retry, the
+    longer of the two votes'); of each row's path row the 32-byte sectors
+    its searches probe (path_sectors; with the retry, both votes'); against
+    the slots' and the alive entries' operations.  (ms, which, bytes, slots,
+    alive entries, path bytes)."""
+    from sibeliaz_tpu_torch.lcb.vote import vote_columns, searched_slots, window_lengths
+
+    CAP, W, tb, ln, idx, valid, forward, try_used, depth, b, n_max, retry = args
+    lens = window_lengths(CAP, W, tb, ln, idx, valid, forward, try_used, depth, b, n_max)
+    vid, searched = searched_slots(CAP, W, tb, ln, idx, valid, forward, try_used, depth, b,
+                                   n_max)
+    if retry:
+        first = vote_plain_of(args[:-1] + (False,))
+        need = valid & forward & (first[0] == 0) & (first[5] == 0)
+        again = window_lengths(CAP, W, tb, ln, idx, need, forward, need, depth, b, n_max)
+        lens = torch.where(need[:, None], lens.maximum(again), lens)
+        # the retry's windows meet the same vids further on: its searched
+        # slots join the first vote's
+        searched = searched | (need[:, None, None] & searched_slots(
+            CAP, W, tb, ln, idx, need, forward, need, depth, b, n_max)[1])
+    CAPx = vote_columns(CAP, ln.chr.shape[1], n_max)
+    live = int((ln.n.index_select(0, idx).clamp(max=CAPx) * valid).sum())
+    windows = lens >= 0
+    slots = int((lens + 1).clamp(max=W)[windows].sum())
+    entries = int(lens[windows].sum())
+    path = 32 * int(path_sectors(torch, ln.pvid.index_select(0, idx), vid, searched).sum())
+    nbytes = (idx.shape[0] * K6_ROW_BYTES + int(valid.sum()) * K6_REGISTER_BYTES
+              + live * K6_COLUMN_BYTES + int((lens != -1).sum()) * K6_END_BYTES
+              + int(windows.sum()) * K6_WINDOW_BYTES + path + slots * K6_SLOT_BYTES)
+    ms, by = bound_ms(nbytes, K6_OPS_PER_SLOT * slots + K6_OPS_PER_ENTRY * entries, peak_ops)
+    return ms, by, nbytes, slots, entries, path
+
+
+def k6_vs_plain(torch, lcb_kernels, label, args, peak_ops):
+    """K6 against its plain version on one call's arguments on the card:
+    best_vid, best_cnt and overflow exact in every row, the origin columns
+    where a winner exists; the kernel's card time (the card spun ahead,
+    20 launches: the vote reads and writes nothing of its inputs), the
+    wrapper's whole call synchronised, the plain version's time and the
+    bound.  Returns a dict (with the rows that took the workspace)."""
+    from sibeliaz_tpu_torch.lcb.vote import vote_columns
+
+    CAP, W, tb, ln, idx, valid, forward, try_used, depth, b, n_max, retry = args
+    A = idx.shape[0]
+    spilled = torch.zeros(A, dtype=torch.int64, device="cuda")
+    got = lcb_kernels.lcb_vote(*args[:-1], retry=retry, spilled=spilled)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = vote_plain_of(args)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    win = want[0] != 0
+    err = max(int((a - w).abs().max()) if A else 0
+              for a, w in zip(got[:2] + got[5:], want[:2] + want[5:]))
+    err = max([err] + [int((a[win] - w[win]).abs().max()) for a, w in zip(got[2:5], want[2:5])
+                       if bool(win.any())])
+    check(err == 0, f"lcb_vote differs from its plain version ({label}): max abs err {err}")
+    out = torch.empty((6, A), dtype=torch.int64, device="cuda")
+    tcheck = lcb_kernels._table_check(tb, True)
+    CAPx = vote_columns(CAP, ln.chr.shape[1], n_max)
+    ms = cuda_ms(torch, lambda: lcb_kernels._launch_vote(
+        tcheck, ln, idx, valid, forward, try_used, CAPx, W, tb.k, depth, b, retry, out), 20,
+        ahead=True, quiet=True)
+    call_s = 0.0
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lcb_kernels.lcb_vote(*args[:-1], retry=retry)
+        torch.cuda.synchronize()
+        call_s += time.perf_counter() - t0
+    call_ms = call_s * 1e3 / 10
+    bound, by, nbytes, slots, entries, path = k6_bound(torch, args, peak_ops)
+    n_spilled = int(spilled.sum())
+    print(f"lcb_vote {label}: exact | rows {A} ({int(valid.sum())} valid, {int(win.sum())} "
+          f"winners, {int(want[5].sum())} overflows, {n_spilled} through the workspace), CAP "
+          f"{CAPx} W {W}{' retry' if retry else ''} | kernel {ms:.4f} ms, whole call "
+          f"{call_ms:.4f} ms (host included) | plain {plain_ms:.4f} ms | bound {bound:.6f} ms "
+          f"by {by} ({nbytes} bytes, {path} of them path sectors, {slots} window slots, "
+          f"{entries} alive entries) = "
+          f"{100 * bound / ms:.2f}%")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "call_ms": call_ms, "spilled": spilled.cpu().numpy(), "slots": slots}
+
+
+def recorded_vote_calls(torch, mods, lcb_kernels):
+    """examples/' first phase (256 bundles, k=15) through the fused and the
+    resident engine on the card, each equal to eng.process, with K6's calls
+    recorded (VoteRecorder) and its launches equal to the engines' vote
+    calls."""
+    (_cases, _cli, pipeline, _device_poa, _msa, _poa_ref, _kernels, _align_kernels, Config,
+     _alphabet, fasta, metrics) = mods
+    from sibeliaz_tpu_torch.lcb import fused, resident
+    from sibeliaz_tpu_torch.lcb.device_bundles import make_bundles_device
+    from sibeliaz_tpu_torch.lcb.oracle import LcbEngine
+
+    recs = fasta.read_many([os.path.join(EXAMPLES, "genome1.fa"),
+                            os.path.join(EXAMPLES, "genome2.fa")])
+    cfg = Config(k=15)
+    table = pipeline.build_table([r.seq for r in recs], [r.name for r in recs], cfg,
+                                 device="cuda")
+    eng = LcbEngine(table, cfg.min_block_size, cfg.max_branch_size, cfg.flanking,
+                    cfg.looking_depth)
+    bundles = make_bundles_device(table, "cuda")[:256]
+    oracle = instance_keys(eng.process(b) for b in bundles)
+    with VoteRecorder(torch, lcb_kernels) as rec:
+        for engine, fn, counter in (("fused", fused.process_phase_fused, "fused_steps_tier"),
+                                    ("resident", resident.process_phase_resident,
+                                     "resident_vote_calls")):
+            rec.engine = engine
+            metrics.counters.clear()
+            lcb_kernels.reset_launches()
+            t0 = time.time()
+            got = instance_keys(fn(eng, bundles, device="cuda"))
+            check(got == oracle, f"examples/ phase 1 through the {engine} engine, recorded: "
+                                 "instances differ from eng.process's")
+            calls = int(sum(v for k, v in metrics.counters.items() if k.startswith(counter)))
+            check(lcb_kernels.LAUNCHES["lcb_vote"] == calls > 0,
+                  f"examples/ phase 1, {engine} engine: {lcb_kernels.LAUNCHES['lcb_vote']} "
+                  f"lcb_vote launches for {calls} vote calls")
+            print(f"examples/ phase 1, {engine} engine, recorded: {time.time() - t0:.4f} s "
+                  f"(each vote call read once for its weight), equal to eng.process | "
+                  f"{calls} vote calls, {lcb_kernels.LAUNCHES['lcb_vote']} lcb_vote launches")
+    return rec
+
+
+def vote_stress(torch, cases, names=None):
+    """The stress set: [(label, K6 arguments)], tests/torch_cases.py's
+    VOTE_CASES on the card (mid-phase lanes over a (CAP, W) grid with
+    window overflows and lanes past CAP, rows repeated, out of order and
+    invalid; hand-laid tie-breaks, path rows, used slots and the table's
+    end; rows through the workspace, 16 of them for its 8 slices; the
+    300-copy repeat at CAP 512, W 256), or those of `names`, each without
+    and with the used-retry."""
+    out = []
+    for name in names or cases.VOTE_CASES:
+        tb, ln, rows, CAP, W, depth, b, n_max = cases.vote_case(name, "cuda")
+        for retry in (False, True):
+            out.append((f"stress: {name}", (CAP, W, tb, ln, *rows, depth, b, n_max, retry)))
+    return out
+
+
+def host_time(torch, call, setup, sync, reps=20):
+    """Host milliseconds a call of `call` (setup() before each, untimed and
+    synchronised): to its return (the host's queueing), or with `sync` to
+    the card's end of it too."""
+    total = 0.0
+    for _ in range(reps):
+        setup()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        if sync:
+            torch.cuda.synchronize()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total * 1e3 / reps
+
+
+def host_costs(torch, mods, lcb_kernels, vote_args, older):
+    """The wrappers' host cost on the card's machine: K6's on `vote_args`
+    (a recorded call) and K5's on the stress set's walks cut at 2 pushes
+    (every lane a row, a restored state before each call), queueing alone
+    and synchronised; each with the tables' checks run every call (their
+    cache on the DeviceTables object cleared first: every check each
+    call, as before that cache) and once (the cache kept); and,
+    where `older` names an older lcb/kernels.py, that module's K5 wrapper
+    on the same calls, in turns (older, this, this, older).  Returns
+    {name: ms}."""
+    import importlib.util
+
+    from sibeliaz_tpu_torch.lcb.batched_push_device import _state_from_leaves, _state_leaves
+
+    cases, pipeline, Config = mods[0], mods[2], mods[8]
+    tb, st, *rest = walk_stress(torch, pipeline, Config, cases)[1][1]
+    leaves0 = _state_leaves(st)
+    st = _state_from_leaves([x.clone() for x in leaves0])
+
+    def restore():
+        for x, y in zip(_state_leaves(st), leaves0):
+            x.copy_(y)
+
+    wrappers = {"K5": lcb_kernels}
+    if older:
+        spec = importlib.util.spec_from_file_location("sz_older_lcb_kernels", older)
+        wrappers["K5 older"] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(wrappers["K5 older"])
+    vtb = vote_args[2]
+    out = {}
+    for who in (["K5 older", "K5", "K5", "K5 older"] if older else ["K5", "K5"]):
+        for cold in (True, False):
+            def setup():
+                restore()
+                if cold:
+                    tb.__dict__.pop("_kernel_tables", None)
+
+            for sync in (False, True):
+                key = f"{who} {'synchronised' if sync else 'queueing'}" + (
+                    "" if who == "K5 older" else ", tables every call" if cold else "")
+                ms = host_time(torch, lambda: wrappers[who].lcb_walk(tb, st, *rest), setup, sync)
+                out[key] = min(ms, out.get(key, ms))
+    for cold in (True, False):
+        for sync in (False, True):
+            def setup():
+                if cold:
+                    vtb.__dict__.pop("_kernel_tables", None)
+
+            key = (f"K6 {'synchronised' if sync else 'queueing'}"
+                   + (", tables every call" if cold else ""))
+            out[key] = host_time(torch, lambda: lcb_kernels.lcb_vote(
+                *vote_args[:-1], retry=vote_args[-1]), setup, sync)
+    print("host cost a call, ms (min of two rounds for K5): " + " | ".join(
+        f"{k} {v:.4f}" for k, v in out.items()))
+    return out
+
+
+def vote_phase(torch, mods, peak_ops, label, older=None):
+    """Phase 17: K6 lcb_vote against its plain version on the card.  The
+    vote calls of examples/' first phase (256 bundles, k=15) through the
+    fused and the resident engine are recorded (VoteRecorder), and the
+    heaviest of each engine and tier replayed; then the stress set, a row
+    of which spills to the workspace.  Each exact, with kernel, whole-call
+    and plain ms and the bound; the wrappers' host costs (host_costs, with
+    an older lcb/kernels.py where given).  Returns the summary of the
+    heaviest recorded call (by its bound) and the largest error of all."""
+    cases = mods[0]
+    from sibeliaz_tpu_torch.lcb import kernels as lcb_kernels
+
+    phase(f"17 K6 lcb_vote against its plain version {label}")
+    t_phase = time.time()
+    rec = recorded_vote_calls(torch, mods, lcb_kernels)
+    calls = rec.calls_to_replay()
+    print(f"recorded {rec.calls} vote calls; replaying {len(calls)} | vote blocks an SM: "
+          f"{lcb_kernels.vote_blocks_per_sm(1024, 512, 256)} at PC 1024 CAP 512 W 256, "
+          f"{lcb_kernels.vote_blocks_per_sm(128, 64, 16)} at PC 128 CAP 64 W 16")
+    results = [(name, args, k6_vs_plain(torch, lcb_kernels, name, args, peak_ops))
+               for name, args in calls]
+    stress = [(name, args, k6_vs_plain(torch, lcb_kernels, name, args, peak_ops))
+              for name, args in vote_stress(torch, cases)]
+    # the workspace cut to one slice: the spilling rows take it in turn
+    pool, lcb_kernels.VOTE_POOL = lcb_kernels.VOTE_POOL, 1
+    try:
+        crowd = [name for name in cases.VOTE_CASES if name.startswith("spill: 16")]
+        stress += [(name + ", one slice", args, k6_vs_plain(
+            torch, lcb_kernels, name + ", one slice", args, peak_ops))
+            for name, args in vote_stress(torch, cases, crowd)]
+    finally:
+        lcb_kernels.VOTE_POOL = pool
+    spill = [r for name, _, r in stress if name.startswith("stress: spill")]
+    check(len(spill) == 6 and all(list(r["spilled"]) == [1, 1, 0] * (len(r["spilled"]) // 3)
+                                  for r in spill),
+          f"stress: the spill rows did not take the workspace: {[r['spilled'] for r in spill]}")
+    held = {str(dev): ws.numel() * 8 for dev, ws in lcb_kernels._WORKSPACE.items()}
+    print(f"vote workspace held after phase 17: {held} bytes ({lcb_kernels.VOTE_POOL} slices "
+          f"and {lcb_kernels._VOTE_LOCKS} lock words; the largest slice of the calls above)")
+    check(not any(r["spilled"].any() for name, _, r in results + stress
+                  if not name.startswith("stress: spill")),
+          "a row outside the spill case took the workspace")
+    err = max(r["err"] for _, _, r in results + stress)
+    for group in sorted({" ".join(name.split()[:5]) for name, _, _ in results}):
+        times = [r["ms"] for name, _, r in results if name.startswith(group + " ")]
+        print(f"{group}: {len(times)} calls, kernel {min(times):.4f}-{max(times):.4f} ms")
+    name, args, heaviest = max(results, key=lambda x: (x[2]["bound_ms"], x[2]["ms"]))
+    costs = host_costs(torch, mods, lcb_kernels, args, older)
+    print(f"heaviest recorded call: {name} | phase 17 in {time.time() - t_phase:.4f} s {label}")
+    summary = {k: heaviest[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "call_ms")}
+    summary["call"] = name
+    summary["host_ms"] = costs
+    return summary, err
+
+
 def joined_junction_positions(seqs, recs):
     """The records' junction positions in the joined genome (one N between
     chromosomes), and the sign of each position's id."""
@@ -2416,10 +2828,11 @@ def devices_phase(torch, mods, label):
         t0 = time.time()
         runs[how] = instance_keys(fused.process_phase_fused(eng, bundles, **where))
         print(f"examples/ phase 1, {how} {where}: {time.time() - t0:.4f} s | "
-              f"{fused_counters(metrics)} | lcb_walk launches {lcb_kernels.LAUNCHES['lcb_walk']} "
-              f"{label}")
+              f"{fused_counters(metrics)} | lcb_walk launches {lcb_kernels.LAUNCHES['lcb_walk']}"
+              f", lcb_vote {lcb_kernels.LAUNCHES['lcb_vote']} {label}")
     slices_launches = dict(lcb_kernels.LAUNCHES)
-    check(slices_launches["lcb_walk"] > 0, "examples/ phase 1 over two slices: no lcb_walk")
+    check(slices_launches["lcb_walk"] > 0 and slices_launches["lcb_vote"] > 0,
+          f"examples/ phase 1 over two slices: launches {slices_launches}")
     check(runs["two slices"] == runs["one device"], "examples/ phase 1: the two slices' "
           "instances differ from the one-device run's")
     check(runs["two slices"] == instance_keys(eng.process(b) for b in bundles),
@@ -2436,7 +2849,9 @@ def devices_phase(torch, mods, label):
     launches = {"examples/ phase 1 over [cuda:0, cuda:0]": slices_launches,
                 "dry run on cuda:0,cuda:0": {**kernels.LAUNCHES, **align_kernels.LAUNCHES,
                                              **lcb_kernels.LAUNCHES}}
-    check(launches["dry run on cuda:0,cuda:0"]["lcb_walk"] > 0, "the dry run: no lcb_walk")
+    check(launches["dry run on cuda:0,cuda:0"]["lcb_walk"] > 0
+          and launches["dry run on cuda:0,cuda:0"]["lcb_vote"] > 0,
+          f"the dry run: launches {launches['dry run on cuda:0,cuda:0']}")
     print(f"the dry run on cuda:0,cuda:0: every stage passes in {time.time() - t0:.4f} s | "
           f"launches {launches['dry run on cuda:0,cuda:0']} {label}")
 
@@ -2556,17 +2971,18 @@ def main(argv):
     dryrun_only = argv == ["--dryrun"]
     resident_only = argv == ["--resident"]
     walk_only = argv == ["--walk"]
+    vote_args = argv[1:] if argv[:1] == ["--vote"] and len(argv) <= 2 else None
     if argv[:1] == ["--k3-replay"] and len(argv) == 2:
         replay_dir = argv[1]
     elif argv[:1] == ["--k3-time"] and len(argv) == 2:
         time_kinds = argv[1].split(",")
     elif argv and not (k2_time or k1_time or sharded_only or fused_only or dryrun_only
                        or resident_only or walk_only or k4_time_args is not None
-                       or k5_time_args is not None):
+                       or k5_time_args is not None or vote_args is not None):
         print("usage: python3 chip_smoke.py [--k3-replay DIR | --k3-time KIND[,KIND...] | "
               "--k2-time | --k1-time | --k4-time [OLDER_ROUND_APPEND.cu] | --sharded | "
-              "--fused | --dryrun | --resident | --walk | --k5-time [OLDER_LCB_WALK.cu]]",
-              file=sys.stderr)
+              "--fused | --dryrun | --resident | --walk | --k5-time [OLDER_LCB_WALK.cu] | "
+              "--vote [OLDER_LCB_KERNELS.py]]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is visible", file=sys.stderr)
@@ -2673,6 +3089,11 @@ def main(argv):
     if k5_time_args is not None:
         k5_time(torch, mods, peak_ops, cudabuild, tmp.name,
                 k5_time_args[0] if k5_time_args else None)
+        tmp.cleanup()
+        print(smi)
+        return 0
+    if vote_args is not None:
+        vote_phase(torch, mods, peak_ops, label, vote_args[0] if vote_args else None)
         tmp.cleanup()
         print(smi)
         return 0
@@ -2804,6 +3225,7 @@ def main(argv):
     devices_paths = devices_phase(torch, mods, label)
     resident_launches = resident_phase(torch, mods, tmp.name, large_fa, fused13, False, label)
     k5, k5_err = walk_phase(torch, mods, peak_ops, label)
+    k6, k6_err = vote_phase(torch, mods, peak_ops, label)
     tmp.cleanup()
 
     src = "sibeliaz_tpu_torch/csrc/"
@@ -2889,6 +3311,13 @@ def main(argv):
          **{key: k5[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "call": k5["call"], "call_ms": k5["call_ms"], "chain_floor_ms": k5["chain_floor_ms"],
          "chain_floor_block_ms": k5["chain_floor_block_ms"], "library_ms": None},
+        {"name": "lcb_vote", "route": "cuda", "source": src + "lcb_vote.cu",
+         "replaces": "sibeliaz_tpu/lcb/resident.py:214 and sibeliaz_tpu/lcb/fused.py:241",
+         "launches": paths["examples/ --lcb-engine tpu-fused -n"]["lcb_vote"],
+         "launches_by_path": by_path("lcb_vote"), "max_abs_err": k6_err,
+         **{key: k6[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "call": k6["call"], "call_ms": k6["call_ms"], "host_ms": k6["host_ms"],
+         "library_ms": None},
     ]}
     print()
     print(smi)

@@ -34,15 +34,16 @@ deterministic output order (blocksfinder.h:369-427).
 A port of sibeliaz_tpu/lcb/fused.py.  How it differs:
 
   * the outer step loop is a host loop that reads (the active-lane count,
-    their largest instance count, the step's walk counts) once a step, and
-    the used-retry reads whether any lane needs it (`lax.cond`); the walk
-    chunk is one call of K5 `lcb_walk` (lcb/kernels.py, shared with the
-    resident engine), which on the card walks the carry's state in place
-    and reads nothing (on the CPU its plain version reads each push's
-    bound, uncounted).  The tier's seeding (`seed_state`) gives the three
-    slabs tensors of their own, the rewind's `_lanes_where` and the
-    compaction's gathers and folds make new ones, and no holder of a
-    pre-walk state reads it after the walk.  Each read adds one to the
+    their largest instance count, the step's walk counts) once a step; the
+    vote with its used-retry (`lax.cond`) is one call of K6 `lcb_vote`
+    with `retry` (lcb/kernels.py, shared with the resident engine), which
+    on the card decides the retry inside its one launch and reads nothing;
+    the walk chunk is one call of K5 `lcb_walk` (lcb/kernels.py), which
+    on the card walks the carry's state in place and reads nothing (on the
+    CPU its plain version reads each push's bound, uncounted).  The tier's
+    seeding (`seed_state`) gives the three slabs tensors of their own, the
+    rewind's `_lanes_where` and the compaction's gathers and folds make
+    new ones, and no holder of a pre-walk state reads it after the walk.  Each read adds one to the
     `fused_host_syncs` counter;
   * no segmented dispatch and no segment controller (the JAX package's
     `SEG_STEPS`, `SEG_TARGET_S`, `_SEG_MAX`, `_seg_state`: they existed
@@ -52,10 +53,10 @@ A port of sibeliaz_tpu/lcb/fused.py.  How it differs:
     are `utils/metrics` counters (`fused_phases`, `fused_steps_tier<t>`,
     `fused_lanes_tier<t>`, `fused_tier<t>_s`, `fused_compactions`,
     `fused_oracle_lanes`, `fused_host_syncs`), with the host seconds of
-    the votes and of the walk chunks (`fused_vote_s` ends in the
-    used-retry's read of the card, so it holds the votes' device work;
-    `fused_walk_s` is, on the card, the host's time to queue the chunk,
-    whose device work lands in the next read), the walk
+    the votes and of the walk chunks (on the card both are the host's
+    time to queue the call, whose device work lands in the step's read:
+    `fused_vote_s` reads nothing since K6 took the used-retry's read into
+    its launch, so it no longer holds the votes' device work), the walk
     chunks' pushes (`fused_pushes`: a chunk's largest push count of a lane,
     which is the lockstep loop's pushes) and their lanes' occurrence steps
     (`fused_lane_occ_steps`: the pushed vertices' occurrence counts,
@@ -70,13 +71,12 @@ A port of sibeliaz_tpu/lcb/fused.py.  How it differs:
     go to every distinct device once a phase.  The tier ladder and the
     padding are the mesh path's, so every call holds the JAX package's
     bundles.  The slices step in lockstep (one outer step run on every
-    live slice before the host's end-of-step read of any; the step's own
-    read, the used-retry's, still waits on each slice's device in turn,
-    so slices on several cards overlap little), each with
-    its own carry, reading and compaction: lanes never talk to each
-    other, so compaction inside a slice is still a permutation, and the
-    JAX package's `COMPACT_MIN >= mesh.size` (its compaction is global)
-    is not needed.
+    live slice before the host's end-of-step read of any; a step reads
+    nothing of the card until then, so slices on several cards overlap
+    in their steps), each with its own carry, reading and compaction:
+    lanes never talk to each other, so compaction inside a slice is still
+    a permutation, and the JAX package's `COMPACT_MIN >= mesh.size` (its
+    compaction is global) is not needed.
     The step count is the largest slice's (the mesh's global count), and
     a lane still active at MAX_STEPS goes to the host oracle, as on one
     device.  Each slice's result comes back through the compact fetch
@@ -124,7 +124,6 @@ from sibeliaz_tpu_torch.lcb.resident import (
     _seed_lanes,
     _seed_lanes_device,
     _tensor,
-    _vote_gathered,
     check_device,
     decode,
     state_from_numpy,
@@ -217,18 +216,10 @@ def _phase_step(CAP: int, W: int, slab_max: bool, tb: DeviceTables, carry,
     voting = active & ~in_walk
     cap_ovf = voting & (st.ln.n > CAP)
     votable = voting & ~cap_ovf
-    bvid, _, ochr, oidx, ostr, wovf = _vote_gathered(
-        CAP, W, tb, st.ln, rows, votable, fwd, torch.zeros_like(votable), depth, b, n_max)
-    need_retry = votable & fwd & (bvid == 0) & (wovf == 0)
+    bvid, _, ochr, oidx, ostr, wovf = kernels.lcb_vote(
+        CAP, W, tb, st.ln, rows, votable, fwd, torch.zeros_like(votable), depth, b, n_max,
+        retry=True)
     vote_ovf = cap_ovf | (votable & (wovf > 0))
-    if _fetch(need_retry.any()):
-        bvid2, _, ochr2, oidx2, ostr2, wovf2 = _vote_gathered(
-            CAP, W, tb, st.ln, rows, need_retry, fwd, need_retry, depth, b, n_max)
-        bvid = torch.where(need_retry, bvid2, bvid)
-        ochr = torch.where(need_retry, ochr2, ochr)
-        oidx = torch.where(need_retry, oidx2, oidx)
-        ostr = torch.where(need_retry, ostr2, ostr)
-        vote_ovf = vote_ovf | (need_retry & (wovf2 > 0))
     retier = retier | vote_ovf
     active = active & ~vote_ovf
     voted = votable & ~vote_ovf
@@ -417,9 +408,9 @@ class _LaneRun:
 
 def _lockstep(runs: Sequence[_LaneRun]) -> None:
     """Run every state machine to its end: each outer step runs on every
-    live run before the end-of-step read of any of them.  A step's own
-    read (the used-retry's) waits on its device, so runs on several
-    devices overlap only in the rest of their steps."""
+    live run before the end-of-step read of any of them.  A step itself
+    reads nothing of its device (K6 decides the used-retry in its
+    launch), so runs on several devices overlap in their steps."""
     while True:
         live = [run for run in runs if run.live]
         if not live:

@@ -1,4 +1,5 @@
-"""The LCB walk's hand-written CUDA kernel and its plain version.
+"""The LCB walk's and the LCB vote's hand-written CUDA kernels and their
+plain versions.
 
 K5 `lcb_walk` (csrc/lcb_walk.cu) runs the walk of both device LCB engines
 in one launch: for each walking lane, up to `limit` pushes from its
@@ -38,6 +39,20 @@ occurrence steps (the pushed vertices' occurrence counts, summed).  The
 engines count `<engine>_pushes` as a call's largest row count, which is
 the lockstep loop's pushes, and `<engine>_lane_occ_steps` as the sum over
 its rows.
+
+K6 `lcb_vote` (csrc/lcb_vote.cu) runs every vote call of both device LCB
+engines in one launch: MostPopularVertex over the gathered lanes' instance
+slabs (lcb/vote.py's vote_plain, the port of the JAX package's
+resident.py::_vote_gathered), one thread block a row, and with `retry` the
+fused engine's used-retry in the same launch (vote_retry_plain), so no
+read of the card decides it.  It routes as K5 does; it reads the state
+and writes only its [6, A] results.
+
+Both wrappers check every tensor they pass to the card: its device, type,
+shape and contiguity (and K5 the state's overlaps).  The tables' checks
+run once per DeviceTables object, which the engines build once a phase
+(`_table_check`, kept on the object; a replaced table tensor is checked
+again); the lanes, the state and the arguments are checked every call.
 """
 
 from __future__ import annotations
@@ -47,10 +62,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from sibeliaz_tpu_torch.graph.kernels import _route
 from sibeliaz_tpu_torch.lcb.batched_push_device import (
     INSTANCE_FIELDS,
     LANE_FIELDS,
+    DeviceLanes,
     DeviceTables,
     ResidentState,
     _clip,
@@ -61,9 +76,10 @@ from sibeliaz_tpu_torch.lcb.batched_push_device import (
     _state_leaves,
     edge_of,
 )
+from sibeliaz_tpu_torch.lcb.vote import vote_columns, vote_plain, vote_retry_plain
 from sibeliaz_tpu_torch.utils import cudabuild
 
-LAUNCHES = {"lcb_walk": 0}
+LAUNCHES = {"lcb_walk": 0, "lcb_vote": 0}
 
 # the tables the kernel reads, in the order of its C interface
 TABLE_FIELDS = ("chr_off", "chr_len", "jpos", "jid", "used_pfx", "used", "seq_off", "seq",
@@ -149,11 +165,96 @@ def lcb_walk_plain(tb: DeviceTables, st: ResidentState, rows: Optional[torch.Ten
 def _require(t: torch.Tensor, dtype: torch.dtype, shape, name: str) -> None:
     """Raise unless t is a contiguous `dtype` tensor of `shape` (None: any
     1-D shape)."""
-    fits = t.dim() == 1 if shape is None else tuple(t.shape) == tuple(shape)
+    fits = t.dim() == 1 if shape is None else t.shape == shape
     if t.dtype != dtype or not fits or not t.is_contiguous():
         want = "1-D" if shape is None else tuple(shape)
         raise ValueError(f"{name} must be a contiguous {dtype} tensor of shape {want}, "
                          f"got {t.dtype} {tuple(t.shape)}")
+
+
+class _TableCheck(NamedTuple):
+    """What a DeviceTables object's checks found, kept on the object: its
+    tensors when checked (held, so their storage outlives the check), their
+    one device, and (once checked for a launch) their pointers and lengths
+    for the C calls."""
+
+    tables: tuple
+    device: torch.device
+    launchable: bool = False
+    ptrs: Optional[ctypes.Array] = None
+    lens: tuple = ()
+
+
+def _table_check(tb: DeviceTables, launch: bool) -> _TableCheck:
+    """The checks of tb's TABLE_FIELDS, run once per DeviceTables object
+    (again only where one of its tensors was replaced): one device (for
+    routing), and with `launch` each table's type, 1-D contiguity and the
+    paired lengths.  Both kernels read these tables; the engines build a
+    DeviceTables once a phase."""
+    tables = tuple(getattr(tb, f) for f in TABLE_FIELDS)
+    got = tb.__dict__.get("_kernel_tables")
+    if got is None or any(a is not b for a, b in zip(got.tables, tables)):
+        devices = {t.device for t in tables}
+        if len(devices) != 1:
+            raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+        got = _TableCheck(tables, devices.pop())
+    if launch and not got.launchable:
+        for f, t in zip(TABLE_FIELDS, tables):
+            _require(t, torch.uint8 if f in _BYTE_TABLES else torch.int64, None, f"tables.{f}")
+            if not t.shape[0]:
+                raise ValueError(f"tables.{f} is empty")
+        if tb.jpos.shape != tb.jid.shape or tb.occ_chr.shape != tb.occ_idx.shape:
+            raise ValueError("jpos and jid, and occ_chr and occ_idx, must be of one length each")
+        got = got._replace(launchable=True, ptrs=_array([t.data_ptr() for t in tables]),
+                           lens=tuple(t.shape[0] for t in tables))
+    tb.__dict__["_kernel_tables"] = got
+    return got
+
+
+def _routed(tb: DeviceTables, tensors, specs):
+    """(the one device of tb's tables and `tensors`, tb's checks): raises
+    for tensors on several devices, or on a device other than the CPU and
+    a CUDA card.  On a CUDA device tb's tables are checked for a launch,
+    and each tensor against its spec (dtype, shape, name) and for
+    contiguity, in the same pass."""
+    got = _table_check(tb, False)
+    dev = got.device
+    if dev.type == "cuda":
+        got = _table_check(tb, True)
+        for t, (dtype, shape, name) in zip(tensors, specs):
+            if t.device != dev:
+                _several(dev, tensors)
+            if t.dtype != dtype or t.shape != shape or not t.is_contiguous():
+                _require(t, dtype, shape, name)
+        return dev, got
+    for t in tensors:
+        if t.device != dev:
+            _several(dev, tensors)
+    if dev.type != "cpu":
+        raise ValueError(f"no kernel for device type {dev.type!r}")
+    return dev, got
+
+
+def _several(dev: torch.device, tensors) -> None:
+    devices = {dev} | {x.device for x in tensors}
+    raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+
+
+def _walk_specs(L: int, IC: int, PC: int, A: int, rows: bool) -> tuple:
+    """K5's per-call specs: the state's 68 leaves, then c, i, s, fwd, tvid,
+    active, last (and rows)."""
+    specs = []
+    for slab in ("ln", "rw", "sn"):
+        for f in LANE_FIELDS:
+            width = IC if f in INSTANCE_FIELDS else PC if f in ("pvid", "pdist") else None
+            specs.append((torch.bool if f in _BOOL_FIELDS else torch.int64,
+                          torch.Size((L,) if width is None else (L, width)), f"{slab}.{f}"))
+    specs += [(torch.int64, torch.Size((L,)), "best_score"),
+              (torch.bool, torch.Size((L,)), "has_snap")]
+    names = ("c", "i", "s", "fwd", "tvid", "active", "last") + (("rows",) if rows else ())
+    specs += [(torch.bool if name in ("fwd", "active", "last") else torch.int64,
+               torch.Size((A,)), name) for name in names]
+    return tuple(specs)
 
 
 def overlapping(leaves, others=()):
@@ -191,44 +292,30 @@ def lcb_walk(tb: DeviceTables, st: ResidentState, rows: Optional[torch.Tensor], 
     Returns a Walk.  On CUDA tensors the walk writes st in place (no two of
     its tensors may overlap, nor any input overlap one of them) and the
     Walk's state is st's own tensors; on CPU tensors st is not written and
-    its slabs may share tensors."""
+    its slabs may share tensors.  The tables are checked once per
+    DeviceTables object, the state and the arguments every call."""
     leaves = _state_leaves(st)
     per_row = [c, i, s, fwd, tvid, active, last] + ([] if rows is None else [rows])
-    tables = [getattr(tb, f) for f in TABLE_FIELDS]
-    kind = _route(*leaves, *per_row, *tables)
-    if kind == "cpu":
-        return lcb_walk_plain(tb, st, rows, c, i, s, fwd, tvid, active, last, m, b, flank, limit)
     L, IC = st.ln.chr.shape
     PC = st.ln.pvid.shape[1]
     A = L if rows is None else rows.shape[0]
-    for q, slab in enumerate(("ln", "rw", "sn")):
-        for f, t in zip(LANE_FIELDS, leaves[q * len(LANE_FIELDS):(q + 1) * len(LANE_FIELDS)]):
-            width = IC if f in INSTANCE_FIELDS else PC if f in ("pvid", "pdist") else None
-            _require(t, torch.bool if f in _BOOL_FIELDS else torch.int64,
-                     (L,) if width is None else (L, width), f"{slab}.{f}")
-    _require(st.best_score, torch.int64, (L,), "best_score")
-    _require(st.has_snap, torch.bool, (L,), "has_snap")
-    for name, t in zip(("c", "i", "s", "fwd", "tvid", "active", "last"), per_row):
-        _require(t, torch.bool if name in ("fwd", "active", "last") else torch.int64, (A,), name)
-    if rows is not None:
-        _require(rows, torch.int64, (A,), "rows")
-    for f, t in zip(TABLE_FIELDS, tables):
-        _require(t, torch.uint8 if f in _BYTE_TABLES else torch.int64, None, f"tables.{f}")
-    if tb.jpos.shape != tb.jid.shape or tb.occ_chr.shape != tb.occ_idx.shape:
-        raise ValueError("jpos and jid, and occ_chr and occ_idx, must be of one length each")
+    dev, tcheck = _routed(tb, leaves + per_row, _walk_specs(L, IC, PC, A, rows is not None))
+    if dev.type == "cpu":
+        return lcb_walk_plain(tb, st, rows, c, i, s, fwd, tvid, active, last, m, b, flank, limit)
     if limit < 0:
         raise ValueError(f"limit must be >= 0, got {limit}")
-    pair = overlapping(leaves, per_row + tables)
+    pair = overlapping(leaves, per_row + list(tcheck.tables))
     if pair is not None:
         names = _leaf_names() + [f"argument {q}" for q in range(len(per_row))] + [
             f"tables.{f}" for f in TABLE_FIELDS]
         raise ValueError(f"lcb_walk writes the state in place: {names[pair[0]]} overlaps "
                          f"{names[pair[1]]} (give each of the state's tensors its own "
                          "storage, as seed_state does)")
-    with torch.cuda.device(c.device):
-        res = torch.empty((len(Walk._fields) - 1, A), dtype=torch.int64, device=c.device)
+    with torch.cuda.device(dev):
+        res = torch.empty((len(Walk._fields) - 1, A), dtype=torch.int64, device=dev)
         if A:
-            launch_into(tb, st, rows, c, i, s, fwd, tvid, active, last, m, b, flank, limit, res)
+            _launch_walk(tcheck, st, rows, c, i, s, fwd, tvid, active, last, tb.k, m, b, flank,
+                         limit, res)
     # the kernel writes last, at_target and overflow as bytes at the start
     # of their rows: views, no copies
     bools = {"last", "at_target", "overflow"}
@@ -250,23 +337,143 @@ def launch_into(tb: DeviceTables, st: ResidentState, rows, c, i, s, fwd, tvid, a
     rows).  A launch from the same state writes the same values, so a
     timing loop restores the state before each launch (chip_smoke.py's K5
     times)."""
+    _launch_walk(_table_check(tb, True), st, rows, c, i, s, fwd, tvid, active, last, tb.k, m,
+                 b, flank, limit, res)
+
+
+def _launch_walk(tcheck: _TableCheck, st: ResidentState, rows, c, i, s, fwd, tvid, active,
+                 last, k: int, m: int, b: int, flank: int, limit: int, res) -> None:
     L, IC = st.ln.chr.shape
-    tables = [getattr(tb, f) for f in TABLE_FIELDS]
-    lens = [tb.chr_off.shape[0], tb.chr_len.shape[0], tb.jid.shape[0], tb.used_pfx.shape[0],
-            tb.used.shape[0], tb.seq_off.shape[0], tb.seq.shape[0], tb.occ_off.shape[0],
-            tb.occ_chr.shape[0]]
-    arrays = [_array([x.data_ptr() for x in group]) for group in (_state_leaves(st), tables)]
-    arrays += [_array(lens), _array([0 if rows is None else rows.data_ptr()]
-                                    + [x.data_ptr() for x in (c, i, s, fwd, tvid, active, last)])]
+    lens = tcheck.lens
+    # the C interface's lengths: chr_off, chr_len, jpos = jid, used_pfx,
+    # used, seq_off, seq, occ_off, occ_chr = occ_idx
+    arrays = [_array([x.data_ptr() for x in _state_leaves(st)]), tcheck.ptrs,
+              _array(lens[:3] + lens[4:10]),
+              _array([0 if rows is None else rows.data_ptr()]
+                     + [x.data_ptr() for x in (c, i, s, fwd, tvid, active, last)])]
     dev = c.device
     with torch.cuda.device(dev):
         status = cudabuild.load().sz_lcb_walk(
             *(ctypes.cast(a, ctypes.c_void_p) for a in arrays),
-            ctypes.c_void_p(res.data_ptr()), L, res.shape[1], IC, st.ln.pvid.shape[1], tb.k, m,
+            ctypes.c_void_p(res.data_ptr()), L, res.shape[1], IC, st.ln.pvid.shape[1], k, m,
             b, flank, limit, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if status != 0:
         raise RuntimeError(f"lcb_walk launch failed: CUDA error {status}")
     LAUNCHES["lcb_walk"] += 1
+
+
+# ---- K6 lcb_vote ------------------------------------------------------------
+
+# the lane fields the vote reads, in the order of its C interface
+VOTE_LANE_FIELDS = ("chr", "s", "fi", "bi", "good_seq", "insert_seq", "n", "pvid", "pn", "rv",
+                    "lv")
+# the tables it reads, and the lengths it takes (jid's is jpos's), in the
+# order of its C interface
+VOTE_TABLE_FIELDS = ("chr_off", "chr_len", "jpos", "jid", "used")
+_VOTE_TABLES = tuple(TABLE_FIELDS.index(f) for f in VOTE_TABLE_FIELDS)
+_VOTE_LENS = tuple(TABLE_FIELDS.index(f) for f in ("chr_off", "chr_len", "jpos", "used"))
+# the vote's spill workspace, a device's: _VOTE_LOCKS lock words (zero
+# between calls; csrc/lcb_vote.cu's kMaxPool), then VOTE_POOL slices, each
+# of the call's sz_lcb_vote_workspace_words; grown where a call's slices
+# are larger, never shrunk
+_WORKSPACE = {}
+_VOTE_LOCKS = 64
+VOTE_POOL = 8
+
+
+def _vote_specs(L: int, IC: int, PC: int, A: int) -> tuple:
+    """K6's per-call specs: the lane fields it reads, then idx, valid,
+    forward, try_used and (where given) spilled."""
+    shapes = {"pvid": (L, PC), "n": (L,), "pn": (L,), "rv": (L,), "lv": (L,)}
+    specs = [(torch.int64, torch.Size(shapes.get(f, (L, IC))), f"ln.{f}")
+             for f in VOTE_LANE_FIELDS]
+    specs += [(torch.int64, torch.Size((A,)), "idx")] + [
+        (torch.bool, torch.Size((A,)), name) for name in ("valid", "forward", "try_used")]
+    return tuple(specs) + ((torch.int64, torch.Size((A,)), "spilled"),)
+
+
+def _vote_workspace(dev: torch.device, words: int) -> torch.Tensor:
+    """The device's vote workspace with room for `words` int64 past its
+    lock words, which are zero: kept, and made anew (zeroed) only where a
+    call needs more."""
+    ws = _WORKSPACE.get(dev)
+    if ws is None or ws.numel() < _VOTE_LOCKS + words:
+        ws = _WORKSPACE[dev] = torch.zeros(_VOTE_LOCKS + words, dtype=torch.int64, device=dev)
+    return ws
+
+
+def lcb_vote(CAP: int, W: int, tb: DeviceTables, ln: DeviceLanes, idx, valid, forward,
+             try_used, depth: int, b: int, n_max=None, retry: bool = False, spilled=None):
+    """K6.  Vote for the gathered lanes idx ([A] int64, in [0, L); rows may
+    repeat and come in any order) of ln ([L, IC] instance slabs, [L, PC]
+    path tables): MostPopularVertex with per-row `forward` and `try_used`
+    ([A] bool), invalid rows inert (lcb/vote.py's vote_plain).  `n_max`
+    cuts the instance columns to the valid rows' largest count.  With
+    `retry`, the fused engine's forward-only used-retry in the same call
+    (vote_retry_plain).  Returns (best_vid, best_cnt, ochr, oidx, ostr,
+    overflow), each [A] int64: on CUDA tensors the rows of one [6, A]
+    tensor from one launch; on CPU tensors the plain version's.  The
+    tables are checked once per DeviceTables object, the lanes and the
+    arguments every call.  `spilled`, an [A] int64 tensor on the card,
+    receives 1 where a row's vote outgrew the kernel's shared hash table
+    and took the workspace (the CPU path leaves it as it is)."""
+    lanes = [getattr(ln, f) for f in VOTE_LANE_FIELDS]
+    per_row = [idx, valid, forward, try_used] + ([] if spilled is None else [spilled])
+    L, IC = ln.chr.shape
+    PC = ln.pvid.shape[1]
+    A = idx.shape[0]
+    dev, tcheck = _routed(tb, lanes + per_row, _vote_specs(L, IC, PC, A))
+    if dev.type == "cpu":
+        plain = vote_retry_plain if retry else vote_plain
+        return plain(CAP, W, tb, ln, idx, valid, forward, try_used, depth, b, n_max)
+    CAPx = vote_columns(CAP, IC, n_max)
+    with torch.cuda.device(dev):
+        out = torch.empty((6, A), dtype=torch.int64, device=dev)
+        if A:
+            _launch_vote(tcheck, ln, idx, valid, forward, try_used, CAPx, W, tb.k, depth, b,
+                         retry, out, spilled)
+    return tuple(out)
+
+
+def _launch_vote(tcheck: _TableCheck, ln: DeviceLanes, idx, valid, forward, try_used,
+                 CAPx: int, W: int, k: int, depth: int, b: int, retry: bool, out,
+                 spilled=None) -> None:
+    """Launches K6 on checked arguments (A >= 1 rows) into `out` ([6, A]
+    int64), with the device's workspace where a row can spill: min(VOTE_POOL,
+    A) slices, which the spilling rows take in turn."""
+    L, IC = ln.chr.shape
+    PC = ln.pvid.shape[1]
+    A = idx.shape[0]
+    lib = cudabuild.load()
+    words = lib.sz_lcb_vote_workspace_words(PC, CAPx, W)
+    if words < 0:
+        raise ValueError(f"lcb_vote takes no call of CAP {CAPx}, W {W}, PC {PC} (CAP and W "
+                         "at most 4,096, the block's shared memory at most 227 KB)")
+    dev = idx.device
+    pool = min(VOTE_POOL, A)
+    ws = _vote_workspace(dev, words * pool) if words else None
+    ptrs = tcheck.ptrs
+    arrays = [_array([getattr(ln, f).data_ptr() for f in VOTE_LANE_FIELDS]),
+              _array([ptrs[q] for q in _VOTE_TABLES]),
+              _array([tcheck.lens[q] for q in _VOTE_LENS]),
+              _array([x.data_ptr() for x in (idx, valid, forward, try_used)])]
+    status = lib.sz_lcb_vote(
+        *(ctypes.cast(a, ctypes.c_void_p) for a in arrays), ctypes.c_void_p(out.data_ptr()),
+        ctypes.c_void_p(0 if ws is None else ws.data_ptr()), pool,
+        ctypes.c_void_p(0 if spilled is None else spilled.data_ptr()), L, A, IC, PC, CAPx, W,
+        k, depth, b, int(retry), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if status != 0:
+        raise RuntimeError(f"lcb_vote launch failed: CUDA error {status}")
+    LAUNCHES["lcb_vote"] += 1
+
+
+def vote_blocks_per_sm(PC: int, CAP: int, W: int, device="cuda") -> int:
+    """The vote blocks an SM of `device` holds at once at PC, CAP, W."""
+    with torch.cuda.device(device):
+        got = cudabuild.load().sz_lcb_vote_blocks_per_sm(PC, CAP, W)
+    if got < 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {-got}")
+    return got
 
 
 def chain_probe(table: torch.Tensor, iters: int, step: str = "warp") -> torch.Tensor:

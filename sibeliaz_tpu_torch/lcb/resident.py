@@ -11,8 +11,10 @@ The whole phase's lane state lives on one device:
     rewind-slab maintenance (copy-on-improve): K5's plain push step.  Both
     live in lcb/batched_push_device.py, below lcb/kernels.py, and are
     re-exported here;
-  * `_vote_gathered` runs MostPopularVertex over the lanes' instance slabs,
-    with per-lane direction, and reports window overflow;
+  * the vote, MostPopularVertex over the lanes' instance slabs with
+    per-lane direction and window overflow, is one call of K6 `lcb_vote`
+    (lcb/kernels.py; its plain version `vote_plain` in lcb/vote.py, which
+    the fused engine shares, re-exported here as `_vote_gathered`);
   * the reference's best-prefix rewind (blocksfinder.h:271-284) is a masked
     slab restore: replaying the successful-push prefix from the seed
     against the phase-frozen `used` snapshot reproduces the state at the
@@ -31,16 +33,12 @@ validate/commit loop stays in LcbEngine.run.
 
 A port of sibeliaz_tpu/lcb/resident.py.  How it differs:
 
-  * `jax.lax.sort` on several keys: the vote's group-by runs one stable
-    `torch.sort` of the vote keys after ordering each lane's instances by
-    their arrival sequence (the arrival key is unique among the entries
-    that vote, so the order equals the two-key sort's); the winner is a
-    lexicographic minimum over (-count, origin key, arrival), which is the
-    three-key sort's column 0.  Where no entry votes the origin columns are
-    unspecified in both packages (the caller reads them only under a
-    winner);
-  * `vmap(searchsorted)` is `torch.searchsorted` on [L, C] rows;
-    `associative_scan` is `cummin`/`cumsum`/`cummax`;
+  * a vote call (`_vote_round`) is one call of K6 `lcb_vote`: on the card
+    one launch, a thread block a row; on the CPU its plain version
+    (lcb/vote.py, where the port's sorts and scans stand for the JAX
+    package's `jax.lax.sort` and `associative_scan`).  Where no entry
+    votes the origin columns are unspecified in both packages (the caller
+    reads them only under a winner);
   * `_walk_device` is one call of K5 `lcb_walk` (lcb/kernels.py, which
     the fused engine's walk chunks share) in place of a jitted
     `while_loop`: on the card one thread block walks each row, in place,
@@ -57,7 +55,7 @@ A port of sibeliaz_tpu/lcb/resident.py.  How it differs:
     unless the caller passes "cpu").  Nothing is compiled per shape, so
     the vote and walk rows are not padded to a power of two: each call
     takes exactly the lanes that asked, a vote's instance columns are cut
-    to their largest count (`_vote_gathered`'s `n_max`), and the host's
+    to their largest count (`lcb_vote`'s `n_max`), and the host's
     arguments of a call go to the device in one copy.  Every read of the
     device is one fetch (a vote call's six results, a walk's six and its
     rows' push and occurrence-step counts, a rewind's three flank and
@@ -124,12 +122,12 @@ from sibeliaz_tpu_torch.lcb.batched_push_device import (  # noqa: F401 (re-expor
     seed_state,
 )
 from sibeliaz_tpu_torch.lcb.oracle import Bundle, Instance, LcbEngine
+from sibeliaz_tpu_torch.lcb.vote import vote_plain as _vote_gathered  # noqa: F401 (re-exported)
 from sibeliaz_tpu_torch.utils.metrics import GLOBAL as metrics
 
 PHASE_LANES = 256
 VOTE_TIERS = ((64, 16), (I_CAP, 16), (I_CAP, 256))  # (instance cap, window)
 _MAX_WALK = 2048  # safety bound; walks are <= the vote window by design
-_I64_MAX = torch.iinfo(torch.int64).max
 
 
 def _fetch(t: torch.Tensor) -> np.ndarray:
@@ -183,133 +181,6 @@ def _rewind_rows(st: ResidentState, rows) -> ResidentState:
                        for f in LANE_FIELDS))
     return ResidentState(ln=ln, rw=st.rw, sn=st.sn, best_score=st.best_score,
                          has_snap=st.has_snap)
-
-
-# --------------------------------------------------------------------------
-# vote round: gathered read-only MostPopularVertex with per-lane direction
-# --------------------------------------------------------------------------
-
-
-def _vote_gathered(CAP: int, W: int, tb: DeviceTables, ln: DeviceLanes,
-                   idx, valid, forward, try_used, depth: int, b: int, n_max=None):
-    """Vote for the gathered lanes idx (read-only; invalid rows inert).
-
-    Per-lane `forward`/`try_used`, so one call serves mixed directions.
-    The start vertex is the lane's own path-end register (rv forward, lv
-    backward).  Returns (best_vid, best_cnt, origin chr/idx/strand,
-    window-overflow) per gathered row.  `n_max`, a bound on the valid
-    rows' instance counts where the caller knows one, trims the instance
-    columns to it: the columns past a lane's count take no part in the
-    vote."""
-    dev = ln.chr.device
-    if n_max is not None:
-        CAP = max(1, min(CAP, n_max))
-
-    def take(a):
-        return a.index_select(0, idx)
-
-    start_vid = torch.where(valid, torch.where(forward, take(ln.rv), take(ln.lv)), BIG)
-    chr_ = take(ln.chr[:, :CAP])
-    s = take(ln.s[:, :CAP])
-    fi = take(ln.fi[:, :CAP])
-    bi = take(ln.bi[:, :CAP])
-    good_seq = take(ln.good_seq[:, :CAP])
-    insert_seq = take(ln.insert_seq[:, :CAP])
-    n = torch.where(valid, take(ln.n), 0)
-    pvid = take(ln.pvid)
-    pn = take(ln.pn)
-
-    L = chr_.shape[0]
-    CAPx = chr_.shape[1]
-    col = torch.arange(CAPx, device=dev)[None, :]
-    live = col < n[:, None]
-
-    good = good_seq >= 0
-    n_good = (good & live).sum(dim=1)
-    use_good = n_good >= 2
-    in_list = torch.where(use_good[:, None], good & live, live)
-    order_seq = torch.where(use_good[:, None], good_seq, insert_seq)
-
-    nj = tb.jpos.shape[0] - 1
-    end_i = torch.where(forward[:, None], bi, fi)
-    base = tb.chr_off[_clip(chr_, tb.chr_off.shape[0] - 2)]
-    end_vid = s * tb.jid[_clip(base + end_i, nj)]
-    at_end = in_list & (end_vid == start_vid[:, None])
-
-    jf = tb.jpos[_clip(base + fi, nj)]
-    jb = tb.jpos[_clip(base + bi, nj)]
-    weight = (jf - jb).abs() + 1
-    kshift = torch.where(s < 0, tb.k, 0)
-    opos = tb.jpos[_clip(base + end_i, nj)] + kshift
-    okey = ((s > 0).long() << 62) | (chr_ << 40) | end_i
-
-    d = torch.arange(1, W + 1, device=dev)  # [W]
-    dirn = torch.where(forward[:, None, None], d[None, None, :], -d[None, None, :])
-    it_i = end_i[:, :, None] + s[:, :, None] * dirn
-    clen = tb.chr_len[_clip(chr_, tb.chr_len.shape[0] - 1)]
-    in_range = (it_i >= 0) & (it_i < clen[:, :, None])
-    flat = _clip(base[:, :, None] + it_i, nj)
-    pos = tb.jpos[flat] + kshift[:, :, None]
-    within = (d[None, None, :] < depth) | ((pos - opos[:, :, None]).abs() <= b)
-    vid = s[:, :, None] * tb.jid[flat]
-    q = vid.reshape(L, -1)
-    pp = torch.searchsorted(pvid.contiguous(), q)
-    padded = torch.cat([pvid, torch.full((L, 1), BIG, dtype=pvid.dtype, device=dev)], dim=1)
-    hit = padded.gather(1, pp) == q
-    in_path = (hit & (pp < pn[:, None])).reshape(vid.shape)
-    uslot = torch.where(s[:, :, None] > 0, flat, flat - 1)
-    used = ((s[:, :, None] > 0) | (it_i > 0)) & (
-        tb.used[_clip(uslot, tb.used.shape[0] - 1)] > 0)
-    ok_used = ~used | try_used[:, None, None]
-    cont = at_end[:, :, None] & in_range & within & ~in_path & ok_used
-    alive = cont.to(torch.int8).cummin(dim=2).values.bool()
-    overflow = alive[:, :, W - 1].any(dim=1).to(torch.int64)
-
-    # order-free winner reduction (docs/design.md §3), per lane: entries
-    # in arrival order (instances by their order sequence, d ascending
-    # within one), then grouped by vid with one stable sort
-    qord = torch.sort(order_seq, dim=1, stable=True).indices
-    CW = CAPx * W
-
-    def by_arrival(x):  # [L, CAP, W] or [L, CAP] -> [L, CW] in arrival order
-        x = x if x.dim() == 3 else x[:, :, None].expand(-1, -1, W)
-        return x.gather(1, qord[:, :, None].expand(-1, -1, W)).reshape(L, CW)
-
-    keyv = by_arrival(torch.where(alive, vid, BIG))
-    arr = by_arrival(order_seq[:, :, None] * W + (d - 1)[None, None, :])
-    key_s, perm = torch.sort(keyv, dim=1, stable=True)
-    a2 = arr.gather(1, perm)
-    o2 = by_arrival(okey).gather(1, perm)
-    w2 = by_arrival(weight).gather(1, perm)
-    sl2 = by_arrival(col.expand(L, -1)).gather(1, perm)
-
-    ridx = torch.arange(CW, device=dev)[None, :].expand(L, -1)
-    ones_col = torch.ones((L, 1), dtype=torch.bool, device=dev)
-    seg_start = torch.cat([ones_col, key_s[:, 1:] != key_s[:, :-1]], dim=1)
-    seg_end = torch.cat([seg_start[:, 1:], ones_col], dim=1)
-    wcum = w2.cumsum(dim=1)
-    start_rank = torch.where(seg_start, ridx, -1).cummax(dim=1).values
-    base_at = (wcum - w2).gather(1, start_rank.clamp(min=0))
-    final_cnt = wcum - base_at
-    is_final = seg_end & (key_s < BIG)
-
-    # the winner: most votes first, then origin-iterator order, then
-    # arrival, among the final-count events (a lexicographic minimum)
-    # (the origin key's strand bit, 1 << 62, lies above BIG: the rows left
-    # out of a minimum take the largest int64)
-    neg = torch.where(is_final, -final_cnt, BIG)
-    pick = neg == neg.min(dim=1, keepdim=True).values
-    o_m = torch.where(pick, o2, _I64_MAX)
-    pick &= o_m == o_m.min(dim=1, keepdim=True).values
-    win = torch.where(pick, a2, _I64_MAX).argmin(dim=1, keepdim=True)
-    has = neg.gather(1, win)[:, 0] < 0
-    best_vid = torch.where(has, key_s.gather(1, win)[:, 0], 0)
-    best_cnt = torch.where(has, -neg.gather(1, win)[:, 0], 0)
-    slot_c = _clip(sl2.gather(1, win), CAPx - 1)
-    ochr = chr_.gather(1, slot_c)[:, 0]
-    oidx = end_i.gather(1, slot_c)[:, 0]
-    ostr = s.gather(1, slot_c)[:, 0]
-    return best_vid, best_cnt, ochr, oidx, ostr, overflow
 
 
 # --------------------------------------------------------------------------
@@ -742,8 +613,8 @@ def process_phase_resident(eng: LcbEngine, bundles: Sequence[Bundle], device="cu
             CAP, W = VOTE_TIERS[tier]
             idx, fwd, tu = upload(group, [pending[i][1] for i in group],
                                   [pending[i][2] for i in group])
-            out = _vote_gathered(CAP, W, tb, st.ln, idx, torch.ones_like(fwd, dtype=torch.bool),
-                                 fwd.bool(), tu.bool(), eng.depth, eng.b, max_n)
+            out = kernels.lcb_vote(CAP, W, tb, st.ln, idx, torch.ones_like(fwd, dtype=torch.bool),
+                                   fwd.bool(), tu.bool(), eng.depth, eng.b, max_n)
             metrics.count("resident_vote_calls")
             bvid, bcnt, ochr, oidx, ostr, ovf = _fetch(torch.stack(out))
             retry: List[int] = []

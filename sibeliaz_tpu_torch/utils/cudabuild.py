@@ -109,8 +109,13 @@ SIGNATURES = {
     "sz_lcb_walk_blocks_per_sm": [_i32, _i32],
     "sz_lcb_chain_probe": [_vp, _i32, _vp, _vp],
     "sz_lcb_step_probe": [_vp, _i32, _vp, _vp],
+    "sz_lcb_vote": ([_vp] * 6 + [_i32, _vp, _i64, _i64] + [_i32] * 4 + [_i64] * 3
+                    + [_i32, _vp]),
+    "sz_lcb_vote_workspace_words": [_i32, _i32, _i32],
+    "sz_lcb_vote_blocks_per_sm": [_i32, _i32, _i32],
 }
-_RESTYPES = {"sz_class_scratch_bytes": _i64, "sz_round_scratch_bytes": _i64}
+_RESTYPES = {"sz_class_scratch_bytes": _i64, "sz_round_scratch_bytes": _i64,
+             "sz_lcb_vote_workspace_words": _i64}
 
 
 def bind(lib: ctypes.CDLL, names=None) -> ctypes.CDLL:

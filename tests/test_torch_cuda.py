@@ -23,12 +23,12 @@ from sibeliaz_tpu_torch.utils import cudabuild
 from sibeliaz_tpu_torch.utils.metrics import GLOBAL as metrics
 
 from torch_cases import (BUNDLE_CASES, CLASS_RUN_KINDS, K1_KINDS, LIMB_SPLITS, ROUND_ROW_KINDS,
-                         SHARD_EDGE_KINDS, bundle_fields, class_case, class_runs,
+                         SHARD_EDGE_KINDS, VOTE_CASES, bundle_fields, class_case, class_runs,
                          codes_with_n_runs, edge_band_round, k1_case, poa_case, poa_round,
                          rand_block, related_genomes, repeat_genomes, round_rows,
                          shard_edge_case, split_limbs, spread_slots, state_apart, state_diff,
-                         tied_table, walk_args, walk_genomes, walk_lanes, walk_tensors,
-                         with_sentinel_rows)
+                         tied_table, vote_case, walk_args, walk_genomes, walk_lanes,
+                         walk_tensors, with_sentinel_rows)
 
 pytestmark = pytest.mark.gpu
 
@@ -671,9 +671,10 @@ def fused_case(k=15):
 @pytest.mark.parametrize("tier", [(64, 32, 64, 128), (512, 16, 512, 1024)])
 def test_fused_carry_cuda_matches_cpu(cuda, tier, steps):
     """The fused state machine from the same seeded lanes run 3 outer steps
-    and to the phase's end on the card (its walk chunks through K5) and on
-    the CPU (through K5's plain version): every field of the carry equal,
-    and the counters but the seconds, at the narrow and the wide tier."""
+    and to the phase's end on the card (its votes through K6, its walk
+    chunks through K5, one launch each a step) and on the CPU (through
+    their plain versions): every field of the carry equal, and the
+    counters but the seconds, at the narrow and the wide tier."""
     from sibeliaz_tpu_torch.lcb import fused, kernels, resident
 
     eng = fused_case()
@@ -686,12 +687,14 @@ def test_fused_carry_cuda_matches_cpu(cuda, tier, steps):
         ln, _, ovf = resident._seed_lanes_device(tb, bundles, 32, IC, PC)
         st = resident.seed_state(ln)  # as the engines seed it: K5 walks it in place
         active = (torch.arange(32, device=dev) < len(bundles)) & ~ovf
-        launches = kernels.LAUNCHES["lcb_walk"]
+        launches = dict(kernels.LAUNCHES)
         metrics.counters.clear()
         carry, reading = fused._phase_fused_seg(
             CAP, W, IC >= fused.I_CAP, tb, fused._init_carry(st, active, 32), eng.depth, eng.m,
             eng.b, eng.flank, eng.b * 2, limit)
-        assert kernels.LAUNCHES["lcb_walk"] - launches == (carry["steps"] if dev == "cuda" else 0)
+        for name in ("lcb_walk", "lcb_vote"):  # one walk and one vote a step
+            assert kernels.LAUNCHES[name] - launches[name] == (
+                carry["steps"] if dev == "cuda" else 0)
         if steps == "end":
             assert reading[0] == 0 and carry["steps"] > 20
         else:
@@ -1017,3 +1020,138 @@ def test_junction_analysis_cuda_matches_cpu(cuda, k):
     flags, first = construct.junction_analysis_packed(codes.to(cuda), k)
     want_flags, want_first = construct.junction_analysis_packed(codes, k)
     assert torch.equal(flags.cpu(), want_flags) and torch.equal(first.cpu(), want_first)
+
+
+def vote_checked(case, retry, device="cuda"):
+    """One K6 call of a VOTE_CASES case on `device` against the plain
+    version on the CPU: best_vid, best_cnt and overflow in every row, the
+    origin columns where a winner exists, one launch.  Returns (K6's six
+    outputs on the host, the rows' workspace flags)."""
+    from sibeliaz_tpu_torch.lcb import kernels, vote
+
+    tb, ln, rows, CAP, W, depth, b, n_max = vote_case(case, "cpu")
+    plain = vote.vote_retry_plain if retry else vote.vote_plain
+    want = [x.numpy() for x in plain(CAP, W, tb, ln, *rows, depth, b, n_max)]
+    tb, ln, rows, *_ = vote_case(case, device)
+    spilled = torch.full((rows[0].shape[0],), -1, dtype=torch.int64, device=device)
+    launches = kernels.LAUNCHES["lcb_vote"]
+    got = kernels.lcb_vote(CAP, W, tb, ln, *rows, depth, b, n_max, retry=retry, spilled=spilled)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["lcb_vote"] == launches + 1
+    got = [x.cpu().numpy() for x in got]
+    for a, w in zip(got[:2] + got[5:], want[:2] + want[5:]):
+        assert np.array_equal(a, w)
+    win = want[0] != 0
+    for a, w in zip(got[2:5], want[2:5]):
+        assert np.array_equal(a[win], w[win])
+    assert win.any()
+    return got, spilled.cpu().numpy()
+
+
+@pytest.mark.parametrize("retry", [False, True])
+@pytest.mark.parametrize("case", list(VOTE_CASES))
+def test_lcb_vote_matches_plain(cuda, case, retry):
+    """K6 against its plain version (tests/torch_cases.py's VOTE_CASES:
+    mid-phase lanes over a (CAP, W) grid with window overflows and lanes
+    past CAP, rows repeated, out of order and invalid; the hand-laid
+    tie-breaks, path rows, used slots and table end; a row that spills to
+    the workspace, and 16 rows that take its 8 slices in turn; the
+    300-copy repeat at CAP 512, W 256), with and without the used-retry:
+    exact, one launch; only the spill cases' valid rows take the
+    workspace."""
+    got, spilled = vote_checked(case, retry)
+    want = [1, 1, 0] * (len(spilled) // 3) if case.startswith("spill") else [0] * len(spilled)
+    assert list(spilled) == want
+
+
+@pytest.mark.parametrize("retry", [False, True])
+def test_lcb_vote_spill_rows_wait_for_one_slice(cuda, monkeypatch, retry):
+    """With the workspace's pool cut to one slice, the spilling rows take
+    it in turn (a row waits while another holds it): exact, and each valid
+    row through the workspace."""
+    from sibeliaz_tpu_torch.lcb import kernels
+
+    monkeypatch.setattr(kernels, "VOTE_POOL", 1)
+    got, spilled = vote_checked("spill: 16 of 24 rows, more than the workspace's slices", retry)
+    assert list(spilled) == [1, 1, 0] * 8
+
+
+def test_lcb_vote_workspace_is_kept(cuda):
+    """The spill workspace is allocated once a device and kept: a second
+    spilling call takes the same tensor.  It holds the lock words and at
+    most VOTE_POOL slices, whatever the rows of the call, and its lock
+    words are zero after each call."""
+    from sibeliaz_tpu_torch.lcb import kernels
+    from sibeliaz_tpu_torch.utils import cudabuild
+
+    kernels._WORKSPACE.clear()
+    vote_checked("spill: 16 of 24 rows, more than the workspace's slices", False)
+    ws = kernels._WORKSPACE[torch.device("cuda", torch.cuda.current_device())]
+    words = cudabuild.load().sz_lcb_vote_workspace_words(16, 64, 64)
+    assert ws.numel() == kernels._VOTE_LOCKS + kernels.VOTE_POOL * words
+    vote_checked("spill: 2,496 vertices in a row", True)
+    assert kernels._WORKSPACE[torch.device("cuda", torch.cuda.current_device())] is ws
+    assert not ws[:kernels._VOTE_LOCKS].any()
+
+
+def test_lcb_vote_refuses_bad_arguments(cuda):
+    """A wrong dtype, tensors on two devices and a non-contiguous lane
+    column are refused before any launch; nothing falls back."""
+    import dataclasses
+
+    from sibeliaz_tpu_torch.lcb import kernels
+
+    tb, ln, rows, CAP, W, depth, b, n_max = vote_case("mid CAP 64 W 32", "cuda")
+    idx, valid, forward, try_used = rows
+    launches = kernels.LAUNCHES["lcb_vote"]
+    with pytest.raises(ValueError, match="idx must be a contiguous torch.int64"):
+        kernels.lcb_vote(CAP, W, tb, ln, idx.int(), valid, forward, try_used, depth, b)
+    with pytest.raises(ValueError, match="forward must be a contiguous torch.bool"):
+        kernels.lcb_vote(CAP, W, tb, ln, idx, valid, forward.long(), try_used, depth, b)
+    with pytest.raises(ValueError, match="several devices"):
+        kernels.lcb_vote(CAP, W, tb, ln, idx.cpu(), valid, forward, try_used, depth, b)
+    strided = torch.empty(tuple(reversed(ln.chr.shape)), dtype=torch.int64, device="cuda").t()
+    strided.copy_(ln.chr)
+    assert not strided.is_contiguous()
+    with pytest.raises(ValueError, match="ln.chr must be a contiguous"):
+        kernels.lcb_vote(CAP, W, tb, dataclasses.replace(ln, chr=strided), idx, valid, forward,
+                         try_used, depth, b)
+    bad_tb = dataclasses.replace(tb, jpos=tb.jpos.int())
+    with pytest.raises(ValueError, match="tables.jpos must be"):
+        kernels.lcb_vote(CAP, W, bad_tb, ln, idx, valid, forward, try_used, depth, b)
+    assert kernels.LAUNCHES["lcb_vote"] == launches
+
+
+def test_lcb_vote_on_the_tensors_device(cuda):
+    """K6 on cuda:1 while cuda:0 is current: the plain version's outputs."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    with torch.cuda.device(0):
+        vote_checked("mid CAP 64 W 32", True, "cuda:1")
+
+
+def test_lcb_vote_engines_never_run_the_plain_vote_on_the_card(cuda, monkeypatch):
+    """Both device LCB engines on the card vote through K6 alone: with the
+    plain votes made to raise, a phase of 32 bundles through each engine
+    gives eng.process's instance lists and launches K6, once a vote call
+    (the resident engine) or an outer step (the fused engine)."""
+    from sibeliaz_tpu_torch.lcb import fused, kernels, resident
+
+    def refuse(*args):
+        raise AssertionError("the plain vote ran on the card")
+
+    monkeypatch.setattr(kernels, "vote_plain", refuse)
+    monkeypatch.setattr(kernels, "vote_retry_plain", refuse)
+    eng = fused_case()
+    bundles = make_bundles_device(eng.t, "cpu")[:32]
+    want = [[(x.c, x.s, x.fi, x.bi, x.fdist, x.bdist, x.cmp, x.ffin, x.bfin) for x in insts]
+            for insts in (eng.process(b) for b in bundles)]
+    for fn, counter in ((fused.process_phase_fused, "fused_steps_tier"),
+                        (resident.process_phase_resident, "resident_vote_calls")):
+        launches = kernels.LAUNCHES["lcb_vote"]
+        metrics.counters.clear()
+        got = fn(eng, bundles, device="cuda")
+        assert [[(x.c, x.s, x.fi, x.bi, x.fdist, x.bdist, x.cmp, x.ffin, x.bfin) for x in insts]
+                for insts in got] == want
+        calls = sum(v for k, v in metrics.counters.items() if k.startswith(counter))
+        assert kernels.LAUNCHES["lcb_vote"] - launches == calls > 0

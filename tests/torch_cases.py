@@ -2,6 +2,8 @@
 JAX, so the card's tests and the smoke run can use them where JAX is not
 installed)."""
 
+import functools
+
 import numpy as np
 
 BAD_CODE = 255  # alphabet.BAD_CODE: a position that is not A, C, G or T
@@ -762,3 +764,252 @@ def walk_tensors(args, device):
     import torch
 
     return [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in args]
+
+
+# ---- K6 lcb_vote: vote calls from the port alone ---------------------------
+
+
+def vote_tables(chroms, used=(), k=15, pad=256):
+    """DeviceTables fields (numpy, for fused.tables_from_numpy) of hand-laid
+    chromosomes: `chroms` a list of junction-id lists, junction q of a
+    chromosome at position 100 + 10 q; `used` (chromosome, index) pairs
+    marked used.  The flat tables are padded to `pad` entries as the
+    engines' are (a power of two, 0 past the data); the fields the vote
+    does not read are small placeholders."""
+    lens = [len(c) for c in chroms]
+    chr_off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    n = int(chr_off[-1])
+    jid = np.zeros(pad, np.int64)
+    jpos = np.zeros(pad, np.int64)
+    for c, ids in enumerate(chroms):
+        jid[chr_off[c]:chr_off[c + 1]] = ids
+        jpos[chr_off[c]:chr_off[c + 1]] = 100 + 10 * np.arange(len(ids))
+    flags = np.zeros(pad, np.uint8)
+    for c, q in used:
+        flags[chr_off[c] + q] = 1
+    pfx = np.concatenate([[0], np.cumsum(flags)]).astype(np.int64)
+    pad4 = max(4, 1 << (len(chr_off) - 1).bit_length())
+    return dict(chr_off=np.concatenate([chr_off, np.full(pad4 - len(chr_off), n)]),
+                chr_len=np.concatenate([lens, np.zeros(pad4 - len(lens))]).astype(np.int64),
+                jpos=jpos, jid=jid, used_pfx=pfx, used=flags,
+                seq_off=np.zeros(4, np.int64), seq=np.full(4, ord("N"), np.uint8),
+                occ_off=np.zeros(4, np.int64), occ_chr=np.zeros(4, np.int64),
+                occ_idx=np.zeros(4, np.int64), occ_ch=np.zeros(4, np.uint8),
+                occ_revch=np.zeros(4, np.uint8))
+
+
+def vote_lanes(lanes, IC, PC):
+    """Lane fields (numpy, for resident.lanes_from_numpy) of hand-laid lanes:
+    each a dict of `inst` [(chr, s, fi, bi, good_seq, insert_seq)], `rv`,
+    `lv`, `path` (the pvid row's leading entries, BIG past them) and `pn`;
+    n is the instance count, every other field 0."""
+    from sibeliaz_tpu_torch.lcb.batched_push_device import BIG, LANE_FIELDS
+
+    L = len(lanes)
+    out = {f: np.zeros((L, IC), np.int64) for f in LANE_FIELDS}
+    for f in ("n", "next_good", "next_insert", "right_flank", "left_flank", "pn", "rv", "lv"):
+        out[f] = np.zeros(L, np.int64)
+    for f in ("ffin", "bfin"):
+        out[f] = np.zeros((L, IC), bool)
+    out["overflow"] = np.zeros(L, bool)
+    out["chr"][:] = -1
+    out["good_seq"][:] = -1
+    out["pvid"] = np.full((L, PC), BIG, np.int64)
+    out["pdist"] = np.zeros((L, PC), np.int64)
+    for r, lane in enumerate(lanes):
+        for q, inst in enumerate(lane["inst"]):
+            for f, v in zip(("chr", "s", "fi", "bi", "good_seq", "insert_seq"), inst):
+                out[f][r, q] = v
+        out["n"][r] = len(lane["inst"])
+        out["pvid"][r, :len(lane["path"])] = lane["path"]
+        for f in ("pn", "rv", "lv"):
+            out[f][r] = lane[f]
+    return out
+
+
+# the hand-laid vote case: depth and b so wide that every slot is within
+VOTE_HAND = dict(CAP=8, W=8, depth=64, b=10_000, k=15)
+
+
+def hand_laid_vote_case():
+    """(tables, lanes, rows) of the hand-laid vote case, numpy: two
+    chromosomes whose junction 5, 20, 30, 40 (chromosome 0) and 5, 20
+    (chromosome 1) carry vertex 100, each lane's path end; `rows` the
+    gathered rows' (idx, valid, forward, try_used), every lane once
+    forward and once more in another order, repeated and invalid.  The
+    lanes, whose winners are decided by:
+      0 the count (vertex 201 in both windows), whose final entry is the
+        later arrival (order sequence 7 over 3: the first instance);
+      1 a count tie, then the origin key (the instance on chromosome 0);
+      2 a count and origin-key tie (one instance), then the arrival: d=1;
+      3 a path row whose entries past pn are not BIG (231 and 232 sorted
+        past pn = 1: the window runs over them);
+      4 the same with pn = 2: 231 is on the path, the window ends at once;
+      5 a minus-strand instance at index 2 of chromosome 1 (forward, it
+        steps to 1 and 0): the used slot of index 1 is flat - 1 (index 0),
+        marked, so the window ends at once unless try_used; at index 0
+        used is not read (its slot, chromosome 0's last, is marked too);
+        backward its window outruns W;
+      6 an instance at the last junction but one of the last chromosome:
+        the window leaves it at d=2 (its table index clips into the pad);
+      7 good instances (two good of three): the third, not good, does
+        not vote;
+      8 lane 0 with order sequences -3 and 2^50 (outside what K6 packs as
+        they are: it ranks them): the second instance's entry is the
+        final one."""
+    c0 = list(range(1000, 1064))
+    c1 = list(range(2000, 2064))
+    for q in (5, 20, 30, 40):
+        c0[q] = 100
+    c0[6:9] = [201, 202, 203]
+    c0[9] = 100
+    c1[5], c1[6:10] = 100, [301, 201, 302, 100]
+    c0[21], c0[22] = 211, 100
+    c1[20], c1[21:24] = 100, [311, 312, 100]
+    c0[31:35] = [221, 222, 223, 100]
+    c0[41:45] = [231, 232, 233, 100]
+    c0[50], c0[51:54] = 100, [241, 242, 100]
+    c1[0:3] = [411, 412, 413]
+    c1[62:64] = [100, 421]
+    tables = vote_tables([c0, c1], used=[(1, 0), (0, 63)])
+    BIGV = 1 << 60
+    lanes = [
+        dict(inst=[(0, 1, 5, 5, -1, 7), (1, 1, 5, 5, -1, 3)], rv=100, lv=100, path=[100], pn=1),
+        dict(inst=[(1, 1, 20, 20, -1, 0), (0, 1, 20, 20, -1, 1)], rv=100, lv=100, path=[100],
+             pn=1),
+        dict(inst=[(0, 1, 30, 30, -1, 0)], rv=100, lv=100, path=[100], pn=1),
+        dict(inst=[(0, 1, 40, 40, -1, 0)], rv=100, lv=100, path=[100, 231, 232, 900], pn=1),
+        dict(inst=[(0, 1, 40, 40, -1, 0)], rv=100, lv=100, path=[100, 231, 232, 900], pn=2),
+        dict(inst=[(1, -1, 2, 2, -1, 0)], rv=-413, lv=-413, path=[-413], pn=1),
+        dict(inst=[(1, 1, 62, 62, -1, 0)], rv=100, lv=100, path=[100], pn=1),
+        dict(inst=[(0, 1, 50, 50, 4, 0), (0, 1, 5, 5, -1, 1), (1, 1, 5, 5, 2, 2)], rv=100,
+             lv=100, path=[100, BIGV - 1], pn=1),
+        dict(inst=[(0, 1, 5, 5, -1, -3), (1, 1, 5, 5, -1, 1 << 50)], rv=100, lv=100,
+             path=[100], pn=1),
+    ]
+    n = len(lanes)
+    idx = np.concatenate([np.arange(n), [6, 0, 5, 5, 3, 7, 1, 2, 4, 0]]).astype(np.int64)
+    valid = np.ones(len(idx), bool)
+    valid[[n + 1, n + 6]] = False
+    forward = np.ones(len(idx), bool)
+    forward[[n + 2, n + 5]] = False
+    try_used = np.zeros(len(idx), bool)
+    try_used[n + 3] = True
+    return tables, vote_lanes(lanes, VOTE_HAND["CAP"], 16), (idx, valid, forward, try_used)
+
+
+def spill_vote_case(instances=64, gap=40, W=64):
+    """(tables, lanes, rows, W) of a vote whose one forward row meets more
+    distinct vertices than K6's shared hash table takes (it spills to the
+    workspace): vertex 100 at every `gap`-th junction of one chromosome,
+    distinct ids between, an instance at each of its `instances`
+    occurrences; each window runs gap - 1 junctions to the next 100 (on
+    the path), 2,496 distinct vertices in all at the defaults.  A second
+    row is the same lane backward (its windows run back to the 100
+    before), a third the lane invalid."""
+    ids = np.arange(5000, 5000 + instances * gap, dtype=np.int64)
+    ids[::gap] = 100
+    tables = vote_tables([list(ids)], pad=1 << (len(ids) - 1).bit_length())
+    lane = dict(inst=[(0, 1, q * gap, q * gap, -1, q) for q in range(instances)], rv=100,
+                lv=100, path=[100], pn=1)
+    rows = (np.zeros(3, np.int64), np.array([True, True, False]), np.array([True, False, True]),
+            np.zeros(3, bool))
+    return tables, vote_lanes([lane], instances, 16), rows, W
+
+
+def vote_rows(rng, L, A, forward_share=0.5):
+    """Random gathered rows (idx, valid, forward, try_used) over L lanes,
+    repeated and out of order, a fifth invalid."""
+    return (rng.integers(0, L, size=A).astype(np.int64), rng.random(A) < 0.8,
+            rng.random(A) < forward_share, rng.random(A) < 0.5)
+
+
+# the vote cases K6 is held to its plain version on, on the card: name ->
+# (state, CAP, W, row seed); "mid" states are mid-phase (vote_mid_phase);
+# a "spill" case's seed, where not 0, repeats its three rows that often
+VOTE_CASES = {
+    "mid CAP 64 W 32": ("mid", 64, 32, 1),
+    "mid CAP 2 W 4 (windows overflow, lanes past CAP)": ("mid", 2, 4, 2),
+    "mid CAP 16 W 256": ("mid", 16, 256, 3),
+    "mid CAP 64 W 3 (windows overflow)": ("mid", 64, 3, 4),
+    "hand-laid ties, path, used, table end": ("hand", 8, 8, 0),
+    "spill: 2,496 vertices in a row": ("spill", 64, 64, 0),
+    "spill: 16 of 24 rows, more than the workspace's slices": ("spill", 64, 64, 8),
+    "repeat of 300 copies, CAP 512 W 256": ("repeat", 512, 256, 0),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def vote_mid_phase(steps=12):
+    """(tables fields, k, depth, b, lane fields), numpy: the related
+    genomes' first 32 bundles (every 7th junction used) after `steps`
+    fused steps of the port on the CPU at the narrow tier (64, 32, 64,
+    128)."""
+    import torch
+
+    from sibeliaz_tpu_torch import pipeline
+    from sibeliaz_tpu_torch.config import Config
+    from sibeliaz_tpu_torch.lcb import fused, resident
+    from sibeliaz_tpu_torch.lcb.device_bundles import make_bundles_device
+    from sibeliaz_tpu_torch.lcb.oracle import LcbEngine
+
+    seqs, names = related_genomes(520, length=1200, mut=0.03, rearrange=True)
+    cfg = Config(k=15)
+    table = pipeline.build_table(seqs, names, cfg, device="cpu")
+    eng = LcbEngine(table, cfg.min_block_size, cfg.max_branch_size, cfg.flanking)
+    eng.t.used_flat[::7] = 1
+    tb = resident._device_tables(eng, "cpu")
+    ln, _, ovf = resident._seed_lanes_device(tb, make_bundles_device(eng.t, "cpu")[:32], 32, 64,
+                                             128)
+    carry = fused._init_carry(resident.seed_state(ln), ~ovf, 32)
+    with torch.no_grad():
+        carry, _ = fused._phase_fused_seg(64, 32, False, tb, carry, eng.depth, eng.m, eng.b,
+                                          eng.flank, eng.b * 2, steps)
+    return state_arrays(tb), eng.t.k, eng.depth, eng.b, state_arrays(carry["st"].ln)
+
+
+@functools.lru_cache(maxsize=None)
+def _repeat_vote_state():
+    from sibeliaz_tpu_torch import pipeline
+    from sibeliaz_tpu_torch.config import Config
+    from sibeliaz_tpu_torch.lcb import resident
+    from sibeliaz_tpu_torch.lcb.device_bundles import make_bundles_device
+    from sibeliaz_tpu_torch.lcb.oracle import LcbEngine
+
+    seqs, names = repeat_genomes(3, 300)
+    cfg = Config(k=15, abundance_threshold=1000)
+    table = pipeline.build_table(seqs, names, cfg, device="cpu")
+    eng = LcbEngine(table, cfg.min_block_size, cfg.max_branch_size, cfg.flanking)
+    tb = resident._device_tables(eng, "cpu")
+    bundles = [bd for bd in make_bundles_device(eng.t, "cpu") if bd.count == 300]
+    ln, _, _ = resident._seed_lanes_device(tb, bundles, 2, 512, 1024)
+    return state_arrays(tb), eng.t.k, eng.depth, eng.b, state_arrays(ln)
+
+
+def vote_case(name, device):
+    """A K6 case of VOTE_CASES on `device`: (tables, lanes, rows (idx,
+    valid, forward, try_used tensors), CAP, W, depth, b, n_max)."""
+    import torch
+
+    from sibeliaz_tpu_torch.lcb import fused, resident
+
+    kind, CAP, W, seed = VOTE_CASES[name]
+    if kind == "mid":
+        fields, k, depth, b, lane_fields = vote_mid_phase()
+        rows = vote_rows(np.random.default_rng(seed), 32, 48)
+    elif kind == "hand":
+        fields, lane_fields, rows = hand_laid_vote_case()
+        k, depth, b = (VOTE_HAND[x] for x in ("k", "depth", "b"))
+    elif kind == "spill":
+        fields, lane_fields, rows, W = spill_vote_case()
+        rows = tuple(np.tile(x, max(seed, 1)) for x in rows)
+        k, depth, b = 15, 64, 10_000
+    else:
+        fields, k, depth, b, lane_fields = _repeat_vote_state()
+        rows = (np.zeros(3, np.int64), np.ones(3, bool), np.array([True, False, True]),
+                np.array([False, False, True]))
+    tb = fused.tables_from_numpy(fields, k, device)
+    ln = resident.lanes_from_numpy(lane_fields, device)
+    n_max = int(lane_fields["n"][rows[0][rows[1]]].max(initial=0))
+    rows = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in rows)
+    return tb, ln, rows, CAP, W, depth, b, n_max
