@@ -14,6 +14,7 @@
     python3 chip_smoke.py --k5-time [OLDER.cu]  # K5 (and an older one) timed, see k5_time
     python3 chip_smoke.py --vote [OLDER.py]  # phase 17 alone (an older lcb/kernels.py's
                                              # K5 wrapper timed beside), see vote_phase
+    python3 chip_smoke.py --step             # phase 18 alone, see step_phase
 
 Phases, in order; any failure raises and the exit code is non-zero:
   1. device: the card's name and power limit, and the peak rates the
@@ -105,9 +106,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
      the native engine's.  `--sharded` runs phases 1, 2 and 12 alone;
  13. the fused LCB engine (lcb/fused.py): (a) the CLI with --lcb-engine
      tpu-fused -n on examples/ (k=15), byte-equal to the golden GFF, a
-     main-path run whose K1 and K2 launches count (once each), with its
-     lcb_engine seconds beside the native engine's, its outer steps, host
-     syncs per step and counters; (b) examples/' first phase (256 bundles)
+     main-path run whose K1 and K2 launches count (once each) and whose
+     lanes step in K7 alone (one launch a run, no K5 or K6 launch, at most
+     two reads a run: the seeding's and the run's), with its lcb_engine
+     seconds beside the native engine's, its runs, outer steps, reads a
+     run and counters; (b) examples/' first phase (256 bundles)
      on the card equal to the same on the CPU and to eng.process, bundle by
      bundle; (c) examples/large at k=25, its first four phases (1,024
      bundles) on the card through LcbEngine.run's commit loop, each bundle
@@ -141,9 +144,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
      said on a line of its own, where the profiler shows no device time
      for K1 or K2), records equal to the untraced run's.  `--resident` runs
      phases 1, 2 and 15 alone;
- 16. K5 lcb_walk (lcb/kernels.py), which phases 13-15 ran end to end (their
+ 16. K5 lcb_walk (lcb/kernels.py), which phase 15 ran end to end (its
      lcb_walk launches printed): examples/' first phase through the fused
-     and the resident engine with K5's calls recorded, the calls with the
+     engine (by the host loop, K6 and K5 a step: HostLoopRoute) and the
+     resident engine with K5's calls recorded, the calls with the
      most pushes and the longest rows of each engine and slab width
      replayed through K5 and its plain version on the card, then the stress
      set (a repeat of 300 copies, walks cut at 2 pushes, lanes outgrowing a
@@ -153,10 +157,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
      beside the whole call, the plain version, the bound and the chain
      floors of this step and of the first design's; the walk blocks an SM
      holds.  `--walk` runs phases 1, 2 and 16 alone;
- 17. K6 lcb_vote (lcb/kernels.py), which phases 13-15 ran end to end (their
-     lcb_vote launches printed and held to the engines' vote calls, and
-     13a's host syncs a step to at most 1.05): examples/' first phase
-     through the fused and the resident engine with K6's calls recorded,
+ 17. K6 lcb_vote (lcb/kernels.py), which phase 15 ran end to end (its
+     lcb_vote launches printed and held to the engine's vote calls):
+     examples/' first phase through the fused engine (by the host loop)
+     and the resident engine with K6's calls recorded,
      the heaviest of each engine and tier replayed through K6 and its plain
      version on the card, then the stress set (tests/torch_cases.py's
      VOTE_CASES, each without and with the used-retry; the spill cases'
@@ -164,15 +168,32 @@ Phases, in order; any failure raises and the exit code is non-zero:
      turn, and again with one slice; no other row): every output exact,
      the kernel's card time, the whole call, the plain version, the bound;
      the wrappers' host costs (K5's and K6's, queueing and synchronised,
-     the tables checked every call and once a DeviceTables object).
-     `--vote` runs phases 1, 2 and 17 alone.
+     the tables checked every call and once a DeviceTables object), and
+     K6's chain floor (one vote of one window round, the "vote" probe).
+     `--vote` runs phases 1, 2 and 17 alone;
+ 18. K7 lcb_step (lcb/kernels.py), which phases 13 and 14 ran end to end
+     (their lcb_step launches held to the runs): examples/' first phase
+     through the fused engine with K7's calls recorded, each run (every
+     tier) held to the host loop on the card from the same carry (K6 and
+     K5 a step) and the heaviest to the plain version on the CPU, then
+     tests/torch_cases.py's STEP_CASES (a spilling vote, a vote cap
+     overflow, a slab overflow, walks of many chunks, a step limit)
+     against the plain version: every tensor of the carry and the lanes'
+     counts exact; the kernel's card time (each launch from the restored
+     carry) and the whole call, the host loop's and the plain version's
+     time, the bound and the chain floor (the longest lane's occurrence
+     steps and outer steps over the "warp" and "vote" probes); the step
+     blocks an SM in both shared-memory layouts.  `--step` runs phases 1,
+     2 and 18 alone.
 The last two lines are a JSON summary of the kernels (time, plain time,
 bound, launches per main path; K1's and K2's "ms" are their one-limb
 instances' and "by_limbs" holds both instances'; K4's "ms" is its shape on
 the examples/large streamed passes, named in "shape", and "by_shape" holds
 its eight timed shapes; K5's is the recorded call with the longest row,
 named in "call"; K6's the recorded call with the largest bound, named in
-"call", with the host costs in "host_ms") and {"ok": true, "device":
+"call", with the host costs in "host_ms" and its chain floor; K7's the
+heaviest run of examples/' first phase, named in "call", with its whole
+call, host loop and chain floor) and {"ok": true, "device":
 {...}}.  It
 imports neither jax nor sibeliaz_tpu.
 """
@@ -279,6 +300,12 @@ VOTE_KEEP = 4
 K6_ROW_BYTES, K6_REGISTER_BYTES, K6_COLUMN_BYTES = 8 + 3 + 6 * 8, 3 * 8, 6 * 8
 K6_END_BYTES, K6_WINDOW_BYTES, K6_SLOT_BYTES = 2 * 8, 4 * 8, 8 + 8 + 1
 K6_OPS_PER_SLOT, K6_OPS_PER_ENTRY = 70, 20
+
+
+# phase 18: what K7 moves besides the slabs and the tables its steps read,
+# bytes: a lane's 13 registers (seven int64, six bools), in and out, and
+# its four int64 results out
+K7_REGISTER_BYTES, K7_RESULT_BYTES = 7 * 8 + 6, 4 * 8
 
 
 def check(cond, msg):
@@ -1750,18 +1777,23 @@ def fused_phase(torch, mods, tmp_dir, large_fa, label):
     counters = fused_counters(metrics)
     check(launches["front_half"] == 1 and launches["class_analysis"] == 1
           and launches["round_append"] == 0 and launches["poa_dp_tb"] == 0
-          and launches["lcb_walk"] > 0,
-          f"launches of the --lcb-engine tpu-fused -n run: {launches}")
+          and launches["lcb_walk"] == 0 and launches["lcb_vote"] == 0
+          and launches["lcb_step"] > 0,
+          f"launches of the --lcb-engine tpu-fused -n run (K7 alone steps the lanes): "
+          f"{launches}")
     check(counters.get("fused_phases", 0) > 0, f"the fused engine did not run: {counters}")
     steps = sum(v for k, v in counters.items() if k.startswith("fused_steps_tier"))
-    check(launches["lcb_vote"] == steps, f"{launches['lcb_vote']} lcb_vote launches for {steps} "
-          "outer steps: a vote went past K6")
-    check(counters["fused_host_syncs"] / steps <= 1.05,
-          f"{counters['fused_host_syncs'] / steps:.4f} host syncs a step, more than 1.05")
+    runs = counters["fused_runs"]
+    check(launches["lcb_step"] == runs, f"{launches['lcb_step']} lcb_step launches for {runs} "
+          "runs: a run went past K7")
+    check(counters["fused_host_syncs"] / runs <= 2,
+          f"{counters['fused_host_syncs'] / runs:.4f} reads a run, more than 2 (the seeding's "
+          "and the run's)")
     print(f"examples/ --lcb-engine tpu-fused -n: GFF byte-equal to the golden | lcb_engine "
           f"{lcb_s['tpu-fused']:.4f} s (native {lcb_s['native']:.4f} s) | CLI wall {wall:.4f} s "
-          f"| outer steps {steps} | host syncs per step "
-          f"{counters['fused_host_syncs'] / max(1, steps):.2f} | {counters} | launches "
+          f"| runs {runs} | outer steps (each run's longest lane) {steps} | reads a run "
+          f"{counters['fused_host_syncs'] / runs:.2f} (the decode's "
+          f"{counters.get('fused_decode_reads', 0)} apart) | {counters} | launches "
           f"{launches} {label}")
 
     phase(f"13b examples/' first phase: the card, the CPU and eng.process {label}")
@@ -1779,8 +1811,7 @@ def fused_phase(torch, mods, tmp_dir, large_fa, label):
         t0 = time.time()
         runs[dev] = instance_keys(fused.process_phase_fused(eng, bundles, device=dev))
         print(f"examples/ phase 1 on {dev}: {time.time() - t0:.4f} s | "
-              f"{fused_counters(metrics)} | lcb_walk launches {lcb_kernels.LAUNCHES['lcb_walk']}"
-              f", lcb_vote {lcb_kernels.LAUNCHES['lcb_vote']} {label}")
+              f"{fused_counters(metrics)} | launches {lcb_kernels.LAUNCHES} {label}")
     t0 = time.time()
     oracle = instance_keys(eng.process(b) for b in bundles)
     check(runs["cuda"] == runs["cpu"], "examples/ phase 1: the card's instances differ from "
@@ -1801,7 +1832,7 @@ def fused_phase(torch, mods, tmp_dir, large_fa, label):
     bundles = make_bundles_device(table, "cuda")
     per_phase = []
 
-    large_launches = {"lcb_walk": 0, "lcb_vote": 0}
+    large_launches = {"lcb_walk": 0, "lcb_vote": 0, "lcb_step": 0}
 
     def checked_phase(eng, batch):
         metrics.counters.clear()
@@ -1812,12 +1843,11 @@ def fused_phase(torch, mods, tmp_dir, large_fa, label):
         for kernel in large_launches:
             large_launches[kernel] += lcb_kernels.LAUNCHES[kernel]
         counters = fused_counters(metrics)
-        counters["lcb_walk launches"] = lcb_kernels.LAUNCHES["lcb_walk"]
-        counters["lcb_vote launches"] = lcb_kernels.LAUNCHES["lcb_vote"]
-        steps = sum(v for k, v in counters.items() if k.startswith("fused_steps_tier"))
-        check(lcb_kernels.LAUNCHES["lcb_vote"] == steps, f"examples/large phase "
-              f"{len(per_phase) + 1}: {lcb_kernels.LAUNCHES['lcb_vote']} lcb_vote launches for "
-              f"{steps} outer steps")
+        counters["lcb_step launches"] = lcb_kernels.LAUNCHES["lcb_step"]
+        check(lcb_kernels.LAUNCHES["lcb_step"] == counters["fused_runs"]
+              and lcb_kernels.LAUNCHES["lcb_walk"] == lcb_kernels.LAUNCHES["lcb_vote"] == 0,
+              f"examples/large phase {len(per_phase) + 1}: launches {lcb_kernels.LAUNCHES} for "
+              f"{counters['fused_runs']} runs")
         t0 = time.time()
         want = [eng.process(b) for b in batch]
         check(instance_keys(got) == instance_keys(want),
@@ -1834,7 +1864,8 @@ def fused_phase(torch, mods, tmp_dir, large_fa, label):
           f"{len(per_phase)} on the card {sum(per_phase):.4f} s ({mean:.4f} s a phase) | "
           f"extrapolated full run {mean * n_phases:.1f} s | launches {large_launches} "
           f"{label}")
-    check(all(large_launches.values()), f"examples/large: launches {large_launches}")
+    check(large_launches["lcb_step"] > 0 and not large_launches["lcb_walk"]
+          and not large_launches["lcb_vote"], f"examples/large: launches {large_launches}")
     return launches, {"lcb_s": lcb_s["tpu-fused"], "first_phase": runs["cuda"],
                       "large_launches": large_launches}
 
@@ -1915,7 +1946,7 @@ def resident_phase(torch, mods, tmp_dir, large_fa, fused13, traced_phase, label)
     launches = {**kernels.LAUNCHES, **align_kernels.LAUNCHES, **lcb_kernels.LAUNCHES}
     counters = resident_counters(metrics)
     check({k: v for k, v in launches.items() if k not in ("lcb_walk", "lcb_vote")} == {
-        "front_half": 1, "class_analysis": 1, "round_append": 0, "poa_dp_tb": 0}
+        "front_half": 1, "class_analysis": 1, "round_append": 0, "poa_dp_tb": 0, "lcb_step": 0}
         and launches["lcb_walk"] > 0, f"launches of the --lcb-engine tpu -n run: {launches}")
     check(counters.get("resident_phases", 0) > 0, f"the resident engine did not run: {counters}")
     check(launches["lcb_vote"] == counters["resident_vote_calls"],
@@ -2021,6 +2052,26 @@ def resident_phase(torch, mods, tmp_dir, large_fa, fused13, traced_phase, label)
     return launches
 
 
+class HostLoopRoute:
+    """While active, the fused engine's lcb_step calls take the host loop
+    (lcb/step.py's lcb_step_plain on the card's tensors: one K6 and one K5
+    launch an outer step, the route before K7), so that K5's and K6's
+    calls from the fused engine can be recorded (phases 16 and 17) and K7
+    held to that route (phase 18)."""
+
+    def __init__(self, lcb_kernels):
+        self.mod = lcb_kernels
+
+    def __enter__(self):
+        from sibeliaz_tpu_torch.lcb import step
+
+        self.real, self.mod.lcb_step = self.mod.lcb_step, step.lcb_step_plain
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.lcb_step = self.real
+
+
 class WalkRecorder:
     """While active, wraps K5's wrapper, which both device LCB engines call,
     and keeps the arguments of the calls with the most pushes and with the
@@ -2108,11 +2159,13 @@ def k5_bound(args, w, IC, PC, peak_ops):
     return ms, by, nbytes, rewinds, results
 
 
-def k5_step_us(torch, lcb_kernels):
-    """One dependent step of K5's chain, in microseconds, by each chain
-    probe: {"warp": one load from L2 and a __syncwarp of warp 0 (the
-    walk's step), "block": four dependent loads and a barrier of 256
-    threads (the step of the kernel's first design, thread 0 alone)}."""
+def chain_step_us(torch, lcb_kernels):
+    """One dependent step of a chain, in microseconds, by each chain probe:
+    {"warp": one load from L2 and a __syncwarp of warp 0 (K5's occurrence
+    step), "block": four dependent loads and a barrier of 256 threads (the
+    step of K5's first design, thread 0 alone), "vote": one K6 vote whose
+    windows end in their first round (K6's chain floor a call, and K7's a
+    step)}."""
     n = 1 << 20
     perm = torch.randperm(n, generator=torch.Generator().manual_seed(16))
     table = torch.empty(n, dtype=torch.int64)
@@ -2120,7 +2173,7 @@ def k5_step_us(torch, lcb_kernels):
     table = table.cuda()
     iters = 20000
     return {step: cuda_ms(torch, lambda: lcb_kernels.chain_probe(table, iters, step), 3) * 1e3
-            / iters for step in ("warp", "block")}
+            / iters for step in ("warp", "block", "vote")}
 
 
 def k5_vs_plain(torch, lcb_kernels, label, args, peak_ops, step_us):
@@ -2226,9 +2279,10 @@ def walk_stress(torch, pipeline, Config, cases):
 
 
 def recorded_walk_calls(torch, mods, lcb_kernels):
-    """examples/' first phase (256 bundles, k=15) through the fused and the
-    resident engine on the card, each equal to eng.process, with K5's calls
-    recorded: the WalkRecorder."""
+    """examples/' first phase (256 bundles, k=15) through the fused engine
+    (by the host loop: HostLoopRoute) and the resident engine on the card,
+    each equal to eng.process, with K5's calls recorded: the
+    WalkRecorder."""
     (_cases, _cli, pipeline, _device_poa, _msa, _poa_ref, _kernels, _align_kernels, Config,
      _alphabet, fasta, metrics) = mods
     from sibeliaz_tpu_torch.lcb import fused, resident
@@ -2250,7 +2304,8 @@ def recorded_walk_calls(torch, mods, lcb_kernels):
             rec.engine = engine
             metrics.counters.clear()
             t0 = time.time()
-            got = instance_keys(fn(eng, bundles, device="cuda"))
+            with HostLoopRoute(lcb_kernels) if engine == "fused" else contextlib.nullcontext():
+                got = instance_keys(fn(eng, bundles, device="cuda"))
             check(got == oracle, f"examples/ phase 1 through the {rec.engine} engine, "
                                  "recorded: instances differ from eng.process's")
             print(f"examples/ phase 1, {rec.engine} engine, recorded: {time.time() - t0:.4f} s"
@@ -2381,7 +2436,7 @@ def walk_phase(torch, mods, peak_ops, label):
     rec = recorded_walk_calls(torch, mods, lcb_kernels)
     calls = rec.calls_to_replay()
     print(f"recorded {rec.calls} walk calls; replaying {len(calls)}")
-    step_us = k5_step_us(torch, lcb_kernels)
+    step_us = chain_step_us(torch, lcb_kernels)
     print(f"chain probes: {step_us['warp']:.4f} us a step (one L2 load, a __syncwarp), "
           f"{step_us['block']:.4f} us (four L2 loads, a barrier of 256 threads) | walk blocks "
           f"an SM: {lcb_kernels.blocks_per_sm(512, 1024)} at IC 512 PC 1024, "
@@ -2511,18 +2566,14 @@ def k6_bound(torch, args, peak_ops):
     longer of the two votes'); of each row's path row the 32-byte sectors
     its searches probe (path_sectors; with the retry, both votes'); against
     the slots' and the alive entries' operations.  (ms, which, bytes, slots,
-    alive entries, path bytes)."""
-    from sibeliaz_tpu_torch.lcb.vote import vote_columns, searched_slots, window_lengths
+    alive entries, path bytes, table bytes)."""
+    from sibeliaz_tpu_torch.lcb.vote import vote_columns, searched_slots
 
     CAP, W, tb, ln, idx, valid, forward, try_used, depth, b, n_max, retry = args
-    lens = window_lengths(CAP, W, tb, ln, idx, valid, forward, try_used, depth, b, n_max)
+    lens, need = vote_lens(torch, args)
     vid, searched = searched_slots(CAP, W, tb, ln, idx, valid, forward, try_used, depth, b,
                                    n_max)
     if retry:
-        first = vote_plain_of(args[:-1] + (False,))
-        need = valid & forward & (first[0] == 0) & (first[5] == 0)
-        again = window_lengths(CAP, W, tb, ln, idx, need, forward, need, depth, b, n_max)
-        lens = torch.where(need[:, None], lens.maximum(again), lens)
         # the retry's windows meet the same vids further on: its searched
         # slots join the first vote's
         searched = searched | (need[:, None, None] & searched_slots(
@@ -2533,11 +2584,37 @@ def k6_bound(torch, args, peak_ops):
     slots = int((lens + 1).clamp(max=W)[windows].sum())
     entries = int(lens[windows].sum())
     path = 32 * int(path_sectors(torch, ln.pvid.index_select(0, idx), vid, searched).sum())
+    tables = k6_table_bytes(int((lens != -1).sum()), int(windows.sum()), slots)
     nbytes = (idx.shape[0] * K6_ROW_BYTES + int(valid.sum()) * K6_REGISTER_BYTES
-              + live * K6_COLUMN_BYTES + int((lens != -1).sum()) * K6_END_BYTES
-              + int(windows.sum()) * K6_WINDOW_BYTES + path + slots * K6_SLOT_BYTES)
-    ms, by = bound_ms(nbytes, K6_OPS_PER_SLOT * slots + K6_OPS_PER_ENTRY * entries, peak_ops)
-    return ms, by, nbytes, slots, entries, path
+              + live * K6_COLUMN_BYTES + path + tables)
+    ms, by = bound_ms(nbytes, k6_ops(slots, entries), peak_ops)
+    return ms, by, nbytes, slots, entries, path, tables
+
+
+def vote_lens(torch, args):
+    """([A, CAPx] window lengths as vote.window_lengths gives them, the
+    retried rows or None): with the used-retry, each retried row's longer
+    of its two votes' windows."""
+    from sibeliaz_tpu_torch.lcb.vote import window_lengths
+
+    CAP, W, tb, ln, idx, valid, forward, try_used, depth, b, n_max, retry = args
+    lens = window_lengths(CAP, W, tb, ln, idx, valid, forward, try_used, depth, b, n_max)
+    if not retry:
+        return lens, None
+    first = vote_plain_of(args[:-1] + (False,))
+    need = valid & forward & (first[0] == 0) & (first[5] == 0)
+    again = window_lengths(CAP, W, tb, ln, idx, need, forward, need, depth, b, n_max)
+    return torch.where(need[:, None], lens.maximum(again), lens), need
+
+
+def k6_table_bytes(voters, windows, slots):
+    """The table words a vote reads: each voting instance's end words, each
+    window's more at the lane's path end, each evaluated slot's."""
+    return voters * K6_END_BYTES + windows * K6_WINDOW_BYTES + slots * K6_SLOT_BYTES
+
+
+def k6_ops(slots, entries):
+    return K6_OPS_PER_SLOT * slots + K6_OPS_PER_ENTRY * entries
 
 
 def k6_vs_plain(torch, lcb_kernels, label, args, peak_ops):
@@ -2580,7 +2657,7 @@ def k6_vs_plain(torch, lcb_kernels, label, args, peak_ops):
         torch.cuda.synchronize()
         call_s += time.perf_counter() - t0
     call_ms = call_s * 1e3 / 10
-    bound, by, nbytes, slots, entries, path = k6_bound(torch, args, peak_ops)
+    bound, by, nbytes, slots, entries, path, _ = k6_bound(torch, args, peak_ops)
     n_spilled = int(spilled.sum())
     print(f"lcb_vote {label}: exact | rows {A} ({int(valid.sum())} valid, {int(win.sum())} "
           f"winners, {int(want[5].sum())} overflows, {n_spilled} through the workspace), CAP "
@@ -2594,10 +2671,10 @@ def k6_vs_plain(torch, lcb_kernels, label, args, peak_ops):
 
 
 def recorded_vote_calls(torch, mods, lcb_kernels):
-    """examples/' first phase (256 bundles, k=15) through the fused and the
-    resident engine on the card, each equal to eng.process, with K6's calls
-    recorded (VoteRecorder) and its launches equal to the engines' vote
-    calls."""
+    """examples/' first phase (256 bundles, k=15) through the fused engine
+    (by the host loop: HostLoopRoute) and the resident engine on the card,
+    each equal to eng.process, with K6's calls recorded (VoteRecorder) and
+    its launches equal to the engines' vote calls."""
     (_cases, _cli, pipeline, _device_poa, _msa, _poa_ref, _kernels, _align_kernels, Config,
      _alphabet, fasta, metrics) = mods
     from sibeliaz_tpu_torch.lcb import fused, resident
@@ -2621,7 +2698,8 @@ def recorded_vote_calls(torch, mods, lcb_kernels):
             metrics.counters.clear()
             lcb_kernels.reset_launches()
             t0 = time.time()
-            got = instance_keys(fn(eng, bundles, device="cuda"))
+            with HostLoopRoute(lcb_kernels) if engine == "fused" else contextlib.nullcontext():
+                got = instance_keys(fn(eng, bundles, device="cuda"))
             check(got == oracle, f"examples/ phase 1 through the {engine} engine, recorded: "
                                  "instances differ from eng.process's")
             calls = int(sum(v for k, v in metrics.counters.items() if k.startswith(counter)))
@@ -2772,10 +2850,324 @@ def vote_phase(torch, mods, peak_ops, label, older=None):
         print(f"{group}: {len(times)} calls, kernel {min(times):.4f}-{max(times):.4f} ms")
     name, args, heaviest = max(results, key=lambda x: (x[2]["bound_ms"], x[2]["ms"]))
     costs = host_costs(torch, mods, lcb_kernels, args, older)
-    print(f"heaviest recorded call: {name} | phase 17 in {time.time() - t_phase:.4f} s {label}")
+    vote_us = chain_step_us(torch, lcb_kernels)["vote"]
+    print(f"heaviest recorded call: {name} | chain floor (one vote of one window round: "
+          f"lcb_vote_probe_kernel) {vote_us:.4f} us = {100 * vote_us / 1e3 / heaviest['ms']:.2f}% "
+          f"of its kernel time | phase 17 in {time.time() - t_phase:.4f} s {label}")
     summary = {k: heaviest[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "call_ms")}
     summary["call"] = name
     summary["host_ms"] = costs
+    summary["chain_floor_ms"] = vote_us / 1e3
+    return summary, err
+
+
+class StepRecorder:
+    """While active, wraps K7's wrapper (the fused engine's one call a run)
+    and keeps each call's arguments, with a copy of the carry as it was
+    before the call (K7 steps it in place), and a copy of what it
+    returned.  The wrapper it calls still counts each launch."""
+
+    def __init__(self, lcb_kernels):
+        self.mod, self.calls = lcb_kernels, []
+
+    def __enter__(self):
+        from sibeliaz_tpu_torch.lcb import step
+
+        real = self.real = self.mod.lcb_step
+
+        def record(CAP, W, slab_max, tb, carry, *rest):
+            before = step.carry_map(lambda x: x.clone(), carry)
+            out = real(CAP, W, slab_max, tb, carry, *rest)
+            got = self.mod.LaneSteps(step.carry_map(lambda x: x.clone(), out.carry),
+                                     *(x.clone() for x in out[1:]))
+            self.calls.append(((CAP, W, slab_max, tb, before) + tuple(rest), got))
+            return out
+
+        self.mod.lcb_step = record
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.lcb_step = self.real
+
+
+class LoopTerms:
+    """While active, wraps K5's and K6's wrappers (the host loop's calls)
+    and sums, on the card, what K7's bound counts of them: K5's pushes,
+    occurrence steps and score terms (a push's live instances); K6's voting
+    instances, windows at the path end, evaluated slots and alive entries
+    (vote_lens, as k6_bound counts them)."""
+
+    def __init__(self, torch, lcb_kernels):
+        self.torch, self.mod = torch, lcb_kernels
+        self.walk = torch.zeros(3, dtype=torch.int64, device="cuda")
+        self.vote = torch.zeros(4, dtype=torch.int64, device="cuda")
+
+    def __enter__(self):
+        torch = self.torch
+        walk, vote = self.real = self.mod.lcb_walk, self.mod.lcb_vote
+
+        def walked(*args):
+            w = walk(*args)
+            self.walk = self.walk + torch.stack([w.pushes.sum(), w.occ_steps.sum(),
+                                                 (w.pushes * w.n).sum()])
+            return w
+
+        def voted(CAP, W, tb, ln, idx, valid, forward, try_used, depth, b, n_max=None,
+                  retry=False, spilled=None):
+            lens, _ = vote_lens(torch, (CAP, W, tb, ln, idx, valid, forward, try_used, depth, b,
+                                        n_max, retry))
+            windows = lens >= 0
+            self.vote = self.vote + torch.stack([
+                (lens != -1).sum(), windows.sum(),
+                torch.where(windows, (lens + 1).clamp(max=W), 0).sum(),
+                torch.where(windows, lens, 0).sum()])
+            return vote(CAP, W, tb, ln, idx, valid, forward, try_used, depth, b, n_max,
+                        retry=retry, spilled=spilled)
+
+        self.mod.lcb_walk, self.mod.lcb_vote = walked, voted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.lcb_walk, self.mod.lcb_vote = self.real
+
+    def totals(self):
+        """((pushes, occurrence steps, score terms), (voting instances,
+        windows, slots, alive entries)) as ints."""
+        return tuple(self.walk.tolist()), tuple(self.vote.tolist())
+
+
+def lane_steps_err(a, b):
+    """The largest difference between two LaneSteps: every tensor of the
+    carry and the lanes' steps, pushes and occurrence steps."""
+    from sibeliaz_tpu_torch.lcb import step
+
+    pairs = list(zip(step.leaves(a.carry), step.leaves(b.carry))) + list(zip(a[1:4], b[1:4]))
+    return max(int((x.long().cpu() - y.long().cpu()).abs().max()) if x.numel() else 0
+               for x, y in pairs)
+
+
+def k7_bound(args, got, walk, vote, peak_ops):
+    """K7's roofline bound on one run, as the function must move it: each
+    lane that steps has its live slab, best score and snapshot flag and its
+    13 registers read once and written once; every lane its four results
+    written; one rewind slab written for each lane whose best score rose
+    and one result slab for each whose best score rose above 0; and every
+    step's table words, the walks' (K5's a push, an occurrence step and a
+    score term) and the votes' (k6_table_bytes), as the host loop's calls
+    count them (LoopTerms), none of the slab's re-reads; against those
+    steps' operations.  (ms, which, bytes)."""
+    before = args[4]
+    st0, st1 = before["st"], got.carry["st"]
+    L, IC = st0.ln.chr.shape
+    PC = st0.ln.pvid.shape[1]
+    stepped = got.steps > 0
+    raised = stepped & (st1.best_score > st0.best_score)
+    rewinds, results = int(raised.sum()), int((raised & (st1.best_score > 0)).sum())
+    slab = IC * K5_INSTANCE_BYTES + PC * K5_PATH_BYTES + K5_REGISTER_BYTES
+    pushes, occ, terms = walk
+    voters, windows, slots, entries = vote
+    nbytes = (2 * (slab + K5_BEST_BYTES + K7_REGISTER_BYTES) * int(stepped.sum())
+              + K7_RESULT_BYTES * L + slab * (rewinds + results)
+              + K5_PUSH_BYTES * pushes + K5_STEP_BYTES * occ + K5_SCORE_BYTES * terms
+              + k6_table_bytes(voters, windows, slots))
+    ops = K5_OPS_PER_STEP * occ + K5_OPS_PER_SCORE_TERM * terms + k6_ops(slots, entries)
+    ms, by = bound_ms(nbytes, ops, peak_ops)
+    return ms, by, nbytes
+
+
+def k7_chain_floor(got, step_us):
+    """The chain floor of a run: over its lanes, the largest of a lane's
+    occurrence steps x K5's step (the "warp" probe) plus its outer steps x
+    one vote of one window round (the "vote" probe), in ms; and that lane."""
+    us = got.occ_steps.double() * step_us["warp"] + got.steps.double() * step_us["vote"]
+    lane = int(us.argmax())
+    return float(us[lane]) / 1e3, lane
+
+
+def restorer(work, before):
+    """A function that copies the carry `before` over `work` (the timed
+    runs' restore, 81 copies)."""
+    from sibeliaz_tpu_torch.lcb import step
+
+    pairs = list(zip(step.leaves(work), step.leaves(before)))
+
+    def restore():
+        for x, y in pairs:
+            x.copy_(y)
+
+    return restore
+
+
+def k7_time(torch, lcb_kernels, args, reps=5):
+    """K7 on one run's arguments from its carry as it was, restored before
+    each launch (untimed): the kernel's card time and the whole call
+    (wrapper and launch, synchronised), ms."""
+    from sibeliaz_tpu_torch.lcb import step
+
+    CAP, W, slab_max, tb, before, *rest = args
+    work = step.carry_map(lambda x: x.clone(), before)
+    restore = restorer(work, before)
+    out = torch.empty((4, before["active"].shape[0]), dtype=torch.int64, device="cuda")
+    ms = cuda_ms(torch, lambda: lcb_kernels.step_launch_into(tb, work, CAP, W, slab_max,
+                                                             *rest[:-1], out),
+                 reps, ahead=8, quiet=True, setup=restore)
+    call_s = 0.0
+    for _ in range(reps):
+        restore()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lcb_kernels.lcb_step(CAP, W, slab_max, tb, work, *rest)
+        torch.cuda.synchronize()
+        call_s += time.perf_counter() - t0
+    return ms, call_s * 1e3 / reps
+
+
+def k7_vs_loop(torch, lcb_kernels, label, args, got, peak_ops, step_us):
+    """K7's recorded run against the host-loop route on the card from the
+    same carry (lcb_step_plain on the card's tensors: K6 and K5 a step),
+    every tensor of the carry and the lanes' counts exact; the kernel and
+    whole-call times (k7_time), the host loop's (synchronised, alone), the
+    bound (its terms counted from a second run of the host loop's calls)
+    and the chain floor.  Returns a dict."""
+    from sibeliaz_tpu_torch.lcb import step
+
+    CAP, W, slab_max, tb, before, *rest = args
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop = step.lcb_step_plain(CAP, W, slab_max, tb, step.carry_map(lambda x: x.clone(), before),
+                               *rest)
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    with LoopTerms(torch, lcb_kernels) as terms:
+        step.lcb_step_plain(CAP, W, slab_max, tb, step.carry_map(lambda x: x.clone(), before),
+                            *rest)
+    walk, vote = terms.totals()
+    err = lane_steps_err(got, loop)
+    check(err == 0, f"lcb_step differs from the host loop ({label}): max abs err {err}")
+    ms, call_ms = k7_time(torch, lcb_kernels, args)
+    bound, by, nbytes = k7_bound(args, got, walk, vote, peak_ops)
+    floor, lane = k7_chain_floor(got, step_us)
+    L = before["active"].shape[0]
+    print(f"lcb_step {label}: equal to the host loop | lanes {L} (stepping "
+          f"{int((got.steps > 0).sum())}), CAP {CAP} W {W} IC {before['st'].ln.chr.shape[1]} | "
+          f"steps {int(got.steps.sum())} (longest lane {int(got.steps.max())}), pushes "
+          f"{walk[0]}, occurrence steps {walk[1]}, spilled lanes {int(got.spilled.sum())} | "
+          f"kernel {ms:.4f} ms, whole call {call_ms:.4f} ms (host included) | host loop (K6 + K5 "
+          f"a step) {loop_ms:.4f} ms | bound {bound:.6f} ms by {by} ({nbytes} bytes; {vote[2]} "
+          f"vote slots) = {100 * bound / ms:.4f}% | chain floor {floor:.4f} ms (lane {lane}: "
+          f"{int(got.occ_steps[lane])} occurrence steps x {step_us['warp']:.4f} us + "
+          f"{int(got.steps[lane])} steps x {step_us['vote']:.4f} us) = {100 * floor / ms:.2f}%")
+    return {"err": err, "ms": ms, "call_ms": call_ms, "loop_ms": loop_ms, "bound_ms": bound,
+            "bound_by": by, "chain_floor_ms": floor}
+
+
+def to_cpu(tb, carry):
+    """A run's tables and carry, copied to the host."""
+    from sibeliaz_tpu_torch.lcb import step
+
+    fields = {f: getattr(tb, f) for f in type(tb).__dataclass_fields__}
+    tables = type(tb)(**{f: v.cpu() if hasattr(v, "cpu") else v for f, v in fields.items()})
+    return tables, step.carry_map(lambda x: x.cpu(), carry)
+
+
+def step_hand_laid(torch, lcb_kernels, cases):
+    """K7 on tests/torch_cases.py's STEP_CASES against the plain version
+    on the CPU from the same carry, exact, and what each case is laid for;
+    the largest error."""
+    err = 0
+    for name in cases.STEP_CASES:
+        tb, carry, a = cases.step_case(name, "cuda")
+        tb_cpu, carry_cpu, _ = cases.step_case(name, "cpu")
+        args = (a["CAP"], a["W"], a["slab_max"])
+        rest = (a["depth"], a["m"], a["b"], a["flank"], a["min_run"], a["steps_limit"],
+                a["walk_chunk"], a["compact_min"])
+        before = lcb_kernels.LAUNCHES["lcb_step"]
+        got = lcb_kernels.lcb_step(*args, tb, carry, *rest)
+        check(lcb_kernels.LAUNCHES["lcb_step"] == before + 1, f"K7 {name}: not one launch")
+        want = lcb_kernels.lcb_step(*args, tb_cpu, carry_cpu, *rest)
+        e = lane_steps_err(got, want)
+        check(e == 0, f"lcb_step differs from the plain version (hand-laid {name}): {e}")
+        c = got.carry
+        laid = {"spill": lambda: int(got.spilled[0]) == 1,
+                "cap_overflow": lambda: bool(c["retier"].any()),
+                "slab_overflow": lambda: bool(c["hostfb"].any()),
+                "long_walks": lambda: int(got.pushes.max()) > 2 * a["walk_chunk"],
+                "step_limit": lambda: int(got.steps.max()) == 3 and bool(c["active"].any())}
+        check(laid[name](), f"K7 hand-laid {name}: not what it is laid for")
+        print(f"lcb_step hand-laid {name}: equal to the plain version | steps "
+              f"{int(got.steps.sum())} (longest {int(got.steps.max())}), pushes "
+              f"{int(got.pushes.sum())} (most {int(got.pushes.max())}), spilled "
+              f"{int(got.spilled.sum())}, retier {int(c['retier'].sum())}, hostfb "
+              f"{int(c['hostfb'].sum())}, still active {int(c['active'].sum())}")
+        err = max(err, e)
+    return err
+
+
+def step_phase(torch, mods, peak_ops, label):
+    """Phase 18: K7 lcb_step on the card.  examples/' first phase (256
+    bundles, k=15) through the fused engine with K7's calls recorded
+    (StepRecorder), equal to eng.process; each recorded run (every tier)
+    held to the host-loop route from the same carry (K6 and K5 a step,
+    k7_vs_loop) with its times, bound and chain floor; the heaviest run
+    held to the plain version on the CPU, timed; the hand-laid set; the
+    step blocks an SM in both shared-memory layouts.  Returns the summary
+    of the heaviest run and the largest error."""
+    (cases, _cli, pipeline, _device_poa, _msa, _poa_ref, _kernels, _align_kernels, Config,
+     _alphabet, fasta, metrics) = mods
+    from sibeliaz_tpu_torch.lcb import fused
+    from sibeliaz_tpu_torch.lcb import kernels as lcb_kernels
+    from sibeliaz_tpu_torch.lcb.device_bundles import make_bundles_device
+    from sibeliaz_tpu_torch.lcb.oracle import LcbEngine
+
+    phase(f"18 K7 lcb_step against the host loop and its plain version {label}")
+    t_phase = time.time()
+    for IC, PC, CAP, W in ((64, 128, 64, 32), (512, 1024, 512, 32), (512, 1024, 512, 256)):
+        print(f"step blocks an SM at IC {IC} PC {PC} CAP {CAP} W {W}: " + ", ".join(
+            "{} ({} shared bytes) {}".format(*lcb_kernels.step_blocks_per_sm(IC, PC, CAP, W, lay),
+                                            what)
+            for lay, what in ((0, "the vote's region and the slab in turn, the kernel's"),
+                              (1, "the slab resident beside the vote's region"))))
+    recs = fasta.read_many([os.path.join(EXAMPLES, "genome1.fa"),
+                            os.path.join(EXAMPLES, "genome2.fa")])
+    cfg = Config(k=15)
+    table = pipeline.build_table([r.seq for r in recs], [r.name for r in recs], cfg,
+                                 device="cuda")
+    eng = LcbEngine(table, cfg.min_block_size, cfg.max_branch_size, cfg.flanking,
+                    cfg.looking_depth)
+    bundles = make_bundles_device(table, "cuda")[:256]
+    oracle = instance_keys(eng.process(b) for b in bundles)
+    metrics.counters.clear()
+    lcb_kernels.reset_launches()
+    with StepRecorder(lcb_kernels) as rec:
+        got = instance_keys(fused.process_phase_fused(eng, bundles, device="cuda"))
+    check(got == oracle, "examples/ phase 1, recorded: instances differ from eng.process's")
+    check(lcb_kernels.LAUNCHES["lcb_step"] == len(rec.calls) == metrics.counters["fused_runs"],
+          f"examples/ phase 1: launches {lcb_kernels.LAUNCHES} for {len(rec.calls)} runs")
+    print(f"examples/ phase 1, recorded: {len(rec.calls)} K7 runs, equal to eng.process | "
+          f"{fused_counters(metrics)}")
+    step_us = chain_step_us(torch, lcb_kernels)
+    print(f"chain probes: {step_us['warp']:.4f} us a walk's occurrence step, "
+          f"{step_us['vote']:.4f} us a vote of one window round")
+    results = []
+    for q, (args, run) in enumerate(rec.calls):
+        name = (f"run {q + 1} (CAP {args[0]} W {args[1]}, {int(run.carry['active'].numel())} "
+                "lanes)")
+        results.append((name, args, run, k7_vs_loop(torch, lcb_kernels, name, args, run,
+                                                    peak_ops, step_us)))
+    name, args, run, heaviest = max(results, key=lambda x: x[3]["ms"])
+    tb_cpu, carry_cpu = to_cpu(args[3], args[4])
+    t0 = time.perf_counter()
+    plain = lcb_kernels.lcb_step(*args[:3], tb_cpu, carry_cpu, *args[5:])
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = lane_steps_err(run, plain)
+    check(err == 0, f"lcb_step differs from its plain version on the CPU ({name}): {err}")
+    print(f"lcb_step {name}: equal to the plain version on the CPU ({plain_ms:.4f} ms)")
+    err = max([err, step_hand_laid(torch, lcb_kernels, cases)]
+              + [r["err"] for _, _, _, r in results])
+    print(f"heaviest run: {name} | phase 18 in {time.time() - t_phase:.4f} s {label}")
+    summary = {k: heaviest[k] for k in ("ms", "bound_ms", "bound_by", "call_ms", "loop_ms",
+                                        "chain_floor_ms")}
+    summary.update(plain_ms=plain_ms, call=name)
     return summary, err
 
 
@@ -2828,10 +3220,9 @@ def devices_phase(torch, mods, label):
         t0 = time.time()
         runs[how] = instance_keys(fused.process_phase_fused(eng, bundles, **where))
         print(f"examples/ phase 1, {how} {where}: {time.time() - t0:.4f} s | "
-              f"{fused_counters(metrics)} | lcb_walk launches {lcb_kernels.LAUNCHES['lcb_walk']}"
-              f", lcb_vote {lcb_kernels.LAUNCHES['lcb_vote']} {label}")
+              f"{fused_counters(metrics)} | launches {lcb_kernels.LAUNCHES} {label}")
     slices_launches = dict(lcb_kernels.LAUNCHES)
-    check(slices_launches["lcb_walk"] > 0 and slices_launches["lcb_vote"] > 0,
+    check(slices_launches["lcb_step"] == metrics.counters["fused_runs"] > 0,
           f"examples/ phase 1 over two slices: launches {slices_launches}")
     check(runs["two slices"] == runs["one device"], "examples/ phase 1: the two slices' "
           "instances differ from the one-device run's")
@@ -2849,8 +3240,7 @@ def devices_phase(torch, mods, label):
     launches = {"examples/ phase 1 over [cuda:0, cuda:0]": slices_launches,
                 "dry run on cuda:0,cuda:0": {**kernels.LAUNCHES, **align_kernels.LAUNCHES,
                                              **lcb_kernels.LAUNCHES}}
-    check(launches["dry run on cuda:0,cuda:0"]["lcb_walk"] > 0
-          and launches["dry run on cuda:0,cuda:0"]["lcb_vote"] > 0,
+    check(launches["dry run on cuda:0,cuda:0"]["lcb_step"] > 0,
           f"the dry run: launches {launches['dry run on cuda:0,cuda:0']}")
     print(f"the dry run on cuda:0,cuda:0: every stage passes in {time.time() - t0:.4f} s | "
           f"launches {launches['dry run on cuda:0,cuda:0']} {label}")
@@ -2972,17 +3362,18 @@ def main(argv):
     resident_only = argv == ["--resident"]
     walk_only = argv == ["--walk"]
     vote_args = argv[1:] if argv[:1] == ["--vote"] and len(argv) <= 2 else None
+    step_only = argv == ["--step"]
     if argv[:1] == ["--k3-replay"] and len(argv) == 2:
         replay_dir = argv[1]
     elif argv[:1] == ["--k3-time"] and len(argv) == 2:
         time_kinds = argv[1].split(",")
     elif argv and not (k2_time or k1_time or sharded_only or fused_only or dryrun_only
-                       or resident_only or walk_only or k4_time_args is not None
+                       or resident_only or walk_only or step_only or k4_time_args is not None
                        or k5_time_args is not None or vote_args is not None):
         print("usage: python3 chip_smoke.py [--k3-replay DIR | --k3-time KIND[,KIND...] | "
               "--k2-time | --k1-time | --k4-time [OLDER_ROUND_APPEND.cu] | --sharded | "
               "--fused | --dryrun | --resident | --walk | --k5-time [OLDER_LCB_WALK.cu] | "
-              "--vote [OLDER_LCB_KERNELS.py]]", file=sys.stderr)
+              "--vote [OLDER_LCB_KERNELS.py] | --step]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is visible", file=sys.stderr)
@@ -3094,6 +3485,11 @@ def main(argv):
         return 0
     if vote_args is not None:
         vote_phase(torch, mods, peak_ops, label, vote_args[0] if vote_args else None)
+        tmp.cleanup()
+        print(smi)
+        return 0
+    if step_only:
+        step_phase(torch, mods, peak_ops, label)
         tmp.cleanup()
         print(smi)
         return 0
@@ -3226,6 +3622,7 @@ def main(argv):
     resident_launches = resident_phase(torch, mods, tmp.name, large_fa, fused13, False, label)
     k5, k5_err = walk_phase(torch, mods, peak_ops, label)
     k6, k6_err = vote_phase(torch, mods, peak_ops, label)
+    k7, k7_err = step_phase(torch, mods, peak_ops, label)
     tmp.cleanup()
 
     src = "sibeliaz_tpu_torch/csrc/"
@@ -3306,18 +3703,25 @@ def main(argv):
          "shape": k4_shape, "by_shape": k4, "library_ms": None},
         {"name": "lcb_walk", "route": "cuda", "source": src + "lcb_walk.cu",
          "replaces": "sibeliaz_tpu/lcb/resident.py:138 and sibeliaz_tpu/lcb/fused.py:128",
-         "launches": paths["examples/ --lcb-engine tpu-fused -n"]["lcb_walk"],
+         "launches": paths["examples/ --lcb-engine tpu -n"]["lcb_walk"],
          "launches_by_path": by_path("lcb_walk"), "max_abs_err": k5_err,
          **{key: k5[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "call": k5["call"], "call_ms": k5["call_ms"], "chain_floor_ms": k5["chain_floor_ms"],
          "chain_floor_block_ms": k5["chain_floor_block_ms"], "library_ms": None},
         {"name": "lcb_vote", "route": "cuda", "source": src + "lcb_vote.cu",
          "replaces": "sibeliaz_tpu/lcb/resident.py:214 and sibeliaz_tpu/lcb/fused.py:241",
-         "launches": paths["examples/ --lcb-engine tpu-fused -n"]["lcb_vote"],
+         "launches": paths["examples/ --lcb-engine tpu -n"]["lcb_vote"],
          "launches_by_path": by_path("lcb_vote"), "max_abs_err": k6_err,
          **{key: k6[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "call": k6["call"], "call_ms": k6["call_ms"], "host_ms": k6["host_ms"],
-         "library_ms": None},
+         "chain_floor_ms": k6["chain_floor_ms"], "library_ms": None},
+        {"name": "lcb_step", "route": "cuda", "source": src + "lcb_step.cu",
+         "replaces": "sibeliaz_tpu/lcb/fused.py:326",
+         "launches": paths["examples/ --lcb-engine tpu-fused -n"]["lcb_step"],
+         "launches_by_path": by_path("lcb_step"), "max_abs_err": k7_err,
+         **{key: k7[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "call": k7["call"], "call_ms": k7["call_ms"], "loop_ms": k7["loop_ms"],
+         "chain_floor_ms": k7["chain_floor_ms"], "library_ms": None},
     ]}
     print()
     print(smi)

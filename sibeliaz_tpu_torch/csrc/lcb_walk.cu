@@ -1,5 +1,7 @@
 // K5 lcb_walk: the LCB walk's device loop for both device LCB engines, for
-// Hopper (sm_90a).
+// Hopper (sm_90a).  A row's walk is lcb_walk.cuh's walk_row, which K7
+// lcb_step's blocks run too; this file holds the kernel a row a block,
+// its probes and its C interface.
 //
 // Replaces the jax.lax.while_loop of pushes of
 // sibeliaz_tpu/lcb/resident.py::_walk_device (:138) and
@@ -79,70 +81,16 @@
 //     only for a longer shift, a score over more than 64 instances, and a
 //     store by the vectorised loop.
 
-#include <cuda_runtime.h>
+#include "lcb_walk.cuh"
 
-#include <cstdint>
+using namespace walk;
 
 namespace {
 
-typedef long long i64;
-typedef unsigned long long u64;
-typedef unsigned int u32;
-
-constexpr int kThreads = 64;
-constexpr int kWarps = kThreads / 32;
 constexpr int kBlocksPerSm = 4;
-constexpr int kInst = 11;        // instance fields of a lane (LANE_FIELDS[:11])
-constexpr int kWide = 9;         // of them int64 (all but ffin and bfin)
-constexpr int kLaneRows = kInst + 2;  // and pvid, pdist
-constexpr int kLaneFields = 22;  // LANE_FIELDS
-constexpr int kLeaves = 3 * kLaneFields + 2;  // ln, rw, sn, best_score, has_snap
-constexpr int kRegs = 9;
-constexpr int kWarpCols = 64;  // a shift or score of at most this many columns stays in warp 0
-constexpr i64 kBig = 1LL << 60;
-constexpr i64 kNegInf = -2147483647LL;  // oracle.NEG_INF_SCORE
-constexpr int kMaxSmem = 232448;        // the most a block may opt in to
 
-// LANE_FIELDS, in order
-enum Field {
-  F_CHR, F_S, F_FI, F_BI, F_FDIST, F_BDIST, F_CMP, F_FFIN, F_BFIN, F_GOOD, F_INS,
-  F_N, F_NEXT_GOOD, F_NEXT_INS, F_RF, F_LF, F_OVF, F_PVID, F_PDIST, F_PN, F_RV, F_LV
-};
-// the lane's scalar registers, in the order warp 0 keeps them
-__constant__ int kRegField[kRegs] = {F_N, F_NEXT_GOOD, F_NEXT_INS, F_RF, F_LF,
-                                     F_OVF, F_PN, F_RV, F_LV};
 // per-row results, in order
 enum Result { O_I, O_LAST, O_AT, O_SCORE, O_N, O_RF, O_LF, O_OVF, O_PUSHES, O_OCC };
-// what warp 0 asks of the whole block
-enum Job { J_SHIFT_INST, J_SHIFT_PATH, J_SCORE, J_STORE, J_DONE };
-
-__host__ __device__ constexpr bool is_bool(int f) {
-  return f == F_FFIN || f == F_BFIN || f == F_OVF;
-}
-
-__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-struct Leaves {
-  void* p[kLeaves];  // _state_leaves order
-};
-
-struct Tables {
-  const i64* chr_off;
-  const i64* chr_len;
-  const i64* jpos;
-  const i64* jid;
-  const i64* used_pfx;
-  const uint8_t* used;
-  const i64* seq_off;
-  const uint8_t* seq;
-  const i64* occ_off;
-  const i64* occ_chr;
-  const i64* occ_idx;
-  // lengths: chr_off, chr_len, jpos (= jid), used_pfx, used, seq_off, seq,
-  // occ_off, occ_chr (= occ_idx)
-  i64 n_chr_off, n_chr_len, n_j, n_pfx, n_used, n_seq_off, n_seq, n_occ_off, n_occ;
-  i64 k;
-};
 
 struct Args {
   const i64* rows;  // null: row r is lane r
@@ -155,969 +103,34 @@ struct Args {
   const uint8_t* last;
 };
 
-struct Params {
-  i64 L, A, m, b, flank;
-  int IC, PC, limit;
-  u64 bulk;  // bit q * kLaneRows + k: row k of slab q goes by bulk copies
-};
-
-// The lane's slab in dynamic shared memory: nine int64 instance rows of ICw
-// words, ffin and bfin of ICb bytes, pvid and pdist of PCw words; every row
-// starts on 16 bytes.
-struct Slab {
-  i64* wide;
-  uint8_t* fin;
-  i64* pvid;
-  i64* pdist;
-  int IC, ICw, ICb, PC, PCw;
-
-  __device__ i64* w(int f) const { return wide + (f < F_FFIN ? f : f - 2) * ICw; }
-  __device__ uint8_t* b(int f) const { return fin + (f - F_FFIN) * ICb; }
-};
-
-__host__ __device__ inline long long slab_bytes(int IC, int PC) {
-  return 8LL * kWide * round_up(IC, 2) + 2LL * round_up(IC, 16) + 16LL * round_up(PC, 2);
-}
-
-// The six instance rows a score reads: the slab's in shared memory, or a
-// lane's in device memory (a row that does not walk scores from there).
-struct Cols {
-  const i64 *chr, *fi, *bi, *fdist, *bdist, *good;
-};
-
-// What warp 0 hands the block, and what it keeps beside the slab.
-struct Shared {
-  int job, p, top, mask;  // a job, a shift's column and highest column, a store's slabs
-  int t_inst, t_path;     // the uniform tails' first columns, after the load
-  i64 vals[kInst];        // the values a shift inserts at column p
-  i64 n, rf, lf;          // a score's registers
-  Cols cols;              // and its rows
-  i64 red[2 * kWarps];
-  // the occurrence-only words of 32 occurrence steps, one a lane of warp 0
-  i64 pf_cj[32], pf_ij[32], pf_base[32], pf_jp[32], pf_pfx[32];
-  int pf_flags[32];       // 1: strand +, 2: used, 4: the backward escape's start side holds
-  u64 bar;
-};
-
-// ---- arithmetic as torch's ----
-
-__device__ __forceinline__ i64 clip(i64 x, i64 hi) {
-  hi = hi > 0 ? hi : 0;
-  return x < 0 ? 0 : (x > hi ? hi : x);
-}
-__device__ __forceinline__ int clipi(i64 x, int hi) { return static_cast<int>(clip(x, hi)); }
-
-__device__ __forceinline__ i64 wadd(i64 a, i64 b) {
-  return static_cast<i64>(static_cast<u64>(a) + static_cast<u64>(b));
-}
-__device__ __forceinline__ i64 wsub(i64 a, i64 b) {
-  return static_cast<i64>(static_cast<u64>(a) - static_cast<u64>(b));
-}
-__device__ __forceinline__ i64 wmul(i64 a, i64 b) {
-  return static_cast<i64>(static_cast<u64>(a) * static_cast<u64>(b));
-}
-__device__ __forceinline__ i64 iabs(i64 a) { return a < 0 ? wsub(0, a) : a; }
-
-// batched_push_device._COMP_TBL: the complement of an upper-case base, 0
-// for any other byte
-__device__ __forceinline__ i64 comp(i64 ch) {
-  return ch == 'A' ? 'T' : ch == 'C' ? 'G' : ch == 'G' ? 'C' : ch == 'T' ? 'A' : 0;
-}
-
-// ---- Hopper's bulk copies, mbarrier and barriers ----
-
-__device__ __forceinline__ u32 smem_addr(const void* p) {
-  return static_cast<u32>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(u64* bar, u32 count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(u64* bar, u32 bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(u64* bar, u32 parity) {
-  u32 done = 0;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void bulk_load(void* sm, const void* g, u32 bytes, u64* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(smem_addr(sm)), "l"(g), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_store(void* g, const void* sm, u32 bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(g),
-               "r"(smem_addr(sm)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-
-// the bulk stores in flight have read shared memory
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-}
-
-// the bulk stores in flight are done (two in flight to one row would land in
-// no set order: a slab stored again waits for the last store to it)
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-
-// this thread's writes to shared memory, made visible to the bulk copies
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-// the whole block (barrier 1; warp 0 reaches it from its own code path)
-__device__ __forceinline__ void block_sync() {
-  asm volatile("bar.sync 1, %0;" ::"n"(kThreads) : "memory");
-}
-
-// the helper warps hand warp 0 a result: they arrive at barrier `id`, warp
-// 0 waits there for them
-constexpr int kPathTail = 2, kInstTail = 3;
-__device__ __forceinline__ void helpers_arrive(int id) {
-  asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(kThreads) : "memory");
-}
-__device__ __forceinline__ void warp0_wait(int id) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(kThreads) : "memory");
-}
-
-__device__ __forceinline__ bool bulk_row(const Params& pr, int q, int k) {
-  return (pr.bulk >> (q * kLaneRows + k)) & 1;
-}
-
-// dst[0, n) = src[0, n) by `size` threads (rank of them), in the widest
-// word both addresses allow
-template <typename W>
-__device__ void copy_words(uint8_t* dst, const uint8_t* src, i64 n, int rank, int size) {
-  constexpr i64 kw = sizeof(W);
-  i64 head = (kw - static_cast<i64>(reinterpret_cast<uintptr_t>(dst) & (kw - 1))) & (kw - 1);
-  head = head < n ? head : n;
-  for (i64 q = rank; q < head; q += size) dst[q] = src[q];
-  const i64 words = (n - head) / kw;
-  W* dw = reinterpret_cast<W*>(dst + head);
-  const W* sw = reinterpret_cast<const W*>(src + head);
-  for (i64 q = rank; q < words; q += size) dw[q] = sw[q];
-  for (i64 q = head + words * kw + rank; q < n; q += size) dst[q] = src[q];
-}
-
-__device__ void copy_bytes(void* dst, const void* src, i64 n, int rank, int size) {
-  uint8_t* d = static_cast<uint8_t*>(dst);
-  const uint8_t* s = static_cast<const uint8_t*>(src);
-  const uintptr_t x = reinterpret_cast<uintptr_t>(d) ^ reinterpret_cast<uintptr_t>(s);
-  if ((x & 15) == 0) {
-    copy_words<int4>(d, s, n, rank, size);
-  } else if ((x & 7) == 0) {
-    copy_words<u64>(d, s, n, rank, size);
-  } else if ((x & 3) == 0) {
-    copy_words<u32>(d, s, n, rank, size);
-  } else {
-    copy_words<uint8_t>(d, s, n, rank, size);
-  }
-}
-
-// Row k of a lane (the eleven instance fields, pvid, pdist): its place in
-// shared memory, its bytes and its field.
-__device__ __forceinline__ uint8_t* lane_row(const Slab& S, int k, int& bytes, int& field) {
-  if (k < kInst) {
-    field = k;
-    if (is_bool(k)) {
-      bytes = S.IC;
-      return S.b(k);
-    }
-    bytes = 8 * S.IC;
-    return reinterpret_cast<uint8_t*>(S.w(k));
-  }
-  field = k == kInst ? F_PVID : F_PDIST;
-  bytes = 8 * S.PC;
-  return reinterpret_cast<uint8_t*>(k == kInst ? S.pvid : S.pdist);
-}
-
-__device__ __forceinline__ uint8_t* global_row(const Leaves& st, int q, int field, i64 lane,
-                                               int bytes) {
-  return static_cast<uint8_t*>(st.p[q * kLaneFields + field]) + lane * bytes;
-}
-
-// ---- the searches ----
-
-// torch.searchsorted over [0, W): the first index whose probe goes left
-// (row[mid] >= val for the lower bound, row[mid] > val for the upper), W
-// where none does. The rows searched are sorted (the live instance keys,
-// then kBig past n; the path's vids, then kBig: every insertion lands at
-// its own search's answer), as torch.searchsorted requires, so the
-// predicate is monotone and any search that finds its first true index
-// gives torch's answer. A round probes 32 pivots, one a lane, and keeps
-// the span between the last false and the first true pivot: two rounds up
-// to W = 1024. Warp 0, all lanes, W the same in each.
-template <class Left>
-__device__ int warp_search(int W, int lane, Left left) {
-  int lo = 0, hi = W;  // the answer lies in [lo, hi]; hi's probe, where hi < W, goes left
-  while (lo < hi) {
-    const int len = hi - lo;
-    const int chunk = (len + 31) >> 5;
-    const int q = lo + (lane + 1) * chunk - 1;  // the pivots below hi
-    const unsigned m = __ballot_sync(0xffffffffu, q < hi && left(q));
-    if (chunk == 1) return m ? lo + __ffs(m) - 1 : hi;
-    if (m == 0) {
-      lo += len / chunk * chunk;  // past the last pivot
-    } else {
-      lo += (__ffs(m) - 1) * chunk;  // past the last pivot that does not go left
-      hi = lo + chunk - 1;           // the first that does
-    }
-  }
-  return lo;
-}
-
-// ---- shifts, score ----
-
-__device__ __forceinline__ void group_sync(bool block) {
-  if (block) {
-    block_sync();
-  } else {
-    __syncwarp();
-  }
-}
-
-// new[col] = old[col - 1] for p < col <= top, then column p = vals (if p <
-// IC), in the eleven instance rows (batched_push_device._row_insert, the
-// columns past `top` being uniform); `size` threads, rank of them, each
-// round's reads before a sync and its writes after it (a round writes only
-// columns above those the next one reads).
-__device__ void shift_inst(const Slab& S, int top, int p, const i64* vals, int rank, int size,
-                           bool block) {
-  for (int hi = top; hi > p; hi -= size) {
-    const int col = hi - rank;
-    const bool mine = col > p;
-    i64 v[kWide];
-    uint8_t f0 = 0, f1 = 0;
-    if (mine) {
-#pragma unroll
-      for (int w = 0; w < kWide; ++w) v[w] = S.wide[w * S.ICw + col - 1];
-      f0 = S.fin[col - 1];
-      f1 = S.fin[S.ICb + col - 1];
-    }
-    group_sync(block);
-    if (mine) {
-#pragma unroll
-      for (int w = 0; w < kWide; ++w) S.wide[w * S.ICw + col] = v[w];
-      S.fin[col] = f0;
-      S.fin[S.ICb + col] = f1;
-    }
-  }
-  if (rank == 0 && p < S.IC) {
-    for (int f = 0; f < kInst; ++f) {
-      if (is_bool(f)) {
-        S.b(f)[p] = vals[f] != 0;
-      } else {
-        S.w(f)[p] = vals[f];
-      }
-    }
-  }
-}
-
-// the same in the path table (pvid, pdist)
-__device__ void shift_path(const Slab& S, int top, int p, const i64* vals, int rank, int size,
-                           bool block) {
-  for (int hi = top; hi > p; hi -= size) {
-    const int col = hi - rank;
-    const bool mine = col > p;
-    i64 v0 = 0, v1 = 0;
-    if (mine) {
-      v0 = S.pvid[col - 1];
-      v1 = S.pdist[col - 1];
-    }
-    group_sync(block);
-    if (mine) {
-      S.pvid[col] = v0;
-      S.pdist[col] = v1;
-    }
-  }
-  if (rank == 0 && p < S.PC) {
-    S.pvid[p] = vals[0];
-    S.pdist[p] = vals[1];
-  }
-}
-
-__device__ Cols slab_cols(const Slab& S) {
-  return Cols{S.w(F_CHR), S.w(F_FI), S.w(F_BI), S.w(F_FDIST), S.w(F_BDIST), S.w(F_GOOD)};
-}
-
-__device__ Cols lane_cols(const Leaves& st, i64 lane, int IC) {
-  auto row = [&](int f) { return static_cast<const i64*>(st.p[f]) + lane * IC; };
-  return Cols{row(F_CHR), row(F_FI), row(F_BI), row(F_FDIST), row(F_BDIST), row(F_GOOD)};
-}
-
-// this thread's part of resident._score_of over the columns rank, rank +
-// size, ... below n: the wrapped sum and whether a flank is exceeded
-__device__ void score_part(const Tables& tb, const Cols& cl, int IC, i64 n, i64 rf, i64 lf,
-                           i64 flank, int rank, int size, i64& sum, int& bad) {
-  const i64 nj = tb.n_j - 1;
-  const int hi = n < IC ? (n > 0 ? static_cast<int>(n) : 0) : IC;
-  const i64 *chr = cl.chr, *fi = cl.fi, *bi = cl.bi, *fdist = cl.fdist, *bdist = cl.bdist;
-  const i64* good = cl.good;
-  for (int col = rank; col < hi; col += size) {
-    if (good[col] >= 0) {
-      const i64 base = tb.chr_off[clip(chr[col], tb.n_chr_off - 2)];
-      const i64 jf = tb.jpos[clip(wadd(base, fi[col]), nj)];
-      const i64 jb = tb.jpos[clip(wadd(base, bi[col]), nj)];
-      const i64 right_pen = wsub(rf, bdist[col]);
-      const i64 left_pen = wadd(wsub(0, lf), fdist[col]);
-      bad |= (left_pen >= flank) | (right_pen >= flank);
-      const i64 pen = wadd(right_pen, left_pen);
-      sum = wadd(sum, wsub(iabs(wsub(jf, jb)), wmul(pen, pen)));
-    }
-  }
-}
-
-__device__ __forceinline__ i64 warp_sum(i64 x) {
-  for (int off = 16; off > 0; off >>= 1) x = wadd(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-// the score over the whole block; every thread gets it
-__device__ i64 block_score(const Tables& tb, const Slab& S, Shared& sh, i64 flank) {
-  i64 sum = 0;
-  int bad = 0;
-  score_part(tb, sh.cols, S.IC, sh.n, sh.rf, sh.lf, flank, threadIdx.x, kThreads, sum, bad);
-  sum = warp_sum(sum);
-  bad = __any_sync(0xffffffffu, bad);
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    sh.red[warp] = sum;
-    sh.red[kWarps + warp] = bad;
-  }
-  block_sync();
-  i64 total = 0;
-  int any_bad = 0;
-  for (int w = 0; w < kWarps; ++w) {
-    total = wadd(total, sh.red[w]);
-    any_bad |= static_cast<int>(sh.red[kWarps + w]);
-  }
-  return any_bad ? kNegInf : total;
-}
-
-// the rows of slab q (0 live, 1 rewind, 2 result) at `lane` that take the
-// vectorised loop, from shared memory; `size` threads
-__device__ void store_rows_by_loop(const Leaves& st, const Params& pr, const Slab& S, int q,
-                                   i64 lane, int rank, int size) {
-  for (int k = 0; k < kLaneRows; ++k) {
-    int bytes, field;
-    uint8_t* sm = lane_row(S, k, bytes, field);
-    if (!bulk_row(pr, q, k)) copy_bytes(global_row(st, q, field, lane, bytes), sm, bytes, rank,
-                                        size);
-  }
-}
-
-// a job of the whole block, every thread in it; score: the job's result
-__device__ i64 run_job(const Tables& tb, const Params& pr, const Slab& S, Shared& sh,
-                       const Leaves& st, i64 row_lane) {
-  const i64 flank = pr.flank;
-  const int tid = threadIdx.x;
-  i64 score = 0;
-  switch (sh.job) {
-    case J_SHIFT_INST:
-      shift_inst(S, sh.top, sh.p, sh.vals, tid, kThreads, true);
-      break;
-    case J_SHIFT_PATH:
-      shift_path(S, sh.top, sh.p, sh.vals, tid, kThreads, true);
-      break;
-    case J_SCORE:
-      score = block_score(tb, S, sh, flank);
-      break;
-    case J_STORE:
-      for (int q = 0; q < 3; ++q) {
-        if (sh.mask & (1 << q)) store_rows_by_loop(st, pr, S, q, row_lane, tid, kThreads);
-      }
-      break;
-    default:
-      break;
-  }
-  fence_async_smem();  // this thread's writes, before a bulk store reads them
-  return score;
-}
-
-// warp 0: hand the block the job laid out in sh (lane 0 wrote it), run it
-// with the block, and return once the block is done
-__device__ i64 call_block(const Tables& tb, const Params& pr, const Slab& S, Shared& sh,
-                          const Leaves& st, i64 row_lane) {
-  __syncwarp();
-  block_sync();
-  const i64 score = run_job(tb, pr, S, sh, st, row_lane);
-  block_sync();
-  return score;
-}
-
-// An edge of the walk, one lane's: the push at iterator `it` (edge_of), its
-// vertex's occurrence range, and whether the iterator one junction on
-// stands on the target.
-struct Edge {
-  i64 eu, ev, elen, lo, cnt, ech;
-  bool after;
-};
-
-__device__ Edge edge_at(const Tables& tb, i64 c, i64 cbase0, i64 it, i64 s, bool fwd, i64 tvid) {
-  const i64 nj = tb.n_j - 1;
-  Edge e;
-  const i64 nbr = fwd ? wadd(it, s) : wsub(it, s);
-  const i64 idx_self = clip(wadd(cbase0, it), nj), idx_nbr = clip(wadd(cbase0, nbr), nj);
-  const i64 id_self = tb.jid[idx_self], id_nbr = tb.jid[idx_nbr];
-  e.eu = wmul(s, fwd ? id_self : id_nbr);
-  e.ev = wmul(s, fwd ? id_nbr : id_self);
-  const i64 p_self = tb.jpos[idx_self], p_nbr = tb.jpos[idx_nbr];
-  e.elen = iabs(wsub(p_nbr, p_self));
-  const i64 p_start = fwd ? p_self : p_nbr;
-  const i64 sq_off = tb.seq_off[clip(c, tb.n_seq_off - 2)];
-  const i64 sq_len = wsub(tb.seq_off[clip(wadd(c, 1), tb.n_seq_off - 1)], sq_off);
-  if (s > 0) {
-    e.ech = wadd(p_start, tb.k) < sq_len
-                ? tb.seq[clip(wadd(wadd(sq_off, p_start), tb.k), tb.n_seq - 1)]
-                : 0;
-  } else {
-    const i64 cb = comp(tb.seq[clip(wsub(wadd(sq_off, p_start), 1), tb.n_seq - 1)]);
-    e.ech = p_start > 0 && cb > 0 ? cb : 'N';
-  }
-  const i64 av = iabs(fwd ? e.ev : e.eu);
-  e.lo = tb.occ_off[clip(av, tb.n_occ_off - 2)];
-  e.cnt = wsub(tb.occ_off[clip(wadd(av, 1), tb.n_occ_off - 1)], e.lo);
-  // the iterator one junction on is the edge's other junction
-  e.after = wmul(s, id_nbr) == tvid;
-  return e;
-}
-
-__device__ __forceinline__ i64 shfl64(i64 v, int src) {
-  return static_cast<i64>(__shfl_sync(0xffffffffu, static_cast<long long>(v), src));
-}
-
-// warp 0: the occurrence-only words of occurrences j0 .. j0+31 of the push
-// of vertex vtx (occurrence range lo, cnt), one a lane, into sh.pf_*
-__device__ void prefetch_occ(const Tables& tb, Shared& sh, int lane, i64 j0, i64 lo, i64 cnt,
-                             i64 vtx, bool fwd, i64 ech, i64 ev) {
-  __syncwarp();  // every lane has read the last group
-  const i64 j = j0 + lane;
-  if (j < cnt) {
-    const i64 nj = tb.n_j - 1;
-    const i64 oi = clip(wadd(lo, j), tb.n_occ - 1);
-    const i64 cj = tb.occ_chr[oi], ij = tb.occ_idx[oi];
-    const i64 base = tb.chr_off[clip(cj, tb.n_chr_off - 2)];
-    const i64 at = clip(wadd(base, ij), nj);
-    const i64 sj = tb.jid[at] == vtx ? 1 : -1;
-    const i64 jp = tb.jpos[at];
-    const i64 uslot = sj > 0 ? wadd(base, ij) : wsub(wadd(base, ij), 1);
-    const bool u = (sj > 0 || ij > 0) && tb.used[clip(uslot, tb.n_used - 1)] > 0;
-    int flags = (sj > 0 ? 1 : 0) | (u ? 2 : 0);
-    if (!fwd) {  // start_i = ij: the escape's start-side terms
-      const i64 nxt = wadd(ij, sj);
-      const bool nxt_valid = nxt >= 0 && nxt < tb.chr_len[clip(cj, tb.n_chr_len - 1)];
-      const i64 sq_off = tb.seq_off[clip(cj, tb.n_seq_off - 2)];
-      const i64 sq_len = wsub(tb.seq_off[clip(wadd(cj, 1), tb.n_seq_off - 1)], sq_off);
-      const i64 nseq = tb.n_seq - 1;
-      i64 start_char;
-      if (sj > 0) {
-        start_char = wadd(jp, tb.k) < sq_len ? tb.seq[clip(wadd(wadd(sq_off, jp), tb.k), nseq)]
-                                             : 0;
-      } else {
-        const i64 prev = comp(tb.seq[clip(wsub(wadd(sq_off, jp), 1), nseq)]);
-        start_char = jp > 0 && prev > 0 ? prev : 'N';
-      }
-      const i64 nvid = wmul(sj, tb.jid[clip(wadd(base, nxt > 0 ? nxt : 0), nj)]);
-      if (nxt_valid && start_char == ech && nvid == ev) flags |= 4;
-    }
-    sh.pf_cj[lane] = cj;
-    sh.pf_ij[lane] = ij;
-    sh.pf_base[lane] = base;
-    sh.pf_jp[lane] = jp;
-    sh.pf_pfx[lane] = tb.used_pfx[clip(wadd(base, ij), tb.n_pfx - 1)];
-    sh.pf_flags[lane] = flags;
-  }
-  __syncwarp();
-}
-
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 lcb_walk_kernel(Leaves st, Tables tb, Args a, Params pr, i64* res) {
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ Shared sh;
-  const int IC = pr.IC, PC = pr.PC;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lane = threadIdx.x & 31;
   const i64 r = blockIdx.x;
   const i64 L = pr.L;
-  const i64 lane_in = a.rows != nullptr ? a.rows[r] : r;
-  const bool valid = lane_in >= 0 && lane_in < L;
-  const i64 src = clip(lane_in, L - 1);
-
-  Slab S;
-  S.IC = IC;
-  S.ICw = round_up(IC, 2);
-  S.ICb = round_up(IC, 16);
-  S.PC = PC;
-  S.PCw = round_up(PC, 2);
-  S.wide = reinterpret_cast<i64*>(smem);
-  S.fin = smem + 8 * kWide * S.ICw;
-  S.pvid = reinterpret_cast<i64*>(S.fin + 2 * S.ICb);
-  S.pdist = S.pvid + S.PCw;
-
-  if (tid == 0) {
+  Row row;
+  row.lane = a.rows != nullptr ? a.rows[r] : r;
+  row.c = a.c[r];
+  row.i = a.i[r];
+  row.s = a.s[r];
+  row.tvid = a.tvid[r];
+  row.fwd = a.fwd[r] != 0;
+  row.active = a.active[r] != 0;
+  row.last = a.last[r] != 0;
+  row.serve = a.rows != nullptr && row.lane == L - 1;
+  if (threadIdx.x == 0) {  // walk_row's first barrier orders this before any use
     mbar_init(&sh.bar, 1);
-    sh.t_inst = 0;
-    sh.t_path = 0;
+    sh.parity = 0;
   }
-
-  // the row's walk (every thread: it decides who takes part in what)
-  const i64 nj = tb.n_j - 1;
-  const i64 c = a.c[r], s = a.s[r], tvid = a.tvid[r];
-  const bool fwd = a.fwd[r] != 0;
-  const i64 cbase0 = tb.chr_off[clip(c, tb.n_chr_off - 2)];
-  const i64 it0 = a.i[r];
-  const bool at0 = wmul(s, tb.jid[clip(wadd(cbase0, it0), nj)]) == tvid;
-  const bool walking = valid && a.active[r] != 0 && !at0 && pr.limit > 0;
-  const i64 d = fwd ? s : wsub(0, s);
-  __syncthreads();  // the mbarrier is set up
-
-  // ---- a walking row's slab in: bulk copies where they may (thread 0
-  // issues them once it has the first edges, so that its first loads do not
-  // queue behind them), else the loop (the helpers); a row that does not walk
-  // reads only its score's columns, in place ----
-  auto load_slab = [&]() {
-    u32 tx = 0;
-    for (int k = 0; k < kLaneRows; ++k) {
-      int bytes, field;
-      lane_row(S, k, bytes, field);
-      if (bulk_row(pr, 0, k)) tx += bytes;
-    }
-    mbar_expect_tx(&sh.bar, tx);
-    for (int k = 0; k < kLaneRows; ++k) {
-      int bytes, field;
-      uint8_t* sm = lane_row(S, k, bytes, field);
-      if (bulk_row(pr, 0, k)) bulk_load(sm, global_row(st, 0, field, src, bytes), bytes, &sh.bar);
-    }
-  };
-  if (walking && warp != 0) {
-    for (int k = 0; k < kLaneRows; ++k) {
-      int bytes, field;
-      uint8_t* sm = lane_row(S, k, bytes, field);
-      if (!bulk_row(pr, 0, k)) copy_bytes(sm, global_row(st, 0, field, src, bytes), bytes,
-                                          tid - 32, kThreads - 32);
-    }
-    fence_async_smem();  // those rows may go out by bulk stores to another slab
-  }
-
-  // warp 0, while the slab is in flight: the lane's registers, the edges of
-  // the first 32 pushes and the first occurrences of the first push
-  i64 reg[kRegs];
-  i64 best = 0;
-  bool has_snap = false;
-  Edge e{};
-  if (warp == 0) {
-#pragma unroll
-    for (int q = 0; q < kRegs; ++q) {
-      const int f = kRegField[q];
-      reg[q] = is_bool(f) ? static_cast<const uint8_t*>(st.p[f])[src]
-                          : static_cast<const i64*>(st.p[f])[src];
-    }
-    best = static_cast<const i64*>(st.p[3 * kLaneFields])[src];
-    has_snap = static_cast<const uint8_t*>(st.p[3 * kLaneFields + 1])[src] != 0;
-    if (walking) {
-      e = edge_at(tb, c, cbase0, wadd(it0, wmul(lane, d)), s, fwd, tvid);
-      const i64 ev0 = shfl64(e.ev, 0), eu0 = shfl64(e.eu, 0);
-      if (lane == 0) load_slab();
-      prefetch_occ(tb, sh, lane, 0, shfl64(e.lo, 0), shfl64(e.cnt, 0), fwd ? ev0 : eu0, fwd,
-                   shfl64(e.ech, 0), ev0);
-    }
-  }
-  if (walking) mbar_wait(&sh.bar, 0);
-  __syncthreads();
-
-  if (warp != 0) {  // the block's other warps
-    if (walking) {
-      // the uniform tails, while warp 0 walks: the first column from which
-      // every path field (instance field) equals the last column's, handed
-      // over at a barrier each (warp 0 shifts nothing before it has them)
-      // (pairs of int64 columns a 16-byte load: every row starts on 16 bytes)
-      const int rank = tid - 32, size = kThreads - 32;
-      int tp = 0, ti = 0;
-      const longlong2* pv2 = reinterpret_cast<const longlong2*>(S.pvid);
-      const longlong2* pd2 = reinterpret_cast<const longlong2*>(S.pdist);
-      const i64 pv_last = S.pvid[PC - 1], pd_last = S.pdist[PC - 1];
-      for (int h = rank; 2 * h < PC - 1; h += size) {
-        const longlong2 v = pv2[h], w = pd2[h];
-        if (v.x != pv_last || w.x != pd_last) tp = 2 * h + 1;
-        if (2 * h + 1 < PC - 1 && (v.y != pv_last || w.y != pd_last)) tp = 2 * h + 2;
-      }
-      tp = __reduce_max_sync(0xffffffffu, tp);
-      if (lane == 0) atomicMax(&sh.t_path, tp);
-      helpers_arrive(kPathTail);
-      i64 last[kWide];
-#pragma unroll
-      for (int w = 0; w < kWide; ++w) last[w] = S.wide[w * S.ICw + IC - 1];
-      const uint8_t f0 = S.fin[IC - 1], f1 = S.fin[S.ICb + IC - 1];
-      for (int h = rank; 2 * h < IC - 1; h += size) {
-        bool d0 = S.fin[2 * h] != f0 || S.fin[S.ICb + 2 * h] != f1;
-        bool d1 = S.fin[2 * h + 1] != f0 || S.fin[S.ICb + 2 * h + 1] != f1;
-#pragma unroll
-        for (int w = 0; w < kWide; ++w) {
-          const longlong2 v = reinterpret_cast<const longlong2*>(S.wide + w * S.ICw)[h];
-          d0 |= v.x != last[w];
-          d1 |= v.y != last[w];
-        }
-        if (d0) ti = 2 * h + 1;
-        if (2 * h + 1 < IC - 1 && d1) ti = 2 * h + 2;
-      }
-      ti = __reduce_max_sync(0xffffffffu, ti);
-      if (lane == 0) atomicMax(&sh.t_inst, ti);
-      helpers_arrive(kInstTail);
-    }
-    for (;;) {  // then wait for jobs
-      block_sync();
-      if (sh.job == J_DONE) break;
-      run_job(tb, pr, S, sh, st, lane_in);
-      block_sync();
-    }
-    return;
-  }
-
-  // ---- warp 0 walks ----
-  i64& n = reg[0];
-  i64& next_good = reg[1];
-  i64& next_ins = reg[2];
-  i64& rf = reg[3];
-  i64& lf = reg[4];
-  i64& ovf = reg[5];
-  i64& pn = reg[6];
-  i64& rv = reg[7];
-  i64& lv = reg[8];
-  ovf = ovf != 0;
-  // the tails, once the helpers hand them over; ChangeBacks before that
-  // raise t_inst's floor (a column they write is no longer uniform)
-  int t_inst = 0, t_path = 0;
-  bool have_path_tail = false, have_inst_tail = false;
-  // slabs whose rows do not all take bulk stores (bit q: slab q)
-  int by_loop = 0;
-  for (int q = 0; q < 3; ++q) {
-    if (((pr.bulk >> (q * kLaneRows)) & ((1u << kLaneRows) - 1)) != (1u << kLaneRows) - 1) {
-      by_loop |= 1 << q;
-    }
-  }
-  const Cols cols = walking ? slab_cols(S) : lane_cols(st, src, IC);
-
-  int stored = 0;  // slabs (bit q: slab q) that bulk stores went to
-  auto score_now = [&]() -> i64 {
-    if (n <= kWarpCols) {
-      i64 sum = 0;
-      int bad = 0;
-      score_part(tb, cols, IC, n, rf, lf, pr.flank, lane, 32, sum, bad);
-      sum = warp_sum(sum);
-      return __any_sync(0xffffffffu, bad) ? kNegInf : sum;
-    }
-    if (lane == 0) {
-      sh.job = J_SCORE;
-      sh.n = n;
-      sh.rf = rf;
-      sh.lf = lf;
-      sh.cols = cols;
-    }
-    return call_block(tb, pr, S, sh, st, lane_in);
-  };
-  // the lane's registers and slab rows out to the slabs in `mask`
-  auto store_lane = [&](int mask) {
-    for (int q = 0; q < 3; ++q) {
-      if ((mask & (1 << q)) && lane < kRegs) {
-        const int f = kRegField[lane];
-        i64 v = reg[0];
-#pragma unroll
-        for (int x = 1; x < kRegs; ++x) v = lane == x ? reg[x] : v;
-        void* p = st.p[q * kLaneFields + f];
-        if (is_bool(f)) {
-          static_cast<uint8_t*>(p)[lane_in] = v != 0;
-        } else {
-          static_cast<i64*>(p)[lane_in] = v;
-        }
-      }
-    }
-    fence_async_smem();
-    __syncwarp();
-    if (lane == 0) {
-      if (mask & stored) bulk_wait_all();
-      for (int q = 0; q < 3; ++q) {
-        if (!(mask & (1 << q))) continue;
-        for (int k = 0; k < kLaneRows; ++k) {
-          int bytes, field;
-          uint8_t* sm = lane_row(S, k, bytes, field);
-          if (bulk_row(pr, q, k)) bulk_store(global_row(st, q, field, lane_in, bytes), sm, bytes);
-        }
-      }
-      bulk_commit();
-    }
-    stored |= mask;
-    if (mask & by_loop) {
-      if (lane == 0) {
-        sh.job = J_STORE;
-        sh.mask = mask & by_loop;
-      }
-      call_block(tb, pr, S, sh, st, lane_in);
-    }
-  };
-
-  i64 it = it0;
-  bool last = a.last[r] != 0, after = at0, pending = false, have_score = false;
-  bool live_stored = false;
-  i64 pushes = 0, occ_steps = 0, score = 0;
-  // a row walking lane L-1 reports the sentinels' state results: lane L-1 as it was
-  const bool serve = a.rows != nullptr && valid && lane_in == L - 1;
-  i64 init[5] = {0, n, rf, lf, ovf};
-  if (serve) init[0] = score_now();
-  const i64* pvid = S.pvid;
-  const i64* chr = S.w(F_CHR);
-  const i64* cmp = S.w(F_CMP);
-  const i64* fi = S.w(F_FI);
-  const i64* bi = S.w(F_BI);
-  const i64* sgn = S.w(F_S);
-
-  bool active = walking;
-  for (int t = 0; active && t < pr.limit; ++t) {
-    const int el = t & 31;
-    if (el == 0 && t > 0) {
-      e = edge_at(tb, c, cbase0, wadd(it, wmul(lane, d)), s, fwd, tvid);
-    }
-    const i64 eu = shfl64(e.eu, el), ev = shfl64(e.ev, el), elen = shfl64(e.elen, el);
-    const i64 occ_lo = shfl64(e.lo, el), occ_cnt = shfl64(e.cnt, el), ech = shfl64(e.ech, el);
-    after = __shfl_sync(0xffffffffu, static_cast<int>(e.after), el) != 0;
-    const i64 vtx = fwd ? ev : eu;
-    const i64 dval = fwd ? wadd(rf, elen) : wsub(lf, elen);
-    pushes += 1;
-    occ_steps = wadd(occ_steps, occ_cnt);
-
-    // ---- membership + path-table insert ----
-    const int pp = warp_search(PC, lane, [&](int mid) { return pvid[mid] >= vtx; });
-    const bool member = pvid[clipi(pp, PC - 1)] == vtx && pp < pn;
-    const bool success = !member && !ovf;
-    if (success) {
-      if (pending) {  // the last improvement's stores have read the slab
-        if (lane == 0) bulk_wait_read();
-        __syncwarp();
-        pending = false;
-      }
-      ovf = ovf || pn >= PC - 1;
-      pn = wadd(pn, 1);
-      if (!have_path_tail) {
-        warp0_wait(kPathTail);
-        t_path = sh.t_path;
-        have_path_tail = true;
-      }
-      const int top = t_path < PC - 1 ? t_path : PC - 1;
-      const i64 pv[2] = {vtx, dval};
-      if (top - pp <= kWarpCols) {
-        shift_path(S, top, pp, pv, lane, 32, false);
-        __syncwarp();
-      } else {
-        if (lane == 0) {
-          sh.job = J_SHIFT_PATH;
-          sh.top = top;
-          sh.p = pp;
-          sh.vals[0] = vtx;
-          sh.vals[1] = dval;
-        }
-        call_block(tb, pr, S, sh, st, lane_in);
-      }
-      if (pp < PC) {
-        const int tm = (t_path > pp ? t_path : pp) + 1;
-        t_path = tm < PC ? tm : PC;
-      }
-
-      // ---- the occurrence loop ----
-      for (i64 j = 0; j < occ_cnt && !ovf; ++j) {
-        const int oe = static_cast<int>(j & 31);
-        if (oe == 0 && (j > 0 || t > 0)) {
-          prefetch_occ(tb, sh, lane, j, occ_lo, occ_cnt, vtx, fwd, ech, ev);
-        }
-        const i64 cj = sh.pf_cj[oe], ij = sh.pf_ij[oe], base = sh.pf_base[oe];
-        const i64 jp = sh.pf_jp[oe], pfx = sh.pf_pfx[oe];
-        const int fl = sh.pf_flags[oe];
-        const i64 sj = (fl & 1) ? 1 : -1;
-        const bool u = (fl & 2) != 0;
-        // upper bound of (cj << 40) | ij among the live keys
-        const i64 kq = static_cast<i64>((static_cast<u64>(cj) << 40) | static_cast<u64>(ij));
-        const i64 nn = n;
-        const int p = warp_search(IC, lane, [&](int mid) {
-          const i64 key = mid < nn ? static_cast<i64>((static_cast<u64>(chr[mid]) << 40) |
-                                                      static_cast<u64>(cmp[mid]))
-                                   : kBig;
-          return key > kq;
-        });
-        const int pc = clipi(p, IC - 1);
-        const bool in_chr = p < n && chr[pc] == cj;
-        const i64 fi_p = fi[pc], bi_p = bi[pc];
-        const bool within = in_chr && (fi_p < bi_p ? fi_p : bi_p) <= ij &&
-                            ij <= (fi_p > bi_p ? fi_p : bi_p);
-        if (within) continue;
-        const bool use_prev = fwd ? sj > 0 : sj < 0;
-        const bool prev_ok = p - 1 >= 0 && chr[clipi(p - 1, IC - 1)] == cj;
-        const bool cand_ok = use_prev ? prev_ok : in_chr;
-        const int ccol = clipi(use_prev ? p - 1 : p, IC - 1);
-        bool upd = false;
-        i64 cs = 0, cend = 0, jp_c = 0, jp_o = 0;
-        if (cand_ok) {
-          // the candidate is on chromosome cj, so its table words are at base
-          cs = sgn[ccol];
-          cend = fwd ? bi[ccol] : fi[ccol];
-          const i64 c_other = fwd ? fi[ccol] : bi[ccol];
-          const i64 at_c = clip(wadd(base, cend), nj);
-          jp_c = tb.jpos[at_c];
-          const i64 jid_c = tb.jid[at_c];
-          const i64 pfx_c = tb.used_pfx[clip(wadd(base, cend), tb.n_pfx - 1)];
-          jp_o = tb.jpos[clip(wadd(base, c_other), nj)];
-          const i64 start_i = fwd ? cend : ij, end_i = fwd ? ij : cend;
-          const bool lo_is_cend = (sj > 0) == fwd;
-          const i64 lo_slot = sj > 0 ? start_i : end_i, hi_slot = sj > 0 ? end_i : start_i;
-          const bool used_between =
-              hi_slot > lo_slot && wsub(lo_is_cend ? pfx : pfx_c, lo_is_cend ? pfx_c : pfx) > 0;
-          const i64 ks = sj < 0 ? tb.k : 0;
-          const i64 real_diff = wsub(wadd(fwd ? jp : jp_c, ks), wadd(fwd ? jp_c : jp, ks));
-          const bool dir_ok = sj > 0 ? real_diff >= 0 : wsub(0, real_diff) >= 0;
-          if (cs == sj && !used_between && dir_ok) {
-            const i64 cvid = wmul(cs, jid_c);
-            bool over = iabs(real_diff) > pr.b;
-            if (!over) {
-              const int cp = warp_search(PC, lane, [&](int mid) { return pvid[mid] >= cvid; });
-              const i64 cdist = S.pdist[clipi(cp, PC - 1)];
-              over = (fwd ? wsub(dval, cdist) : wsub(cdist, dval)) > pr.b;
-            }
-            bool compat = !over;
-            if (over) {  // adjacency escape: start.Next() == end, chars match, next vid == ev
-              if (fwd) {
-                const i64 nxt = wadd(cend, sj);
-                if (nxt >= 0 && nxt < tb.chr_len[clip(cj, tb.n_chr_len - 1)] && nxt == ij) {
-                  const i64 sq_off = tb.seq_off[clip(cj, tb.n_seq_off - 2)];
-                  const i64 sq_len = wsub(tb.seq_off[clip(wadd(cj, 1), tb.n_seq_off - 1)], sq_off);
-                  const i64 nseq = tb.n_seq - 1;
-                  i64 start_char;
-                  if (sj > 0) {
-                    start_char = wadd(jp_c, tb.k) < sq_len
-                                     ? tb.seq[clip(wadd(wadd(sq_off, jp_c), tb.k), nseq)]
-                                     : 0;
-                  } else {
-                    const i64 prev = comp(tb.seq[clip(wsub(wadd(sq_off, jp_c), 1), nseq)]);
-                    start_char = jp_c > 0 && prev > 0 ? prev : 'N';
-                  }
-                  const i64 nvid = wmul(sj, tb.jid[clip(wadd(base, nxt > 0 ? nxt : 0), nj)]);
-                  compat = start_char == ech && nvid == ev;
-                }
-              } else {
-                compat = (fl & 4) != 0 && wadd(ij, sj) == cend;
-              }
-            }
-            upd = compat && cvid != vtx;
-          }
-        }
-        if (upd) {
-          const bool cfin = (fwd ? S.b(F_BFIN) : S.b(F_FFIN))[ccol] != 0;
-          if (!cfin) {  // ChangeBack / ChangeFront at the candidate
-            const bool was_good = iabs(wsub(jp_o, jp_c)) >= pr.m;
-            const bool now_good = iabs(wsub(jp_o, jp)) >= pr.m;
-            if (lane == 0) {
-              S.w(fwd ? F_BI : F_FI)[ccol] = ij;
-              S.w(fwd ? F_BDIST : F_FDIST)[ccol] = dval;
-              if (fwd ? cs > 0 : cs < 0) S.w(F_CMP)[ccol] = ij;
-              if (!was_good && now_good) S.w(F_GOOD)[ccol] = next_good;
-              if (u) S.b(fwd ? F_BFIN : F_FFIN)[ccol] = 1;
-            }
-            if (!was_good && now_good) next_good = wadd(next_good, 1);
-            t_inst = t_inst > ccol + 1 ? t_inst : ccol + 1;
-            __syncwarp();
-          }
-        } else if (!u) {
-          if (n < IC) {  // insert a new instance at the bound
-            const i64 vals[kInst] = {cj, sj, ij, ij, dval, dval, ij, 0, 0, -1, next_ins};
-            if (!have_inst_tail) {
-              warp0_wait(kInstTail);
-              t_inst = t_inst > sh.t_inst ? t_inst : sh.t_inst;
-              have_inst_tail = true;
-            }
-            const int top = t_inst < IC - 1 ? t_inst : IC - 1;
-            if (top - p <= kWarpCols) {
-              shift_inst(S, top, p, vals, lane, 32, false);
-              __syncwarp();
-            } else {
-              if (lane == 0) {
-                sh.job = J_SHIFT_INST;
-                sh.top = top;
-                sh.p = p;
-                for (int f = 0; f < kInst; ++f) sh.vals[f] = vals[f];
-              }
-              call_block(tb, pr, S, sh, st, lane_in);
-            }
-            const int tm = (t_inst > p ? t_inst : p) + 1;
-            t_inst = tm < IC ? tm : IC;
-            n = wadd(n, 1);
-            next_ins = wadd(next_ins, 1);
-          } else {
-            ovf = 1;
-          }
-        }
-      }
-
-      if (fwd) {
-        rf = dval;
-        rv = ev;
-      } else {
-        lf = dval;
-        lv = eu;
-      }
-      if (after || ovf || t + 1 == pr.limit) {  // the last push: the live lane is final
-        store_lane(1);
-        live_stored = true;
-      }
-      score = score_now();
-      have_score = true;
-      if (score > best) {
-        best = score;
-        const int mask = (fwd ? 2 : 0) | (score > 0 ? 4 : 0);
-        has_snap = has_snap || score > 0;
-        if (mask) {
-          store_lane(mask);
-          pending = true;
-        }
-      }
-    }
-    it = wadd(it, d);
-    last = success;
-    active = !after && !ovf;
-  }
-
-  if (!have_score) score = serve ? init[0] : score_now();  // the lane as it was
-  if (valid && pushes > 0) {
-    if (!live_stored) store_lane(1);
-    if (lane == 0) {
-      static_cast<i64*>(st.p[3 * kLaneFields])[lane_in] = best;
-      static_cast<uint8_t*>(st.p[3 * kLaneFields + 1])[lane_in] = has_snap;
-    }
-  }
-  if (walking) {  // each barrier the helpers arrived at is met once
-    if (!have_path_tail) warp0_wait(kPathTail);
-    if (!have_inst_tail) warp0_wait(kInstTail);
-  }
-  if (lane == 0) sh.job = J_DONE;
-  __syncwarp();
-  block_sync();
+  const RowOut o = walk_row(st, tb, pr, row, smem, sh);
+  if (threadIdx.x >= 32) return;
+  const i64 lane_in = row.lane;
+  const i64 it = o.it, score = o.score, n = o.n, rf = o.rf, lf = o.lf;
+  const i64 pushes = o.pushes, occ_steps = o.occ_steps;
+  const bool last = o.last, after = o.after, ovf = o.ovf, serve = row.serve;
+  const i64* init = o.init;
 
   // a sentinel leaves its state results to the row that walks lane L-1
   bool defer = false;
@@ -1226,28 +239,7 @@ extern "C" int sz_lcb_walk(const long long* leaves, const long long* tables,
   if (A == 0) return 0;
   Leaves st{};
   for (int q = 0; q < kLeaves; ++q) st.p[q] = reinterpret_cast<void*>(leaves[q]);
-  Tables tb{};
-  tb.chr_off = reinterpret_cast<const i64*>(tables[0]);
-  tb.chr_len = reinterpret_cast<const i64*>(tables[1]);
-  tb.jpos = reinterpret_cast<const i64*>(tables[2]);
-  tb.jid = reinterpret_cast<const i64*>(tables[3]);
-  tb.used_pfx = reinterpret_cast<const i64*>(tables[4]);
-  tb.used = reinterpret_cast<const uint8_t*>(tables[5]);
-  tb.seq_off = reinterpret_cast<const i64*>(tables[6]);
-  tb.seq = reinterpret_cast<const uint8_t*>(tables[7]);
-  tb.occ_off = reinterpret_cast<const i64*>(tables[8]);
-  tb.occ_chr = reinterpret_cast<const i64*>(tables[9]);
-  tb.occ_idx = reinterpret_cast<const i64*>(tables[10]);
-  tb.n_chr_off = table_lens[0];
-  tb.n_chr_len = table_lens[1];
-  tb.n_j = table_lens[2];
-  tb.n_pfx = table_lens[3];
-  tb.n_used = table_lens[4];
-  tb.n_seq_off = table_lens[5];
-  tb.n_seq = table_lens[6];
-  tb.n_occ_off = table_lens[7];
-  tb.n_occ = table_lens[8];
-  tb.k = k;
+  const Tables tb = tables_of(tables, table_lens, k);
   Args a{};
   a.rows = reinterpret_cast<const i64*>(args[0]);
   a.c = reinterpret_cast<const i64*>(args[1]);
@@ -1258,15 +250,7 @@ extern "C" int sz_lcb_walk(const long long* leaves, const long long* tables,
   a.active = reinterpret_cast<const uint8_t*>(args[6]);
   a.last = reinterpret_cast<const uint8_t*>(args[7]);
   Params pr{L, A, m, b, flank, IC, PC, limit, 0};
-  for (int q = 0; q < 3; ++q) {  // a row of every lane starts on 16 bytes: bulk copies
-    for (int k = 0; k < kLaneRows; ++k) {
-      const int field = k < kInst ? k : (k == kInst ? F_PVID : F_PDIST);
-      const long long bytes = is_bool(field) ? IC : 8LL * (k < kInst ? IC : PC);
-      if (((leaves[q * kLaneFields + field] | bytes) & 15) == 0) {
-        pr.bulk |= 1ULL << (q * kLaneRows + k);
-      }
-    }
-  }
+  pr.bulk = bulk_rows(leaves, IC, PC);
   // set at every launch: the attributes belong to the current device's
   // context, and a host call costs little beside the kernel
   const cudaError_t err = set_walk_attributes(smem);
@@ -1306,3 +290,4 @@ extern "C" int sz_lcb_step_probe(const void* table, int iters, void* out, void* 
       static_cast<const i64*>(table), iters, static_cast<i64*>(out));
   return static_cast<int>(cudaGetLastError());
 }
+

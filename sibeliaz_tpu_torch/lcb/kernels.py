@@ -48,11 +48,21 @@ fused engine's used-retry in the same launch (vote_retry_plain), so no
 read of the card decides it.  It routes as K5 does; it reads the state
 and writes only its [6, A] results.
 
-Both wrappers check every tensor they pass to the card: its device, type,
-shape and contiguity (and K5 the state's overlaps).  The tables' checks
-run once per DeviceTables object, which the engines build once a phase
-(`_table_check`, kept on the object; a replaced table tensor is checked
-again); the lanes, the state and the arguments are checked every call.
+K7 `lcb_step` (csrc/lcb_step.cu) runs the fused engine's outer step loop
+for a set of lanes to its end in one launch: per lane, one block loops
+K6's vote (with the used-retry), a K5 walk chunk, the protocol registers
+and the forward->backward rewind until the lane is done or the step limit
+(lcb/step.py's host loop, its plain version, on the CPU).  It writes the
+carry (the state and the 13 CARRY_REGISTERS) in place, so no two of its
+81 tensors may overlap, and its only allocation is its [4, L] per-lane
+results; it reads nothing of the card.
+
+The wrappers check every tensor they pass to the card: its device, type,
+shape and contiguity (and K5 and K7 the state's overlaps).  The tables'
+checks run once per DeviceTables object, which the engines build once a
+phase (`_table_check`, kept on the object; a replaced table tensor is
+checked again); the lanes, the state and the arguments are checked every
+call.
 """
 
 from __future__ import annotations
@@ -79,7 +89,7 @@ from sibeliaz_tpu_torch.lcb.batched_push_device import (
 from sibeliaz_tpu_torch.lcb.vote import vote_columns, vote_plain, vote_retry_plain
 from sibeliaz_tpu_torch.utils import cudabuild
 
-LAUNCHES = {"lcb_walk": 0, "lcb_vote": 0}
+LAUNCHES = {"lcb_walk": 0, "lcb_vote": 0, "lcb_step": 0}
 
 # the tables the kernel reads, in the order of its C interface
 TABLE_FIELDS = ("chr_off", "chr_len", "jpos", "jid", "used_pfx", "used", "seq_off", "seq",
@@ -87,6 +97,12 @@ TABLE_FIELDS = ("chr_off", "chr_len", "jpos", "jid", "used_pfx", "used", "seq_of
 _BYTE_TABLES = ("used", "seq")
 # the lane fields held as bool (one byte); the others are int64
 _BOOL_FIELDS = ("ffin", "bfin", "overflow")
+# the protocol registers of the fused engine's carry, after its
+# ResidentState "st", in the order of K7's C interface; [L] each, bool where
+# _BOOL_REGISTERS says, else int64
+CARRY_REGISTERS = ("stage", "positive", "prev_len", "score", "active", "retier", "hostfb",
+                   "in_walk", "wc", "wi", "ws", "wt", "wlast")
+_BOOL_REGISTERS = ("positive", "active", "retier", "hostfb", "in_walk", "wlast")
 
 
 def reset_launches() -> None:
@@ -240,17 +256,22 @@ def _several(dev: torch.device, tensors) -> None:
     raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
 
 
-def _walk_specs(L: int, IC: int, PC: int, A: int, rows: bool) -> tuple:
-    """K5's per-call specs: the state's 68 leaves, then c, i, s, fwd, tvid,
-    active, last (and rows)."""
+def _state_specs(L: int, IC: int, PC: int) -> list:
+    """The specs of the state's 68 leaves."""
     specs = []
     for slab in ("ln", "rw", "sn"):
         for f in LANE_FIELDS:
             width = IC if f in INSTANCE_FIELDS else PC if f in ("pvid", "pdist") else None
             specs.append((torch.bool if f in _BOOL_FIELDS else torch.int64,
                           torch.Size((L,) if width is None else (L, width)), f"{slab}.{f}"))
-    specs += [(torch.int64, torch.Size((L,)), "best_score"),
-              (torch.bool, torch.Size((L,)), "has_snap")]
+    return specs + [(torch.int64, torch.Size((L,)), "best_score"),
+                    (torch.bool, torch.Size((L,)), "has_snap")]
+
+
+def _walk_specs(L: int, IC: int, PC: int, A: int, rows: bool) -> tuple:
+    """K5's per-call specs: the state's 68 leaves, then c, i, s, fwd, tvid,
+    active, last (and rows)."""
+    specs = _state_specs(L, IC, PC)
     names = ("c", "i", "s", "fwd", "tvid", "active", "last") + (("rows",) if rows else ())
     specs += [(torch.bool if name in ("fwd", "active", "last") else torch.int64,
                torch.Size((A,)), name) for name in names]
@@ -477,17 +498,21 @@ def vote_blocks_per_sm(PC: int, CAP: int, W: int, device="cuda") -> int:
 
 
 def chain_probe(table: torch.Tensor, iters: int, step: str = "warp") -> torch.Tensor:
-    """Launches one of K5's chain probes, `iters` steps of a pointer chase
+    """Launches one of the chain probes, `iters` steps of a pointer chase
     over `table` (int64 indices into itself) served from L2: with step
     "warp", one load a step and a __syncwarp of a walk block's warp 0, the
-    least one occurrence step of the walk can cost (its one round of table
+    least one occurrence step of K5's walk can cost (its one round of table
     loads at the candidate's end); with "block", four dependent loads and a
-    barrier of 256 threads, the step of the kernel's first design, in which
-    thread 0 ran each step and the block met twice a step.  The caller
-    times it (chip_smoke.py's chain floor).  Returns the chase's last
-    index."""
+    barrier of 256 threads, the step of K5's first design, in which thread
+    0 ran each step and the block met twice a step; with "vote", the least
+    one K6 vote can cost, a vote whose windows end in their first round
+    (csrc/lcb_vote.cu's lcb_vote_probe_kernel: the columns' three dependent
+    loads, a slot's load and path search, the hash insert, the winner's
+    reduction and the vote's seven barriers).  The caller times it
+    (chip_smoke.py's chain floors).  Returns the chase's last index."""
     _require(table, torch.int64, None, "table")
-    fn = {"warp": "sz_lcb_step_probe", "block": "sz_lcb_chain_probe"}[step]
+    fn = {"warp": "sz_lcb_step_probe", "block": "sz_lcb_chain_probe",
+          "vote": "sz_lcb_vote_probe"}[step]
     out = torch.empty(1, dtype=torch.int64, device=table.device)
     with torch.cuda.device(table.device):
         status = getattr(cudabuild.load(), fn)(
@@ -506,3 +531,128 @@ def blocks_per_sm(IC: int, PC: int, device="cuda") -> int:
     if got < 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {-got}")
     return got
+
+
+# ---- K7 lcb_step -------------------------------------------------------------
+
+
+class LaneSteps(NamedTuple):
+    """A step call's result: the carry, its state and registers advanced
+    and its "steps" as given (the run's step count is that plus the lanes'
+    largest `steps`), and per lane [L] int64: the steps it took, its walk
+    pushes, its occurrence steps (the pushed vertices' occurrence counts,
+    summed) and 1 where a vote took the spill workspace (the card only)."""
+
+    carry: dict
+    steps: torch.Tensor
+    pushes: torch.Tensor
+    occ_steps: torch.Tensor
+    spilled: torch.Tensor
+
+
+def _step_specs(L: int, IC: int, PC: int) -> list:
+    """K7's per-call specs: the state's 68 leaves, then the 13 registers."""
+    return _state_specs(L, IC, PC) + [
+        (torch.bool if r in _BOOL_REGISTERS else torch.int64, torch.Size((L,)), r)
+        for r in CARRY_REGISTERS]
+
+
+def lcb_step(CAP: int, W: int, slab_max: bool, tb: DeviceTables, carry, depth: int, m: int,
+             b: int, flank: int, min_run: int, steps_limit: int, walk_chunk: int,
+             compact_min: int) -> LaneSteps:
+    """K7.  Step every lane of `carry` (the fused engine's: "st", a
+    ResidentState of L lanes, [L, IC] instance slabs and [L, PC] path
+    tables; the 13 CARRY_REGISTERS, [L] each; "steps", the step count) at
+    the tier (CAP, W, slab_max) and protocol (depth, m, b, flank, min_run)
+    until the lane is inactive or the step count reaches steps_limit, walks
+    in chunks of walk_chunk pushes.  On CUDA tensors one launch that writes
+    the carry's tensors in place (no two may overlap, nor a table overlap
+    one of them) and reads nothing of the card; on CPU tensors the plain
+    version (lcb/step.py), out of place, with compaction down to
+    compact_min lanes.  Returns LaneSteps.  The tables are checked once
+    per DeviceTables object, the carry every call."""
+    st = carry["st"]
+    leaves = _state_leaves(st)
+    regs = [carry[r] for r in CARRY_REGISTERS]
+    L, IC = st.ln.chr.shape
+    PC = st.ln.pvid.shape[1]
+    specs = _step_specs(L, IC, PC)
+    dev, tcheck = _routed(tb, leaves + regs, specs)
+    if dev.type == "cpu":  # the plain version takes what the kernel takes
+        from sibeliaz_tpu_torch.lcb import step
+
+        for t, (dtype, shape, name) in zip(leaves + regs, specs):
+            _require(t, dtype, shape, name)
+
+        return step.lcb_step_plain(CAP, W, slab_max, tb, carry, depth, m, b, flank, min_run,
+                                   steps_limit, walk_chunk, compact_min)
+    if CAP < 1 or W < 1 or walk_chunk < 0:
+        raise ValueError(f"lcb_step takes CAP >= 1, W >= 1 and walk_chunk >= 0, got {CAP}, {W}, "
+                         f"{walk_chunk}")
+    pair = overlapping(leaves + regs, list(tcheck.tables))
+    if pair is not None:
+        names = _leaf_names() + list(CARRY_REGISTERS) + [f"tables.{f}" for f in TABLE_FIELDS]
+        raise ValueError(f"lcb_step writes the carry in place: {names[pair[0]]} overlaps "
+                         f"{names[pair[1]]} (give each of the carry's tensors its own storage, "
+                         "as seed_state and init_carry do)")
+    with torch.cuda.device(dev):
+        out = torch.empty((4, L), dtype=torch.int64, device=dev)
+        _launch_step(tcheck, carry, CAP, W, slab_max, tb.k, depth, m, b, flank, min_run,
+                     steps_limit, walk_chunk, out)
+    return LaneSteps(carry, *out)
+
+
+def step_launch_into(tb: DeviceTables, carry, CAP: int, W: int, slab_max: bool, depth: int,
+                     m: int, b: int, flank: int, min_run: int, steps_limit: int,
+                     walk_chunk: int, out) -> None:
+    """Launches K7 on a carry lcb_step has checked, stepping it in place,
+    into `out` ([4, L] int64, LaneSteps' per-lane rows).  A launch from the
+    same carry writes the same values, so a timing loop restores the carry
+    before each launch (chip_smoke.py's K7 times)."""
+    _launch_step(_table_check(tb, True), carry, CAP, W, slab_max, tb.k, depth, m, b, flank,
+                 min_run, steps_limit, walk_chunk, out)
+
+
+def _launch_step(tcheck: _TableCheck, carry, CAP: int, W: int, slab_max: bool, k: int,
+                 depth: int, m: int, b: int, flank: int, min_run: int, steps_limit: int,
+                 walk_chunk: int, out) -> None:
+    """Launches K7 with the device's vote workspace where a vote can spill
+    (min(VOTE_POOL, L) slices, as K6's)."""
+    st = carry["st"]
+    L, IC = st.ln.chr.shape
+    PC = st.ln.pvid.shape[1]
+    lib = cudabuild.load()
+    words = lib.sz_lcb_vote_workspace_words(PC, min(CAP, IC), W)
+    if words < 0:
+        raise ValueError(f"lcb_step takes no call of CAP {CAP}, W {W}, PC {PC} (CAP and W at "
+                         "most 4,096, the vote's shared memory at most 227 KB)")
+    dev = st.ln.chr.device
+    pool = min(VOTE_POOL, L)
+    ws = _vote_workspace(dev, words * pool) if words else None
+    lens = tcheck.lens
+    arrays = [_array([x.data_ptr() for x in _state_leaves(st)]),
+              _array([carry[r].data_ptr() for r in CARRY_REGISTERS]), tcheck.ptrs,
+              _array(lens[:3] + lens[4:10])]
+    status = lib.sz_lcb_step(
+        *(ctypes.cast(a, ctypes.c_void_p) for a in arrays), ctypes.c_void_p(out.data_ptr()),
+        ctypes.c_void_p(0 if ws is None else ws.data_ptr()), pool, L, IC, PC, CAP, W, k,
+        depth, m, b, flank, min_run, int(slab_max), carry["steps"], steps_limit, walk_chunk,
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if status != 0:
+        raise RuntimeError(f"lcb_step launch failed: CUDA error {status}")
+    LAUNCHES["lcb_step"] += 1
+
+
+def step_blocks_per_sm(IC: int, PC: int, CAP: int, W: int, layout: int = 0, device="cuda"):
+    """(the step blocks an SM of `device` holds at once, the dynamic shared
+    bytes a block takes) at IC, PC, CAP, W in shared-memory layout
+    `layout`: 0, the kernel's, the vote's region and the walk's slab taking
+    the same bytes in turn; 1, the slab resident beside the vote's
+    region."""
+    smem = ctypes.c_longlong(0)
+    with torch.cuda.device(device):
+        got = cudabuild.load().sz_lcb_step_blocks_per_sm(
+            IC, PC, CAP, W, layout, ctypes.cast(ctypes.pointer(smem), ctypes.c_void_p))
+    if got < 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {-got}")
+    return got, smem.value

@@ -1,6 +1,8 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) for Hopper.
 
-Each source compiles with its own nvcc, all started together, and one
+Each source compiles with its own nvcc, all started together (the
+headers, csrc/*.cuh, are included by the sources that share their device
+code), and one
 more nvcc links the objects into a shared library with a plain C
 interface, which ctypes loads; nothing includes PyTorch's headers, so a
 build takes seconds.  The library lands in the package's gitignored
@@ -45,12 +47,14 @@ def _nvcc() -> str:
 
 
 def build() -> tuple[str, str]:
-    """Compile csrc/*.cu if no library for these sources exists yet.
+    """Compile csrc/*.cu (with the csrc/*.cuh they include) if no library
+    for these sources exists yet.
 
     Returns (library path, nvcc's `-Xptxas -v` report)."""
     sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + headers:
         with open(src, "rb") as f:
             digest.update(f.read())
     stem = os.path.join(BUILD_DIR, f"libsz_kernels_{digest.hexdigest()[:16]}")
@@ -113,6 +117,10 @@ SIGNATURES = {
                     + [_i32, _vp]),
     "sz_lcb_vote_workspace_words": [_i32, _i32, _i32],
     "sz_lcb_vote_blocks_per_sm": [_i32, _i32, _i32],
+    "sz_lcb_vote_probe": [_vp, _i32, _vp, _vp],
+    "sz_lcb_step": ([_vp] * 6 + [_i32, _i64, _i32, _i32, _i64, _i32] + [_i64] * 6
+                    + [_i32, _i64, _i64, _i32, _vp]),
+    "sz_lcb_step_blocks_per_sm": [_i32] * 5 + [_vp],
 }
 _RESTYPES = {"sz_class_scratch_bytes": _i64, "sz_round_scratch_bytes": _i64,
              "sz_lcb_vote_workspace_words": _i64}

@@ -23,11 +23,11 @@ from sibeliaz_tpu_torch.utils import cudabuild
 from sibeliaz_tpu_torch.utils.metrics import GLOBAL as metrics
 
 from torch_cases import (BUNDLE_CASES, CLASS_RUN_KINDS, K1_KINDS, LIMB_SPLITS, ROUND_ROW_KINDS,
-                         SHARD_EDGE_KINDS, VOTE_CASES, bundle_fields, class_case, class_runs,
-                         codes_with_n_runs, edge_band_round, k1_case, poa_case, poa_round,
-                         rand_block, related_genomes, repeat_genomes, round_rows,
+                         SHARD_EDGE_KINDS, STEP_CASES, VOTE_CASES, bundle_fields, class_case,
+                         class_runs, codes_with_n_runs, edge_band_round, k1_case, poa_case,
+                         poa_round, rand_block, related_genomes, repeat_genomes, round_rows,
                          shard_edge_case, split_limbs, spread_slots, state_apart, state_diff,
-                         tied_table, vote_case, walk_args, walk_genomes, walk_lanes,
+                         step_case, tied_table, vote_case, walk_args, walk_genomes, walk_lanes,
                          walk_tensors, with_sentinel_rows)
 
 pytestmark = pytest.mark.gpu
@@ -702,7 +702,7 @@ def test_fused_carry_cuda_matches_cpu(cuda, tier, steps):
         carries.append(carry)
         counters.append({k: v for k, v in metrics.counters.items() if not k.endswith("_s")})
     assert not state_diff(*carries)
-    assert counters[0] == counters[1] and counters[0]["fused_pushes"] > 0
+    assert counters[0] == counters[1] and counters[0]["fused_lane_occ_steps"] > 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -773,9 +773,10 @@ def walk_inputs(case, rows_given, again, widths=None):
 
 
 def test_lcb_walk_engines_never_run_the_plain_walk_on_the_card(cuda, monkeypatch):
-    """Both device LCB engines on the card walk through K5 alone: with the
+    """Both device LCB engines on the card walk on the card alone: with the
     plain walk made to raise, a phase of 32 bundles through each engine
-    gives eng.process's instance lists and launches K5."""
+    gives eng.process's instance lists; the resident engine launches K5,
+    the fused engine K7 (whose blocks walk by K5's algorithm) and no K5."""
     from sibeliaz_tpu_torch.lcb import fused, kernels, resident
 
     def refuse(*args):
@@ -786,12 +787,15 @@ def test_lcb_walk_engines_never_run_the_plain_walk_on_the_card(cuda, monkeypatch
     bundles = make_bundles_device(eng.t, "cpu")[:32]
     want = [[(x.c, x.s, x.fi, x.bi, x.fdist, x.bdist, x.cmp, x.ffin, x.bfin) for x in insts]
             for insts in (eng.process(b) for b in bundles)]
-    for fn in (fused.process_phase_fused, resident.process_phase_resident):
-        launches = kernels.LAUNCHES["lcb_walk"]
+    for fn, walks in ((fused.process_phase_fused, "lcb_step"),
+                      (resident.process_phase_resident, "lcb_walk")):
+        launches = dict(kernels.LAUNCHES)
         got = fn(eng, bundles, device="cuda")
         assert [[(x.c, x.s, x.fi, x.bi, x.fdist, x.bdist, x.cmp, x.ffin, x.bfin) for x in insts]
                 for insts in got] == want
-        assert kernels.LAUNCHES["lcb_walk"] > launches
+        assert kernels.LAUNCHES[walks] > launches[walks]
+        if walks == "lcb_step":
+            assert kernels.LAUNCHES["lcb_walk"] == launches["lcb_walk"]
 
 
 def walk_checked(eng, tb, st, args, limit):
@@ -1131,10 +1135,11 @@ def test_lcb_vote_on_the_tensors_device(cuda):
 
 
 def test_lcb_vote_engines_never_run_the_plain_vote_on_the_card(cuda, monkeypatch):
-    """Both device LCB engines on the card vote through K6 alone: with the
+    """Both device LCB engines on the card vote on the card alone: with the
     plain votes made to raise, a phase of 32 bundles through each engine
-    gives eng.process's instance lists and launches K6, once a vote call
-    (the resident engine) or an outer step (the fused engine)."""
+    gives eng.process's instance lists; the resident engine launches K6
+    once a vote call, the fused engine K7 once a run (its blocks vote by
+    K6's algorithm) and no K6."""
     from sibeliaz_tpu_torch.lcb import fused, kernels, resident
 
     def refuse(*args):
@@ -1146,12 +1151,119 @@ def test_lcb_vote_engines_never_run_the_plain_vote_on_the_card(cuda, monkeypatch
     bundles = make_bundles_device(eng.t, "cpu")[:32]
     want = [[(x.c, x.s, x.fi, x.bi, x.fdist, x.bdist, x.cmp, x.ffin, x.bfin) for x in insts]
             for insts in (eng.process(b) for b in bundles)]
-    for fn, counter in ((fused.process_phase_fused, "fused_steps_tier"),
-                        (resident.process_phase_resident, "resident_vote_calls")):
-        launches = kernels.LAUNCHES["lcb_vote"]
+    for fn, kernel, counter in ((fused.process_phase_fused, "lcb_step", "fused_runs"),
+                                (resident.process_phase_resident, "lcb_vote",
+                                 "resident_vote_calls")):
+        launches = dict(kernels.LAUNCHES)
         metrics.counters.clear()
         got = fn(eng, bundles, device="cuda")
         assert [[(x.c, x.s, x.fi, x.bi, x.fdist, x.bdist, x.cmp, x.ffin, x.bfin) for x in insts]
                 for insts in got] == want
-        calls = sum(v for k, v in metrics.counters.items() if k.startswith(counter))
-        assert kernels.LAUNCHES["lcb_vote"] - launches == calls > 0
+        calls = metrics.counters[counter]
+        assert kernels.LAUNCHES[kernel] - launches[kernel] == calls > 0
+        if kernel == "lcb_step":
+            assert kernels.LAUNCHES["lcb_vote"] == launches["lcb_vote"]
+
+
+# ---- K7 lcb_step ----------------------------------------------------------------
+
+
+def step_checked(tb_cpu, carry_cpu, tb, carry, a):
+    """One K7 call on the card against the plain version on the CPU from
+    the same carry: the state's 68 tensors and the 13 registers in every
+    column, and each lane's steps, pushes and occurrence steps, exact; one
+    launch and no K5 or K6 launch; the carry stepped in place.  Returns
+    (the card's LaneSteps, the plain version's)."""
+    from sibeliaz_tpu_torch.lcb import kernels
+
+    args = (a["CAP"], a["W"], a["slab_max"])
+    rest = (a["depth"], a["m"], a["b"], a["flank"], a["min_run"], a["steps_limit"],
+            a["walk_chunk"], a["compact_min"])
+    want = kernels.lcb_step(*args, tb_cpu, carry_cpu, *rest)
+    launches = dict(kernels.LAUNCHES)
+    leaves = [carry[r] for r in kernels.CARRY_REGISTERS] + list(state_leaves(carry["st"]))
+    got = kernels.lcb_step(*args, tb, carry, *rest)
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - launches[k] for k in launches} == {
+        "lcb_walk": 0, "lcb_vote": 0, "lcb_step": 1}
+    assert all(x is y for x, y in zip(
+        [got.carry[r] for r in kernels.CARRY_REGISTERS] + list(state_leaves(got.carry["st"])),
+        leaves))
+    assert not state_diff(got.carry, want.carry)
+    for name in ("steps", "pushes", "occ_steps"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+    return got, want
+
+
+def state_leaves(st):
+    from sibeliaz_tpu_torch.lcb.batched_push_device import _state_leaves
+
+    return _state_leaves(st)
+
+
+@pytest.mark.parametrize("steps", [1, 2, 5, 20, "end"])
+@pytest.mark.parametrize("tier", [(64, 32, 64, 128), (512, 16, 512, 1024)])
+def test_lcb_step_cuda_matches_cpu(cuda, tier, steps):
+    """K7 from the seeded lanes of 32 bundles, run 1, 2, 5 and 20 outer
+    steps and to the phase's end, at the narrow and the wide tier: the
+    plain version's carry and lane counts (step_checked)."""
+    from sibeliaz_tpu_torch.lcb import fused, resident
+
+    eng = fused_case()
+    bundles = make_bundles_device(eng.t, "cpu")[:32]
+    CAP, W, IC, PC = tier
+    carries = {}
+    for dev in ("cuda", "cpu"):
+        tb = resident._device_tables(eng, dev)
+        ln, _, ovf = resident._seed_lanes_device(tb, bundles, 32, IC, PC)
+        active = (torch.arange(32, device=dev) < len(bundles)) & ~ovf
+        carries[dev] = (tb, fused._init_carry(resident.seed_state(ln), active, 32))
+    a = dict(CAP=CAP, W=W, slab_max=IC >= fused.I_CAP, depth=eng.depth, m=eng.m, b=eng.b,
+             flank=eng.flank, min_run=eng.b * 2,
+             steps_limit=fused.MAX_STEPS if steps == "end" else steps,
+             walk_chunk=fused.WALK_CHUNK, compact_min=fused.COMPACT_MIN)
+    got, _ = step_checked(*carries["cpu"], *carries["cuda"], a)
+    if steps == "end":
+        assert not bool(got.carry["active"].any()) and int(got.steps.max()) > 20
+    else:
+        assert bool(got.carry["active"].any()) and int(got.steps.max()) == steps
+
+
+@pytest.mark.parametrize("name", sorted(STEP_CASES))
+def test_lcb_step_hand_laid_cuda_matches_cpu(cuda, name):
+    """K7 on torch_cases' hand-laid K7 cases: the plain version's carry and
+    lane counts, and what each case is laid for: the spilling vote (the
+    lane's spill flag), lanes retiered by the vote cap, lanes to hostfb by
+    a slab overflow, walks of many chunks, lanes still active at a limit
+    of 3 steps."""
+    tb_cpu, carry_cpu, a = step_case(name, "cpu")
+    tb, carry, _ = step_case(name, "cuda")
+    got, _ = step_checked(tb_cpu, carry_cpu, tb, carry, a)
+    c = got.carry
+    if name == "spill":
+        assert int(got.spilled[0]) == 1
+    elif name == "cap_overflow":
+        assert bool(c["retier"].any())
+    elif name == "slab_overflow":
+        assert bool(c["hostfb"].any())
+    elif name == "long_walks":
+        assert int(got.pushes.max()) > 2 * a["walk_chunk"]
+    else:
+        assert int(got.steps.max()) == 3 and bool(c["active"].any())
+
+
+def test_lcb_step_refusals_on_the_card(cuda):
+    """K7 steps the carry in place: a carry two of whose registers share
+    storage, or a register of the wrong type, raises before the launch."""
+    from sibeliaz_tpu_torch.lcb import kernels
+
+    tb, carry, a = step_case("step_limit", "cuda")
+    rest = (a["depth"], a["m"], a["b"], a["flank"], a["min_run"], a["steps_limit"],
+            a["walk_chunk"], a["compact_min"])
+    launches = kernels.LAUNCHES["lcb_step"]
+    tier = (a["CAP"], a["W"], a["slab_max"], tb)
+    with pytest.raises(ValueError, match="writes the carry in place"):
+        kernels.lcb_step(*tier, dict(carry, retier=carry["hostfb"]), *rest)
+    with pytest.raises(ValueError, match="stage"):
+        kernels.lcb_step(*tier, dict(carry, stage=carry["stage"].int()), *rest)
+    assert kernels.LAUNCHES["lcb_step"] == launches

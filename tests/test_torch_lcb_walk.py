@@ -175,10 +175,12 @@ def test_resident_walk_counts(monkeypatch, case):
 
 
 def test_fused_walk_counts(monkeypatch):
-    """The fused engine's steps count `fused_pushes` as each walk chunk's
-    lockstep pushes (its largest lane count) and `fused_lane_occ_steps` as
-    the chunk's lanes' counts, summed, read with the step's end-of-step
-    read: one read a step and one for each used-retry."""
+    """The fused engine's host loop (_phase_fused_seg) makes one walk
+    chunk a step, whose lockstep pushes are its largest lane count, and
+    counts `fused_lane_occ_steps` as the chunks' lanes' counts, summed
+    (read once at the end); one read a step besides.  (`fused_pushes`, the
+    chunks' lockstep pushes summed, went with K7, which steps each lane
+    alone.)"""
     eng = port_engine("related")
     tb, st, n_lanes = walk_lanes(eng, L, *NARROW, "cpu")
     chunks = []
@@ -197,7 +199,7 @@ def test_fused_walk_counts(monkeypatch):
                                       eng.flank, eng.b * 2, 12)
     counters = metrics.counters
     assert carry["steps"] == len(chunks) == 12
-    assert counters["fused_pushes"] == len(calls) == sum(p for p, _ in chunks) > 0
+    assert len(calls) == sum(p for p, _ in chunks) > 0
     assert counters["fused_lane_occ_steps"] == sum(o for _, o in chunks)
     assert counters["fused_host_syncs"] >= 13
 

@@ -1013,3 +1013,69 @@ def vote_case(name, device):
     n_max = int(lane_fields["n"][rows[0][rows[1]]].max(initial=0))
     rows = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in rows)
     return tb, ln, rows, CAP, W, depth, b, n_max
+
+
+# K7 lcb_step's hand-laid cases: name -> (genomes, tier (CAP, W, IC, PC),
+# slab_max, walk chunk, step limit).  "spill": spill_vote_case's lane (its
+# first vote's windows meet 2,496 vertices: on the card it spills to the
+# workspace); "cap_overflow": a vote cap of 3 (lanes of more instances
+# retier); "slab_overflow": lanes that outgrow the narrow slabs
+# (walk_genomes), taken as the widest (to hostfb); "long_walks": the lanes
+# start mid-walk toward a vertex up to 40 junctions on (walk_args), in walk
+# chunks of 2 pushes (a walk spans many steps); "step_limit": a limit of 3
+# steps (lanes still active at it).
+STEP_CASES = {
+    "spill": ("spill", (64, 64, 64, 16), True, 16, 40),
+    "cap_overflow": ("related", (3, 32, 64, 128), False, 16, 4096),
+    "slab_overflow": ("overflow", (64, 32, 64, 128), True, 16, 4096),
+    "long_walks": ("related", (64, 32, 64, 128), False, 2, 4096),
+    "step_limit": ("related", (64, 32, 64, 128), False, 16, 3),
+}
+
+
+def step_case(name, device):
+    """A K7 case of STEP_CASES on `device`: (tables, carry, the lcb_step
+    arguments after the carry as a dict).  The carry is seeded as the fused
+    engine seeds it (each of its tensors its own) from the first 32
+    bundles, or from the hand-laid lane."""
+    import torch
+
+    from sibeliaz_tpu_torch import pipeline
+    from sibeliaz_tpu_torch.config import Config
+    from sibeliaz_tpu_torch.lcb import fused, resident
+    from sibeliaz_tpu_torch.lcb.device_bundles import make_bundles_device
+    from sibeliaz_tpu_torch.lcb.oracle import LcbEngine
+
+    kind, (CAP, W, IC, PC), slab_max, chunk, limit = STEP_CASES[name]
+    cfg = Config(k=15)
+    args = dict(CAP=CAP, W=W, slab_max=slab_max, depth=cfg.looking_depth, m=cfg.min_block_size,
+                b=cfg.max_branch_size, flank=cfg.flanking, min_run=2 * cfg.max_branch_size,
+                steps_limit=limit, walk_chunk=chunk, compact_min=fused.COMPACT_MIN)
+    if kind == "spill":
+        fields, lane_fields, _, _ = spill_vote_case(W=W)
+        tb = fused.tables_from_numpy(fields, cfg.k, device)
+        ln = resident.lanes_from_numpy(lane_fields, device)
+        active = torch.ones(1, dtype=torch.bool, device=device)
+        args.update(depth=64, b=10_000)
+        return tb, fused._init_carry(resident.seed_state(ln), active, 1), args
+    if kind == "related":
+        seqs, names = related_genomes(520, length=1200, mut=0.03, rearrange=True)
+    else:
+        seqs, names = walk_genomes(3)
+        cfg = Config(k=15, abundance_threshold=1000)
+    table = pipeline.build_table(seqs, names, cfg, device="cpu")
+    eng = LcbEngine(table, cfg.min_block_size, cfg.max_branch_size, cfg.flanking)
+    tb = resident._device_tables(eng, device)
+    bundles = make_bundles_device(eng.t, "cpu")[:32]
+    ln, _, ovf = resident._seed_lanes_device(tb, bundles, 32, IC, PC)
+    active = (torch.arange(32, device=device) < len(bundles)) & ~ovf
+    carry = fused._init_carry(resident.seed_state(ln), active, 32)
+    if name == "long_walks":
+        rows, c, i, s, fwd, tvid = walk_args(eng, carry["st"], len(bundles),
+                                             np.random.default_rng(7), reach=40)
+        at = torch.from_numpy(rows).to(device)
+        for reg, vals in (("wc", c), ("wi", i), ("ws", s), ("wt", tvid),
+                          ("stage", (~fwd).astype(np.int64))):
+            carry[reg][at] = torch.from_numpy(vals).to(device)
+        carry["in_walk"][at] = True
+    return tb, carry, args
