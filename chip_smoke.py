@@ -14,7 +14,8 @@
     python3 chip_smoke.py --k5-time [OLDER.cu]  # K5 (and an older one) timed, see k5_time
     python3 chip_smoke.py --vote [OLDER.py]  # phase 17 alone (an older lcb/kernels.py's
                                              # K5 wrapper timed beside), see vote_phase
-    python3 chip_smoke.py --step             # phase 18 alone, see step_phase
+    python3 chip_smoke.py --step [OLDER_DIR]  # phase 18 alone with the split of a step
+                                             # (and an older K7 timed beside), see step_phase
 
 Phases, in order; any failure raises and the exit code is non-zero:
   1. device: the card's name and power limit, and the peak rates the
@@ -183,8 +184,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
      carry) and the whole call, the host loop's and the plain version's
      time, the bound and the chain floor (the longest lane's occurrence
      steps and outer steps over the "warp" and "vote" probes); the step
-     blocks an SM in both shared-memory layouts.  `--step` runs phases 1,
-     2 and 18 alone.
+     blocks an SM in both shared-memory layouts.  `--step [OLDER_DIR]`
+     runs phases 1, 2 and 18 alone, and adds the split of a step: the
+     stamped build's K7 (csrc/step_stamps.cuh) on both runs, exact, with the
+     longest lane's parts in microseconds a step; and, where OLDER_DIR holds
+     an older K7's sources (lcb_step.cu, lcb_vote.cu and the two headers of
+     the same C interface), that K7 built apart and timed beside this one
+     on both runs, in turns.
 The last two lines are a JSON summary of the kernels (time, plain time,
 bound, launches per main path; K1's and K2's "ms" are their one-limb
 instances' and "by_limbs" holds both instances'; K4's "ms" is its shape on
@@ -3070,6 +3076,137 @@ def to_cpu(tb, carry):
     return tables, step.carry_map(lambda x: x.cpu(), carry)
 
 
+def k7_split(torch, lcb_kernels, label, args, got):
+    """The split of one run's steps: the stamped build's K7
+    (csrc/step_stamps.cuh, built on first use beside the default library)
+    from the restored carry, exact against the run; for the lane of the
+    most cycles, each part in microseconds a step of that lane (its cycles
+    over the clock that lane's total and the stamped launch's time give)
+    and the counts a step.  Returns {part: us a step} with "clock_mhz"."""
+    from sibeliaz_tpu_torch.lcb import step
+
+    CAP, W, slab_max, tb, before, *rest = args
+    work = step.carry_map(lambda x: x.clone(), before)
+    restore = restorer(work, before)
+    L = before["active"].shape[0]
+    out = torch.empty((4, L), dtype=torch.int64, device="cuda")
+    parts = lcb_kernels.STAMP_PARTS
+    stamps = torch.zeros((len(parts), L), dtype=torch.int64, device="cuda")
+    ms = cuda_ms(torch, lambda: lcb_kernels.step_launch_into(
+        tb, work, CAP, W, slab_max, *rest[:-1], out, stamps=stamps), 3, quiet=True,
+                 setup=restore)
+    err = lane_steps_err(got, lcb_kernels.LaneSteps(work, *out))
+    check(err == 0, f"the stamped lcb_step differs from the run ({label}): {err}")
+    sums = stamps.cpu()
+    at = {p: q for q, p in enumerate(parts)}
+    lane = int(sums[at["total"]].argmax())
+    steps = int(out[0, lane])
+    start, end = sums[at["ns_start"]], sums[at["ns_end"]]
+    lane_ns = float(end[lane] - start[lane])
+    mhz = float(sums[at["total"], lane]) / lane_ns * 1e3
+    timed = parts[:at["total"] + 1]
+    us = {p: float(sums[at[p], lane]) / mhz / steps for p in timed}
+    us["other"] = us["total"] - sum(us[p] for p in timed[:-1])
+    per = {p: float(sums[at[p], lane]) / steps for p in parts[at["total"] + 1:at["walk_waits"]]}
+    for p in ("walk_waits", "walk_occ", "walk_issue"):  # within the pushes and stores
+        us[p] = float(sums[at[p], lane]) / mhz / steps
+    for p in ("inserts", "block_shifts"):
+        per[p] = float(sums[at[p], lane]) / steps
+    stepped = out[0].cpu() > 0
+    late = int(((start - start.min()) > int(0.5 * lane_ns))[stepped].sum())
+    print(f"lcb_step split {label}: stamped kernel {ms:.4f} ms, exact | lane {lane}: {steps} "
+          f"steps, {float(sums[at['total'], lane]):.0f} cycles in {lane_ns / 1e6:.4f} ms = "
+          f"{mhz:.1f} MHz; blocks span {float(end.max() - start.min()) / 1e6:.4f} ms, the lane "
+          f"starts at {float(start[lane] - start.min()) / 1e6:.4f} ms, {late} of "
+          f"{int(stepped.sum())} stepping lanes start past half its time | us a step: "
+          + ", ".join(f"{p} {v:.4f}" for p, v in us.items()) + " | a step: "
+          + ", ".join(f"{p} {v:.4f}" for p, v in per.items())
+          + f" | voters a vote {per['voters'] / max(per['votes'], 1e-9):.2f}")
+    t0 = start.min()
+    ends = sorted(range(L), key=lambda q: -int(end[q]))[:6]
+    print("  the last blocks to end (lane: SM, steps, start-end ms, its cycles as ms): " + "; ".join(
+        f"{q}: {int(sums[at['sm'], q])}, {int(out[0, q])}, {float(start[q] - t0) / 1e6:.3f}-"
+        f"{float(end[q] - t0) / 1e6:.3f}, {float(sums[at['total'], q]) / mhz / 1e3:.3f}"
+        for q in ends) + f" | SMs used {len(set(sums[at['sm']].tolist()))}")
+    return dict(us, clock_mhz=mhz)
+
+
+def build_older_k7(cudabuild, lcb_kernels, out_dir, older):
+    """An older K7 of PR 20's C interface (sz_lcb_step without the stamps
+    pointer), from the directory `older` holding its lcb_step.cu,
+    lcb_vote.cu, lcb_vote.cuh and lcb_walk.cuh, built alone with nvcc; its
+    -Xptxas -v report printed.  A function (tables, carry, CAP, W,
+    slab_max, depth, m, b, flank, min_run, steps_limit, walk_chunk, out)
+    that launches it on a carry lcb_step has checked."""
+    lib = os.path.join(out_dir, "k7_older.so")
+    sources = [os.path.join(older, f) for f in ("lcb_step.cu", "lcb_vote.cu")]
+    proc = subprocess.run([cudabuild._nvcc(), *cudabuild.NVCC_FLAGS, "-shared", "-o", lib,
+                           *sources], capture_output=True, text=True)
+    check(proc.returncode == 0, f"K7 {older} did not build:\n{proc.stderr}")
+    print(f"K7 {older}:")
+    print_ptxas(proc.stderr)
+    cdll = ctypes.CDLL(lib)
+    fn, words_of = cdll.sz_lcb_step, cdll.sz_lcb_vote_workspace_words
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fn.argtypes = ([vp] * 6 + [i32, i64, i32, i32, i64, i32] + [i64] * 6
+                   + [i32, i64, i64, i32, vp])
+    fn.restype = ctypes.c_int
+    words_of.argtypes, words_of.restype = [i32, i32, i32], i64
+
+    def launch(tb, carry, CAP, W, slab_max, depth, m, b, flank, min_run, steps_limit,
+               walk_chunk, out):
+        import torch
+        from sibeliaz_tpu_torch.lcb.batched_push_device import _state_leaves
+
+        st = carry["st"]
+        L, IC = st.ln.chr.shape
+        PC = st.ln.pvid.shape[1]
+        words = words_of(PC, min(CAP, IC), W)
+        pool = min(lcb_kernels.VOTE_POOL, L)
+        ws = lcb_kernels._vote_workspace(st.ln.chr.device, words * pool) if words else None
+        tcheck = lcb_kernels._table_check(tb, True)
+        lens = tcheck.lens
+        arrays = [lcb_kernels._array([x.data_ptr() for x in _state_leaves(st)]),
+                  lcb_kernels._array([carry[r].data_ptr() for r in lcb_kernels.CARRY_REGISTERS]),
+                  tcheck.ptrs, lcb_kernels._array(lens[:3] + lens[4:10])]
+        status = fn(*(ctypes.cast(a, ctypes.c_void_p) for a in arrays),
+                    ctypes.c_void_p(out.data_ptr()),
+                    ctypes.c_void_p(0 if ws is None else ws.data_ptr()), pool, L, IC, PC, CAP,
+                    W, tb.k, depth, m, b, flank, min_run, int(slab_max), carry["steps"],
+                    steps_limit, walk_chunk,
+                    ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        check(status == 0, f"K7 {older}: CUDA error {status}")
+
+    return launch
+
+
+def k7_older_vs_new(torch, lcb_kernels, label, args, got, older_launch, reps=5):
+    """The older K7 and this one on one run's arguments, each launch from
+    the restored carry (the restore untimed), in turns (older, new, new,
+    older), each exact against the run.  Returns {"older": [ms, ms],
+    "new": [ms, ms]}."""
+    from sibeliaz_tpu_torch.lcb import step
+
+    CAP, W, slab_max, tb, before, *rest = args
+    work = step.carry_map(lambda x: x.clone(), before)
+    restore = restorer(work, before)
+    out = torch.empty((4, before["active"].shape[0]), dtype=torch.int64, device="cuda")
+    launches = {"new": lambda: lcb_kernels.step_launch_into(tb, work, CAP, W, slab_max,
+                                                            *rest[:-1], out),
+                "older": lambda: older_launch(tb, work, CAP, W, slab_max, *rest[:-1], out)}
+    times = {}
+    for who in ("older", "new", "new", "older"):
+        times.setdefault(who, []).append(cuda_ms(torch, launches[who], reps, ahead=8, quiet=True,
+                                                 setup=restore))
+        err = lane_steps_err(got, lcb_kernels.LaneSteps(work, *out))
+        check(err == 0, f"K7 ({who}) differs from the run ({label}): {err}")
+    print(f"lcb_step {label}, older / this K7 in turns (older, this, this, older), exact: "
+          + " | ".join(f"{who} " + " / ".join(f"{t:.4f}" for t in ts) + " ms"
+                       for who, ts in times.items())
+          + f" | {min(times['older']) / min(times['new']):.2f}x")
+    return times
+
+
 def step_hand_laid(torch, lcb_kernels, cases):
     """K7 on tests/torch_cases.py's STEP_CASES against the plain version
     on the CPU from the same carry, exact, and what each case is laid for;
@@ -3092,7 +3229,9 @@ def step_hand_laid(torch, lcb_kernels, cases):
                 "cap_overflow": lambda: bool(c["retier"].any()),
                 "slab_overflow": lambda: bool(c["hostfb"].any()),
                 "long_walks": lambda: int(got.pushes.max()) > 2 * a["walk_chunk"],
-                "step_limit": lambda: int(got.steps.max()) == 3 and bool(c["active"].any())}
+                "step_limit": lambda: int(got.steps.max()) == 3 and bool(c["active"].any()),
+                "wide": lambda: (c["st"].ln.chr.shape[1], c["st"].ln.pvid.shape[1]) == (512, 1024)
+                and not bool(c["active"].any()) and int(got.pushes.sum()) > 0}
         check(laid[name](), f"K7 hand-laid {name}: not what it is laid for")
         print(f"lcb_step hand-laid {name}: equal to the plain version | steps "
               f"{int(got.steps.sum())} (longest {int(got.steps.max())}), pushes "
@@ -3103,15 +3242,18 @@ def step_hand_laid(torch, lcb_kernels, cases):
     return err
 
 
-def step_phase(torch, mods, peak_ops, label):
+def step_phase(torch, mods, peak_ops, label, split=False, older=None, out_dir=None):
     """Phase 18: K7 lcb_step on the card.  examples/' first phase (256
     bundles, k=15) through the fused engine with K7's calls recorded
     (StepRecorder), equal to eng.process; each recorded run (every tier)
     held to the host-loop route from the same carry (K6 and K5 a step,
     k7_vs_loop) with its times, bound and chain floor; the heaviest run
     held to the plain version on the CPU, timed; the hand-laid set; the
-    step blocks an SM in both shared-memory layouts.  Returns the summary
-    of the heaviest run and the largest error."""
+    step blocks an SM in both shared-memory layouts.  With `split`, each
+    run's split from the stamped build (k7_split) and, with `older` (a
+    directory of an older K7's sources), that K7 timed beside this one
+    (build_older_k7, k7_older_vs_new).  Returns the summary of the
+    heaviest run and the largest error."""
     (cases, _cli, pipeline, _device_poa, _msa, _poa_ref, _kernels, _align_kernels, Config,
      _alphabet, fasta, metrics) = mods
     from sibeliaz_tpu_torch.lcb import fused
@@ -3121,12 +3263,15 @@ def step_phase(torch, mods, peak_ops, label):
 
     phase(f"18 K7 lcb_step against the host loop and its plain version {label}")
     t_phase = time.time()
+    from sibeliaz_tpu_torch.utils import cudabuild
+
+    check(cudabuild.load().sz_lcb_step_stamp_parts() == 0, "the default build carries stamps")
     for IC, PC, CAP, W in ((64, 128, 64, 32), (512, 1024, 512, 32), (512, 1024, 512, 256)):
         print(f"step blocks an SM at IC {IC} PC {PC} CAP {CAP} W {W}: " + ", ".join(
             "{} ({} shared bytes) {}".format(*lcb_kernels.step_blocks_per_sm(IC, PC, CAP, W, lay),
                                             what)
-            for lay, what in ((0, "the vote's region and the slab in turn, the kernel's"),
-                              (1, "the slab resident beside the vote's region"))))
+            for lay, what in ((1, "the slab resident beside the vote's region, the kernel's"),
+                              (0, "PR 20's layout, the vote's region and the slab in turn"))))
     recs = fasta.read_many([os.path.join(EXAMPLES, "genome1.fa"),
                             os.path.join(EXAMPLES, "genome2.fa")])
     cfg = Config(k=15)
@@ -3154,6 +3299,13 @@ def step_phase(torch, mods, peak_ops, label):
                 "lanes)")
         results.append((name, args, run, k7_vs_loop(torch, lcb_kernels, name, args, run,
                                                     peak_ops, step_us)))
+    if split:
+        older_launch = (build_older_k7(cudabuild, lcb_kernels, out_dir, older) if older
+                        else None)
+        for name, args, run, _ in results:
+            k7_split(torch, lcb_kernels, name, args, run)
+            if older_launch:
+                k7_older_vs_new(torch, lcb_kernels, name, args, run, older_launch)
     name, args, run, heaviest = max(results, key=lambda x: x[3]["ms"])
     tb_cpu, carry_cpu = to_cpu(args[3], args[4])
     t0 = time.perf_counter()
@@ -3362,18 +3514,19 @@ def main(argv):
     resident_only = argv == ["--resident"]
     walk_only = argv == ["--walk"]
     vote_args = argv[1:] if argv[:1] == ["--vote"] and len(argv) <= 2 else None
-    step_only = argv == ["--step"]
+    step_args = argv[1:] if argv[:1] == ["--step"] and len(argv) <= 2 else None
     if argv[:1] == ["--k3-replay"] and len(argv) == 2:
         replay_dir = argv[1]
     elif argv[:1] == ["--k3-time"] and len(argv) == 2:
         time_kinds = argv[1].split(",")
     elif argv and not (k2_time or k1_time or sharded_only or fused_only or dryrun_only
-                       or resident_only or walk_only or step_only or k4_time_args is not None
+                       or resident_only or walk_only or step_args is not None
+                       or k4_time_args is not None
                        or k5_time_args is not None or vote_args is not None):
         print("usage: python3 chip_smoke.py [--k3-replay DIR | --k3-time KIND[,KIND...] | "
               "--k2-time | --k1-time | --k4-time [OLDER_ROUND_APPEND.cu] | --sharded | "
               "--fused | --dryrun | --resident | --walk | --k5-time [OLDER_LCB_WALK.cu] | "
-              "--vote [OLDER_LCB_KERNELS.py] | --step]", file=sys.stderr)
+              "--vote [OLDER_LCB_KERNELS.py] | --step [OLDER_K7_DIR]]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is visible", file=sys.stderr)
@@ -3488,8 +3641,9 @@ def main(argv):
         tmp.cleanup()
         print(smi)
         return 0
-    if step_only:
-        step_phase(torch, mods, peak_ops, label)
+    if step_args is not None:
+        step_phase(torch, mods, peak_ops, label, split=True,
+                   older=step_args[0] if step_args else None, out_dir=tmp.name)
         tmp.cleanup()
         print(smi)
         return 0

@@ -1,7 +1,8 @@
 // K6 lcb_vote: the LCB vote (MostPopularVertex over a lane's instances) for
 // both device LCB engines, for Hopper (sm_90a).  A row's vote is
-// lcb_vote.cuh's vote_row, which K7 lcb_step's blocks run too; this file
-// holds the kernel a row a block, its chain probe and its C interface.
+// lcb_vote.cuh's vote_row<false>; K7 lcb_step's blocks run vote_row<true>,
+// the same vote on a lane kept in shared memory; this file holds the
+// kernel a row a block, its chain probe and its C interface.
 //
 // Replaces sibeliaz_tpu/lcb/resident.py::_vote_gathered (:214-345), jitted
 // as _vote_round (:348), and the vote with its used-retry inside the
@@ -86,8 +87,9 @@ __global__ void __launch_bounds__(kThreads, 2) lcb_vote_kernel(Lanes ln, Tables 
   __shared__ Shared sh;
   __shared__ i64 o[kOut];
   const i64 row = blockIdx.x;
-  const int spilled = vote_row(ln, tb, pr, clip(a.idx[row], pr.L - 1), row, a.valid[row] != 0,
-                               a.fwd[row] != 0, a.try_used[row] != 0, smem, sh, o);
+  const int spilled = vote_row<false>(ln, tb, pr, clip(a.idx[row], pr.L - 1), row,
+                                      a.valid[row] != 0, a.fwd[row] != 0, a.try_used[row] != 0,
+                                      smem, sh, o);
   if (threadIdx.x < kOut) out[threadIdx.x * pr.A + row] = o[threadIdx.x];
   if (threadIdx.x == 0 && pr.spilled != nullptr) pr.spilled[row] = spilled;
 }

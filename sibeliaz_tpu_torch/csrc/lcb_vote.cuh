@@ -4,12 +4,21 @@
 // outer step of its lane, so both kernels vote by this one source.
 // vote_row takes every thread of a block of kThreads (256) and meets at
 // __syncthreads; it holds a workspace slice only inside the call.
+// vote_row<true> is K7's: its lane fields point at the lane's slab and
+// registers in shared memory (lane 0 of them), so it reads its columns and
+// its path row there and copies no pvid; its hash table is clear when it
+// starts (the caller clears it once, with clear_table) and the vote clears
+// the slots it claimed on its way out, so a vote touches only those; and
+// its winner is taken over the claimed slots alone, by warp 0 where they
+// are 32 at most.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "step_stamps.cuh"
 
 namespace {
 namespace vote {
@@ -76,6 +85,14 @@ __host__ __device__ inline int spill_limit(int H) { return H / 2; }
 // column arrays of CAP, two int arrays of CAP, the pvid row
 __host__ __device__ inline long long smem_bytes(int CAP, int PC, int H) {
   return 24LL * H + 72LL * CAP + 8LL * round8(CAP) + 8LL * PC;
+}
+
+// vote_row<true>'s: the table, six int64 column arrays of CAP (the
+// instances' strands, ends and order sequences are the slab's rows), two
+// int arrays of CAP and the list of claimed slots (spill_limit(H) ints);
+// no pvid row (the slab's); 16-byte aligned
+__host__ __device__ inline long long resident_smem_bytes(int CAP, int H) {
+  return (24LL * H + 48LL * CAP + 8LL * round8(CAP) + 4LL * spill_limit(H) + 15) / 16 * 16;
 }
 
 struct Cand {
@@ -145,11 +162,12 @@ struct Table {
 };
 
 // Adds an entry to the table in shared memory; a slot newly claimed past
-// `limit` sets *spill (the row then redoes its inserts in the workspace).
-// A table of H slots never holds more than limit + kThreads keys, so a free
-// slot is always found.
+// `limit` sets *spill (the row then redoes its inserts in the workspace),
+// one below it goes to `list` (where given) at its claim's rank.  A table
+// of H slots never holds more than limit + kThreads keys, so a free slot is
+// always found.
 __device__ void insert_shared(const Table& t, i64 vid, u64 w, u64 fk, int* claimed, int limit,
-                              volatile int* spill) {
+                              volatile int* spill, int* list) {
   const int m = t.slots - 1;
   int h = static_cast<int>(mix(vid)) & m;
   volatile i64* key = t.key;
@@ -160,7 +178,12 @@ __device__ void insert_shared(const Table& t, i64 vid, u64 w, u64 fk, int* claim
       const u64 prev = atomicCAS(reinterpret_cast<u64*>(t.key + h), static_cast<u64>(kEmpty),
                                  static_cast<u64>(vid));
       if (prev == static_cast<u64>(kEmpty)) {
-        if (atomicAdd(claimed, 1) >= limit) *spill = 1;
+        const int q = atomicAdd(claimed, 1);
+        if (q >= limit) {
+          *spill = 1;
+        } else if (list != nullptr) {
+          list[q] = h;
+        }
         break;
       }
       if (static_cast<i64>(prev) == vid) break;
@@ -207,11 +230,15 @@ __device__ __forceinline__ bool slot_ok(const Tables& tb, const Cols& cl, int c,
   const i64 s = cl.s[c];
   const i64 it = wadd(cl.end[c], wmul(s, fwd ? d : -d));
   const i64 flat = clip(wadd(cl.base[c], it), tb.n_j - 1);
-  const i64 vid = wmul(s, __ldg(tb.jid + flat));
+  // the slot's three table words at once (one round of latency, not three)
+  const i64 jid = __ldg(tb.jid + flat);
+  const i64 jpos = __ldg(tb.jpos + flat);
+  const uint8_t used = __ldg(tb.used + clip(s > 0 ? flat : flat - 1, tb.n_used - 1));
+  const i64 vid = wmul(s, jid);
   *vid_out = vid;
   if (!(it >= 0 && it < cl.clen[c])) return false;
   if (!(d < depth)) {
-    const i64 pos = wadd(__ldg(tb.jpos + flat), s < 0 ? tb.k : 0);
+    const i64 pos = wadd(jpos, s < 0 ? tb.k : 0);
     if (!(iabs(wsub(pos, cl.opos[c])) <= b)) return false;
   }
   // torch.searchsorted(pvid row, vid), left: over the whole row
@@ -226,10 +253,7 @@ __device__ __forceinline__ bool slot_ok(const Tables& tb, const Cols& cl, int c,
   }
   const i64 at = lo < PC ? pvid[lo] : kBig;
   if (at == vid && static_cast<i64>(lo) < pn) return false;
-  if (!tu && (s > 0 || it > 0)) {
-    const i64 uslot = s > 0 ? flat : flat - 1;
-    if (__ldg(tb.used + clip(uslot, tb.n_used - 1)) > 0) return false;
-  }
+  if (!tu && (s > 0 || it > 0) && used > 0) return false;
   return true;
 }
 
@@ -237,16 +261,56 @@ __device__ __forceinline__ u64 final_key(const Cols& cl, int c, i64 d) {
   return (cl.skey[c] << 24) | (static_cast<u64>(c) << 12) | static_cast<u64>(d - 1);
 }
 
+// The winner's outputs o[0..5] from the block's best candidate (thread 0).
+__device__ __forceinline__ void emit(const Lanes& ln, const Params& pr, const Cols& cl,
+                                     const Cand& best, i64 lane, int ovf, i64* o) {
+  const bool has = best.col >= 0 && best.neg < 0;
+  o[0] = has ? best.vid : 0;
+  o[1] = has ? wsub(0, best.neg) : 0;
+  o[2] = has ? ln.p[L_CHR][lane * pr.IC + best.col] : 0;
+  o[3] = has ? cl.end[best.col] : 0;
+  o[4] = has ? cl.s[best.col] : 0;
+  o[5] = ovf;
+}
+
+// The candidate of an occupied slot (key k, total tot, final entry fk).
+__device__ __forceinline__ Cand cand_of(const Params& pr, const Cols& cl, i64 k, u64 tot,
+                                        u64 fk) {
+  Cand cd;
+  cd.col = static_cast<int>((fk >> 12) & 0xfff);
+  const i64 d = static_cast<i64>(fk & 0xfff) + 1;
+  cd.neg = static_cast<i64>(0ULL - tot);
+  cd.okey = cl.okey[cd.col];
+  cd.arr = wadd(wmul(cl.seq[cd.col], pr.W), d - 1);
+  cd.vid = k;
+  return cd;
+}
+
+__device__ __forceinline__ Cand warp_min(Cand best) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const Cand other = shfl_down(best, off);
+    if (before(other, best)) best = other;
+  }
+  return best;
+}
+
 // One vote of the row (try_used `tu`): the windows, the group-by, the
-// winner.  Writes o[0..5] (thread 0's copy is the result).
+// winner.  Writes o[0..5] (thread 0's copy is the result).  `stamp`: the
+// vote's windows and winner go to the step's split (step_stamps.cuh).
+// kResident: the table is clear on entry and cleared again on the way out,
+// its claimed slots listed in `list`.
+template <bool kResident>
 __device__ void vote(const Tables& tb, const Lanes& ln, const Params& pr, const Cols& cl,
                      const Table& tab, Shared& sh, const i64* pvid, i64 lane, i64 row, bool fwd,
-                     bool tu, i64 pn, i64* o) {
+                     bool tu, i64 pn, i64* o, bool stamp, int* list) {
   const int tid = threadIdx.x, warp = tid >> 5, lid = tid & 31;
-  for (int h = tid; h < tab.slots; h += kThreads) {
-    tab.key[h] = kEmpty;
-    tab.tot[h] = 0;
-    tab.fin[h] = 0;
+  const long long t_windows = stamps::now();
+  if (!kResident) {
+    for (int h = tid; h < tab.slots; h += kThreads) {
+      tab.key[h] = kEmpty;
+      tab.tot[h] = 0;
+      tab.fin[h] = 0;
+    }
   }
   if (tid == 0) {
     sh.spill = 0;
@@ -270,7 +334,7 @@ __device__ void vote(const Tables& tb, const Lanes& ln, const Params& pr, const 
       const unsigned fail = __ballot_sync(0xffffffffu, !ok);
       const int first = fail ? __ffs(fail) - 1 : 32;
       if (lid < first && vid < kBig && !*spill) {
-        insert_shared(tab, vid, w, final_key(cl, c, d), &sh.claimed, limit, spill);
+        insert_shared(tab, vid, w, final_key(cl, c, d), &sh.claimed, limit, spill, list);
       }
       len += first;
       if (first < 32) break;
@@ -282,8 +346,10 @@ __device__ void vote(const Tables& tb, const Lanes& ln, const Params& pr, const 
     }
   }
   __syncthreads();
+  // read once by every thread here: thread 0 resets them at the next vote
+  const int spilled = sh.spill, claimed = sh.claimed;
   Table t = tab;
-  if (sh.spill) {
+  if (spilled) {
     // the workspace route: a free slice of the pool (waiting where none
     // is), cleared to twice the row's entries
     if (pr.ws == nullptr || pr.pool < 1) __trap();
@@ -326,51 +392,78 @@ __device__ void vote(const Tables& tb, const Lanes& ln, const Params& pr, const 
     }
     __syncthreads();
   }
-  // the winner: a block-wide minimum over the occupied slots
+  if (stamp) stamps::add(stamps::V_WINDOWS, t_windows);
+  const long long t_winner = stamps::now();
+  const int ovf = sh.ovf;
   Cand best;
   best.col = -1;
   best.neg = best.okey = best.arr = best.vid = 0;
-  for (int h = tid; h < t.slots; h += kThreads) {
-    const bool shared = !sh.spill;
-    const i64 k = shared ? t.key[h] : static_cast<i64>(__ldcg(reinterpret_cast<u64*>(t.key + h)));
-    if (k == kEmpty) continue;
-    const u64 tot = shared ? t.tot[h] : __ldcg(t.tot + h);
-    const u64 fk = shared ? t.fin[h] : __ldcg(t.fin + h);
-    Cand cd;
-    cd.col = static_cast<int>((fk >> 12) & 0xfff);
-    const i64 d = static_cast<i64>(fk & 0xfff) + 1;
-    cd.neg = static_cast<i64>(0ULL - tot);
-    cd.okey = cl.okey[cd.col];
-    cd.arr = wadd(wmul(cl.seq[cd.col], pr.W), d - 1);
-    cd.vid = k;
-    if (before(cd, best)) best = cd;
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    const Cand other = shfl_down(best, off);
-    if (before(other, best)) best = other;
-  }
-  if (lid == 0) sh.red[warp] = best;
-  __syncthreads();
-  if (tid == 0) {
-    for (int q = 1; q < kWarps; ++q) {
-      if (before(sh.red[q], best)) best = sh.red[q];
+  if (kResident && !spilled && claimed <= 32) {
+    // the winner of at most 32 vertices: warp 0, a claimed slot a lane
+    if (warp == 0) {
+      if (lid < claimed) {
+        const int h = list[lid];
+        best = cand_of(pr, cl, t.key[h], t.tot[h], t.fin[h]);
+      }
+      best = warp_min(best);
+      if (tid == 0) emit(ln, pr, cl, best, lane, ovf, o);
     }
-    const bool has = best.col >= 0 && best.neg < 0;
-    o[0] = has ? best.vid : 0;
-    o[1] = has ? wsub(0, best.neg) : 0;
-    o[2] = has ? ln.p[L_CHR][lane * pr.IC + best.col] : 0;
-    o[3] = has ? cl.end[best.col] : 0;
-    o[4] = has ? cl.s[best.col] : 0;
-    o[5] = sh.ovf;
+  } else {
+    // the winner: a block-wide minimum over the occupied slots (a resident
+    // row that did not spill: the claimed ones)
+    const bool listed = kResident && !spilled;
+    const int n_slots = listed ? claimed : t.slots;
+    for (int q = tid; q < n_slots; q += kThreads) {
+      const int h = listed ? list[q] : q;
+      const i64 k = spilled ? static_cast<i64>(__ldcg(reinterpret_cast<u64*>(t.key + h)))
+                            : t.key[h];
+      if (k == kEmpty) continue;
+      const u64 tot = spilled ? __ldcg(t.tot + h) : t.tot[h];
+      const u64 fk = spilled ? __ldcg(t.fin + h) : t.fin[h];
+      const Cand cd = cand_of(pr, cl, k, tot, fk);
+      if (before(cd, best)) best = cd;
+    }
+    best = warp_min(best);
+    if (lid == 0) sh.red[warp] = best;
+    __syncthreads();
+    if (tid == 0) {
+      for (int q = 1; q < kWarps; ++q) {
+        if (before(sh.red[q], best)) best = sh.red[q];
+      }
+      emit(ln, pr, cl, best, lane, ovf, o);
+    }
   }
   __syncthreads();
-  if (tid == 0 && sh.spill) {
+  if (tid == 0 && spilled) {
     // every read of the slice is done (the barrier above): hand it back
     __threadfence();
     atomicExch(pr.ws + sh.slice, 0ULL);
   }
+  if (kResident) {
+    // the table clear for the next vote: the claimed slots, or all where the
+    // row spilled (its claims past the limit are not listed)
+    const int n_clear = spilled ? tab.slots : claimed;
+    for (int q = tid; q < n_clear; q += kThreads) {
+      const int h = spilled ? q : list[q];
+      tab.key[h] = kEmpty;
+      tab.tot[h] = 0;
+      tab.fin[h] = 0;
+    }
+  }
+  if (stamp) stamps::add(stamps::V_WINNER, t_winner);
 }
 
+// The hash table of H slots at `smem` cleared, by the whole block (K7's,
+// once a launch; the caller meets at a barrier before the first vote).
+__device__ void clear_table(unsigned char* smem, int H) {
+  i64* key = reinterpret_cast<i64*>(smem);
+  u64* rest = reinterpret_cast<u64*>(key + H);
+  for (int h = threadIdx.x; h < H; h += kThreads) {
+    key[h] = kEmpty;
+    rest[h] = 0;
+    rest[H + h] = 0;
+  }
+}
 
 // One row's vote, by all kThreads threads of the block: lane `lane` (in
 // [0, L)) as row `row` of the call (its first workspace slice is row %
@@ -379,9 +472,14 @@ __device__ void vote(const Tables& tb, const Lanes& ln, const Params& pr, const 
 // smem_bytes(CAP, PC, H), 16-byte aligned.  Writes best_vid, best_cnt,
 // ochr, oidx, ostr, overflow to o[0..5] (shared memory; every thread may
 // read them on return) and returns 1 where a vote took the workspace.
+// kResident (K7): ln's fields are the lane's slab rows and registers in
+// shared memory, read as lane 0 (`lane` 0), pvid the slab's own; smem
+// holds resident_smem_bytes(CAP, H), the table clear (clear_table).
+template <bool kResident>
 __device__ int vote_row(const Lanes& ln, const Tables& tb, const Params& pr, i64 lane, i64 row,
                         bool valid, bool fwd, bool tu, unsigned char* smem, Shared& sh, i64* o) {
   const int tid = threadIdx.x;
+  const long long t_cols = stamps::now();
   const int H = pr.H, CAP = pr.CAP;
   Table tab;
   tab.key = reinterpret_cast<i64*>(smem);
@@ -391,17 +489,26 @@ __device__ int vote_row(const Lanes& ln, const Tables& tb, const Params& pr, i64
   Cols cl;
   i64* col0 = reinterpret_cast<i64*>(tab.fin + H);
   cl.okey = col0;
-  cl.end = col0 + CAP;
-  cl.base = col0 + 2 * CAP;
-  cl.clen = col0 + 3 * CAP;
-  cl.opos = col0 + 4 * CAP;
-  cl.w = col0 + 5 * CAP;
-  cl.seq = col0 + 6 * CAP;
-  cl.s = col0 + 7 * CAP;
-  cl.skey = reinterpret_cast<u64*>(col0 + 8 * CAP);
-  cl.voters = reinterpret_cast<int*>(col0 + 9 * CAP);
+  cl.base = col0 + CAP;
+  cl.clen = col0 + 2 * CAP;
+  cl.opos = col0 + 3 * CAP;
+  cl.w = col0 + 4 * CAP;
+  cl.skey = reinterpret_cast<u64*>(col0 + 5 * CAP);
+  if (kResident) {  // the slab's rows (the order sequences' once use_good is known)
+    cl.s = const_cast<i64*>(ln.p[L_S]);
+    cl.end = const_cast<i64*>(fwd ? ln.p[L_BI] : ln.p[L_FI]);
+    cl.seq = nullptr;
+    cl.voters = reinterpret_cast<int*>(col0 + 6 * CAP);
+  } else {
+    cl.end = col0 + 6 * CAP;
+    cl.seq = col0 + 7 * CAP;
+    cl.s = col0 + 8 * CAP;
+    cl.voters = reinterpret_cast<int*>(col0 + 9 * CAP);
+  }
   cl.vlen = cl.voters + round8(CAP);
-  i64* pvid = reinterpret_cast<i64*>(cl.vlen + round8(CAP));
+  int* list = kResident ? cl.vlen + round8(CAP) : nullptr;
+  i64* row_pvid = reinterpret_cast<i64*>(cl.vlen + round8(CAP));
+  const i64* pvid = kResident ? ln.p[L_PVID] : row_pvid;
 
   const i64 n = valid ? ln.p[L_N][lane] : 0;
   const i64 start = valid ? (fwd ? ln.p[L_RV][lane] : ln.p[L_LV][lane]) : kBig;
@@ -411,7 +518,9 @@ __device__ int vote_row(const Lanes& ln, const Tables& tb, const Params& pr, i64
     sh.n_voters = 0;
     sh.nofit = 0;
   }
-  for (int j = tid; j < pr.PC; j += kThreads) pvid[j] = ln.p[L_PVID][lane * pr.PC + j];
+  if (!kResident) {
+    for (int j = tid; j < pr.PC; j += kThreads) row_pvid[j] = ln.p[L_PVID][lane * pr.PC + j];
+  }
   const i64 at = lane * pr.IC;
   __syncthreads();
   for (int c = tid; c < CAP; c += kThreads) {
@@ -419,6 +528,7 @@ __device__ int vote_row(const Lanes& ln, const Tables& tb, const Params& pr, i64
   }
   __syncthreads();
   const bool use_good = sh.n_good >= 2;
+  if (kResident) cl.seq = const_cast<i64*>(use_good ? ln.p[L_GOOD] : ln.p[L_INS]);
   // the columns: the voting instances' derived values
   for (int c = tid; c < CAP; c += kThreads) {
     const i64 good = ln.p[L_GOOD][at + c];
@@ -436,14 +546,16 @@ __device__ int vote_row(const Lanes& ln, const Tables& tb, const Params& pr, i64
     const i64 jb = __ldg(tb.jpos + clip(wadd(base, bi), nj));
     cl.okey[c] = static_cast<i64>((s > 0 ? 1ULL << 62 : 0ULL) | (static_cast<u64>(chr) << 40) |
                                   static_cast<u64>(end));
-    cl.end[c] = end;
     cl.base[c] = base;
     cl.clen[c] = __ldg(tb.chr_len + clip(chr, tb.n_chr_len - 1));
     cl.opos[c] = wadd(__ldg(tb.jpos + clip(wadd(base, end), nj)), s < 0 ? tb.k : 0);
     cl.w[c] = wadd(iabs(wsub(jf, jb)), 1);
-    cl.seq[c] = seq;
     cl.skey[c] = static_cast<u64>(seq);
-    cl.s[c] = s;
+    if (!kResident) {
+      cl.end[c] = end;
+      cl.seq[c] = seq;
+      cl.s[c] = s;
+    }
     if (seq < 0 || seq >= kSeqLimit) sh.nofit = 1;
     cl.voters[atomicAdd(&sh.n_voters, 1)] = c;
   }
@@ -461,10 +573,17 @@ __device__ int vote_row(const Lanes& ln, const Tables& tb, const Params& pr, i64
     }
     __syncthreads();
   }
-  vote(tb, ln, pr, cl, tab, sh, pvid, lane, row, fwd, tu, pn, o);
+  stamps::add(stamps::V_COLS, t_cols);
+  stamps::count(stamps::C_VOTES, 1);
+  stamps::count(stamps::C_VOTERS, sh.n_voters);
+  stamps::count(stamps::C_ROUNDS, (sh.n_voters + kWarps - 1) / kWarps);
+  vote<kResident>(tb, ln, pr, cl, tab, sh, pvid, lane, row, fwd, tu, pn, o, true, list);
   int spilled = sh.spill;
   if (pr.retry && valid && fwd && o[0] == 0 && o[5] == 0) {
-    vote(tb, ln, pr, cl, tab, sh, pvid, lane, row, fwd, true, pn, o);
+    const long long t_retry = stamps::now();
+    vote<kResident>(tb, ln, pr, cl, tab, sh, pvid, lane, row, fwd, true, pn, o, false, list);
+    stamps::add(stamps::V_RETRY, t_retry);
+    stamps::count(stamps::C_RETRIES, 1);
     spilled |= sh.spill;
   }
   return spilled;

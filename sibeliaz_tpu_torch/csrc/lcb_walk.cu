@@ -1,7 +1,8 @@
 // K5 lcb_walk: the LCB walk's device loop for both device LCB engines, for
-// Hopper (sm_90a).  A row's walk is lcb_walk.cuh's walk_row, which K7
-// lcb_step's blocks run too; this file holds the kernel a row a block,
-// its probes and its C interface.
+// Hopper (sm_90a).  A row's walk is lcb_walk.cuh's walk_row<false>; K7
+// lcb_step's blocks run walk_row<true>, the same walk on a lane kept in
+// shared memory; this file holds the kernel a row a block, its probes and
+// its C interface.
 //
 // Replaces the jax.lax.while_loop of pushes of
 // sibeliaz_tpu/lcb/resident.py::_walk_device (:138) and
@@ -124,7 +125,7 @@ lcb_walk_kernel(Leaves st, Tables tb, Args a, Params pr, i64* res) {
     mbar_init(&sh.bar, 1);
     sh.parity = 0;
   }
-  const RowOut o = walk_row(st, tb, pr, row, smem, sh);
+  const RowOut o = walk_row<false>(st, tb, pr, row, smem, sh, nullptr);
   if (threadIdx.x >= 32) return;
   const i64 lane_in = row.lane;
   const i64 it = o.it, score = o.score, n = o.n, rf = o.rf, lf = o.lf;

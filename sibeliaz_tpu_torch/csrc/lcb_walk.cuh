@@ -11,12 +11,23 @@
 // barriers.  The slab's mbarrier (Shared::bar) is the caller's to set up
 // once; walk_row waits on its phase Shared::parity and flips it after each
 // load, so one barrier serves any number of walks of a block.
+//
+// walk_row<true> is K7's: the lane's live slab stays in the caller's
+// shared memory for the whole launch, and its registers, best score,
+// snapshot flag and uniform tails in a Resident beside it.  Such a walk
+// loads nothing and finds no tails (the caller found them when it loaded
+// the slab; the walk keeps them up to date), stores no live slab (the
+// caller stores it once, at the launch's end), and writes the registers
+// back to the Resident; its rewind and result snapshots go out by bulk
+// stores as K5's do, which the caller waits for before it loads a slab.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "step_stamps.cuh"
 
 namespace {
 namespace walk {
@@ -101,10 +112,36 @@ __host__ __device__ inline long long slab_bytes(int IC, int PC) {
   return 8LL * kWide * round_up(IC, 2) + 2LL * round_up(IC, 16) + 16LL * round_up(PC, 2);
 }
 
+// The slab laid out from `smem` (16-byte aligned) at widths IC and PC.
+__device__ __forceinline__ Slab slab_of(uint8_t* smem, int IC, int PC) {
+  Slab S;
+  S.IC = IC;
+  S.ICw = round_up(IC, 2);
+  S.ICb = round_up(IC, 16);
+  S.PC = PC;
+  S.PCw = round_up(PC, 2);
+  S.wide = reinterpret_cast<i64*>(smem);
+  S.fin = smem + 8 * kWide * S.ICw;
+  S.pvid = reinterpret_cast<i64*>(S.fin + 2 * S.ICb);
+  S.pdist = S.pvid + S.PCw;
+  return S;
+}
+
 // The six instance rows a score reads: the slab's in shared memory, or a
 // lane's in device memory (a row that does not walk scores from there).
 struct Cols {
   const i64 *chr, *fi, *bi, *fdist, *bdist, *good;
+};
+
+// A lane kept in shared memory for a whole K7 launch, beside its slab:
+// what K5 reads from and writes to the lane's device memory at each walk.
+struct Resident {
+  i64 reg[kRegs];    // the lane's registers, in kRegField's order
+  i64 best;          // its best score
+  int has_snap;      // its snapshot flag
+  int t_inst, t_path;  // the slab's uniform tails' first columns
+  int stored;        // slabs (bit q: slab q) whose bulk stores may be in flight
+  int alias;         // the result slab is due a copy of the rewind slab (see walk_row)
 };
 
 // What warp 0 hands the block, and what it keeps beside the slab.
@@ -356,6 +393,49 @@ __device__ int warp_search(int W, int lane, Left left) {
     }
   }
   return lo;
+}
+
+// ---- the uniform tails ----
+
+// This thread's part (columns 2h, 2h+1 for h = rank, rank + size, ...) of
+// the path table's uniform tail: the first column from which pvid and
+// pdist equal the last column's (pairs of int64 columns a 16-byte load:
+// every row starts on 16 bytes); the caller takes the maximum.
+__device__ int path_tail_part(const Slab& S, int rank, int size) {
+  const int PC = S.PC;
+  int tp = 0;
+  const longlong2* pv2 = reinterpret_cast<const longlong2*>(S.pvid);
+  const longlong2* pd2 = reinterpret_cast<const longlong2*>(S.pdist);
+  const i64 pv_last = S.pvid[PC - 1], pd_last = S.pdist[PC - 1];
+  for (int h = rank; 2 * h < PC - 1; h += size) {
+    const longlong2 v = pv2[h], w = pd2[h];
+    if (v.x != pv_last || w.x != pd_last) tp = 2 * h + 1;
+    if (2 * h + 1 < PC - 1 && (v.y != pv_last || w.y != pd_last)) tp = 2 * h + 2;
+  }
+  return tp;
+}
+
+// The same for the instance rows (every instance field).
+__device__ int inst_tail_part(const Slab& S, int rank, int size) {
+  const int IC = S.IC;
+  int ti = 0;
+  i64 last[kWide];
+#pragma unroll
+  for (int w = 0; w < kWide; ++w) last[w] = S.wide[w * S.ICw + IC - 1];
+  const uint8_t f0 = S.fin[IC - 1], f1 = S.fin[S.ICb + IC - 1];
+  for (int h = rank; 2 * h < IC - 1; h += size) {
+    bool d0 = S.fin[2 * h] != f0 || S.fin[S.ICb + 2 * h] != f1;
+    bool d1 = S.fin[2 * h + 1] != f0 || S.fin[S.ICb + 2 * h + 1] != f1;
+#pragma unroll
+    for (int w = 0; w < kWide; ++w) {
+      const longlong2 v = reinterpret_cast<const longlong2*>(S.wide + w * S.ICw)[h];
+      d0 |= v.x != last[w];
+      d1 |= v.y != last[w];
+    }
+    if (d0) ti = 2 * h + 1;
+    if (2 * h + 1 < IC - 1 && d1) ti = 2 * h + 2;
+  }
+  return ti;
 }
 
 // ---- shifts, score ----
@@ -647,28 +727,32 @@ struct RowOut {
 // block's dynamic shared memory, at least slab_bytes(IC, PC), 16-byte
 // aligned.  On return lane 0 of warp 0 may still have bulk stores in flight:
 // the caller waits for them (bulk_wait_read before shared memory is reused,
-// bulk_wait_all before the state is read again).
+// bulk_wait_all before the state is read again).  kResident (K7): smem
+// holds the lane's live slab and `keep` the rest of it (Resident); the walk
+// reads and writes them there, and its bulk stores in flight are noted in
+// keep->stored (the caller clears it once it has waited for them all).
+// Its mask can hold two slabs at most (the rewind's and the result's): a
+// lane of warp 0 issues each row's store, so every lane of warp 0 waits
+// for its own.  A forward improvement above 0 (the rewind and the result
+// slab at once) stores the rewind slab alone and sets keep->alias: the
+// result slab is then due a copy of it, which the caller makes where the
+// rewind slab is about to change, at the rewind or the launch's end (once
+// a forward snapshot is above 0 the best score is, so every later forward
+// improvement is such a pair and the copy stays due).
+template <bool kResident>
 __device__ RowOut walk_row(const Leaves& st, const Tables& tb, const Params& pr, const Row& a,
-                           uint8_t* smem, Shared& sh) {
+                           uint8_t* smem, Shared& sh, Resident* keep) {
   const int IC = pr.IC, PC = pr.PC;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long t_load = stamps::now();
   const i64 L = pr.L;
   const i64 lane_in = a.lane;
   const bool valid = lane_in >= 0 && lane_in < L;
   const i64 src = clip(lane_in, L - 1);
 
-  Slab S;
-  S.IC = IC;
-  S.ICw = round_up(IC, 2);
-  S.ICb = round_up(IC, 16);
-  S.PC = PC;
-  S.PCw = round_up(PC, 2);
-  S.wide = reinterpret_cast<i64*>(smem);
-  S.fin = smem + 8 * kWide * S.ICw;
-  S.pvid = reinterpret_cast<i64*>(S.fin + 2 * S.ICb);
-  S.pdist = S.pvid + S.PCw;
+  const Slab S = slab_of(smem, IC, PC);
 
-  if (tid == 0) {
+  if (!kResident && tid == 0) {
     sh.t_inst = 0;
     sh.t_path = 0;
   }
@@ -703,7 +787,7 @@ __device__ RowOut walk_row(const Leaves& st, const Tables& tb, const Params& pr,
       if (bulk_row(pr, 0, k)) bulk_load(sm, global_row(st, 0, field, src, bytes), bytes, &sh.bar);
     }
   };
-  if (walking && warp != 0) {
+  if (!kResident && walking && warp != 0) {
     for (int k = 0; k < kLaneRows; ++k) {
       int bytes, field;
       uint8_t* sm = lane_row(S, k, bytes, field);
@@ -720,62 +804,46 @@ __device__ RowOut walk_row(const Leaves& st, const Tables& tb, const Params& pr,
   bool has_snap = false;
   Edge e{};
   if (warp == 0) {
+    if constexpr (kResident) {
 #pragma unroll
-    for (int q = 0; q < kRegs; ++q) {
-      const int f = kRegField[q];
-      reg[q] = is_bool(f) ? static_cast<const uint8_t*>(st.p[f])[src]
-                          : static_cast<const i64*>(st.p[f])[src];
+      for (int q = 0; q < kRegs; ++q) reg[q] = keep->reg[q];
+      best = keep->best;
+      has_snap = keep->has_snap != 0;
+    } else {
+#pragma unroll
+      for (int q = 0; q < kRegs; ++q) {
+        const int f = kRegField[q];
+        reg[q] = is_bool(f) ? static_cast<const uint8_t*>(st.p[f])[src]
+                            : static_cast<const i64*>(st.p[f])[src];
+      }
+      best = static_cast<const i64*>(st.p[3 * kLaneFields])[src];
+      has_snap = static_cast<const uint8_t*>(st.p[3 * kLaneFields + 1])[src] != 0;
     }
-    best = static_cast<const i64*>(st.p[3 * kLaneFields])[src];
-    has_snap = static_cast<const uint8_t*>(st.p[3 * kLaneFields + 1])[src] != 0;
     if (walking) {
       e = edge_at(tb, c, cbase0, wadd(it0, wmul(lane, d)), s, fwd, tvid);
       const i64 ev0 = shfl64(e.ev, 0), eu0 = shfl64(e.eu, 0);
-      if (lane == 0) load_slab();
+      if (!kResident && lane == 0) load_slab();
       prefetch_occ(tb, sh, lane, 0, shfl64(e.lo, 0), shfl64(e.cnt, 0), fwd ? ev0 : eu0, fwd,
                    shfl64(e.ech, 0), ev0);
     }
   }
-  if (walking) mbar_wait(&sh.bar, parity);
+  if (!kResident && walking) mbar_wait(&sh.bar, parity);
   block_sync();
-  if (walking && tid == 0) sh.parity = parity ^ 1;  // every thread is past its wait
+  if (!kResident && walking && tid == 0) sh.parity = parity ^ 1;  // every thread is past its wait
+  stamps::add(stamps::W_LOAD, t_load);
+  stamps::count(stamps::C_WALKS, 1);
 
   if (warp != 0) {  // the block's other warps
-    if (walking) {
+    if (!kResident && walking) {
       // the uniform tails, while warp 0 walks: the first column from which
       // every path field (instance field) equals the last column's, handed
       // over at a barrier each (warp 0 shifts nothing before it has them)
       // (pairs of int64 columns a 16-byte load: every row starts on 16 bytes)
       const int rank = tid - 32, size = kThreads - 32;
-      int tp = 0, ti = 0;
-      const longlong2* pv2 = reinterpret_cast<const longlong2*>(S.pvid);
-      const longlong2* pd2 = reinterpret_cast<const longlong2*>(S.pdist);
-      const i64 pv_last = S.pvid[PC - 1], pd_last = S.pdist[PC - 1];
-      for (int h = rank; 2 * h < PC - 1; h += size) {
-        const longlong2 v = pv2[h], w = pd2[h];
-        if (v.x != pv_last || w.x != pd_last) tp = 2 * h + 1;
-        if (2 * h + 1 < PC - 1 && (v.y != pv_last || w.y != pd_last)) tp = 2 * h + 2;
-      }
-      tp = __reduce_max_sync(0xffffffffu, tp);
+      const int tp = __reduce_max_sync(0xffffffffu, path_tail_part(S, rank, size));
       if (lane == 0) atomicMax(&sh.t_path, tp);
       helpers_arrive(kPathTail);
-      i64 last[kWide];
-#pragma unroll
-      for (int w = 0; w < kWide; ++w) last[w] = S.wide[w * S.ICw + IC - 1];
-      const uint8_t f0 = S.fin[IC - 1], f1 = S.fin[S.ICb + IC - 1];
-      for (int h = rank; 2 * h < IC - 1; h += size) {
-        bool d0 = S.fin[2 * h] != f0 || S.fin[S.ICb + 2 * h] != f1;
-        bool d1 = S.fin[2 * h + 1] != f0 || S.fin[S.ICb + 2 * h + 1] != f1;
-#pragma unroll
-        for (int w = 0; w < kWide; ++w) {
-          const longlong2 v = reinterpret_cast<const longlong2*>(S.wide + w * S.ICw)[h];
-          d0 |= v.x != last[w];
-          d1 |= v.y != last[w];
-        }
-        if (d0) ti = 2 * h + 1;
-        if (2 * h + 1 < IC - 1 && d1) ti = 2 * h + 2;
-      }
-      ti = __reduce_max_sync(0xffffffffu, ti);
+      const int ti = __reduce_max_sync(0xffffffffu, inst_tail_part(S, rank, size));
       if (lane == 0) atomicMax(&sh.t_inst, ti);
       helpers_arrive(kInstTail);
     }
@@ -801,8 +869,8 @@ __device__ RowOut walk_row(const Leaves& st, const Tables& tb, const Params& pr,
   ovf = ovf != 0;
   // the tails, once the helpers hand them over; ChangeBacks before that
   // raise t_inst's floor (a column they write is no longer uniform)
-  int t_inst = 0, t_path = 0;
-  bool have_path_tail = false, have_inst_tail = false;
+  int t_inst = kResident ? keep->t_inst : 0, t_path = kResident ? keep->t_path : 0;
+  bool have_path_tail = kResident, have_inst_tail = kResident;
   // slabs whose rows do not all take bulk stores (bit q: slab q)
   int by_loop = 0;
   for (int q = 0; q < 3; ++q) {
@@ -810,28 +878,40 @@ __device__ RowOut walk_row(const Leaves& st, const Tables& tb, const Params& pr,
       by_loop |= 1 << q;
     }
   }
-  const Cols cols = walking ? slab_cols(S) : lane_cols(st, src, IC);
+  const Cols cols = kResident || walking ? slab_cols(S) : lane_cols(st, src, IC);
 
-  int stored = 0;  // slabs (bit q: slab q) that bulk stores went to
+  int stored = kResident ? keep->stored : 0;  // slabs (bit q: slab q) that bulk stores went to
+  bool alias = kResident && keep->alias != 0;
   auto score_now = [&]() -> i64 {
+    const long long t_score = stamps::now();
+    i64 got;
     if (n <= kWarpCols) {
       i64 sum = 0;
       int bad = 0;
       score_part(tb, cols, IC, n, rf, lf, pr.flank, lane, 32, sum, bad);
       sum = warp_sum(sum);
-      return __any_sync(0xffffffffu, bad) ? kNegInf : sum;
+      got = __any_sync(0xffffffffu, bad) ? kNegInf : sum;
+    } else {
+      if (lane == 0) {
+        sh.job = J_SCORE;
+        sh.n = n;
+        sh.rf = rf;
+        sh.lf = lf;
+        sh.cols = cols;
+      }
+      got = call_block(tb, pr, S, sh, st, lane_in);
+      stamps::count(stamps::C_BLOCK_SCORES, 1);
     }
-    if (lane == 0) {
-      sh.job = J_SCORE;
-      sh.n = n;
-      sh.rf = rf;
-      sh.lf = lf;
-      sh.cols = cols;
-    }
-    return call_block(tb, pr, S, sh, st, lane_in);
+    stamps::add(stamps::W_SCORES, t_score);
+    return got;
   };
   // the lane's registers and slab rows out to the slabs in `mask`
   auto store_lane = [&](int mask) {
+    const long long t_store = stamps::now();
+    if (kResident && (mask & 6) == 6) {  // the pair: the rewind slab now, the result's later
+      mask = 2;
+      alias = true;
+    }
     for (int q = 0; q < 3; ++q) {
       if ((mask & (1 << q)) && lane < kRegs) {
         const int f = kRegField[lane];
@@ -848,7 +928,28 @@ __device__ RowOut walk_row(const Leaves& st, const Tables& tb, const Params& pr,
     }
     fence_async_smem();
     __syncwarp();
-    if (lane == 0) {
+    const long long t_issue = stamps::now();
+    if (kResident) {
+      // the rows a lane each (slab after slab of the mask), so that their
+      // bulk copies issue side by side; every lane waits for its own
+      if (mask & stored) {
+        const long long t_wait = stamps::now();
+        bulk_wait_all();
+        stamps::add(stamps::W_WAITS, t_wait);
+      }
+      int r = 0;
+      for (int q = 0; q < 3; ++q) {
+        if (!(mask & (1 << q))) continue;
+        const int k = lane - r;
+        if (k >= 0 && k < kLaneRows && bulk_row(pr, q, k)) {
+          int bytes, field;
+          uint8_t* sm = lane_row(S, k, bytes, field);
+          bulk_store(global_row(st, q, field, lane_in, bytes), sm, bytes);
+        }
+        r += kLaneRows;
+      }
+      bulk_commit();
+    } else if (lane == 0) {
       if (mask & stored) bulk_wait_all();
       for (int q = 0; q < 3; ++q) {
         if (!(mask & (1 << q))) continue;
@@ -860,6 +961,7 @@ __device__ RowOut walk_row(const Leaves& st, const Tables& tb, const Params& pr,
       }
       bulk_commit();
     }
+    stamps::add(stamps::W_ISSUE, t_issue);
     stored |= mask;
     if (mask & by_loop) {
       if (lane == 0) {
@@ -868,14 +970,16 @@ __device__ RowOut walk_row(const Leaves& st, const Tables& tb, const Params& pr,
       }
       call_block(tb, pr, S, sh, st, lane_in);
     }
+    stamps::add(stamps::W_STORES, t_store);
   };
 
   i64 it = it0;
-  bool last = a.last, after = at0, pending = false, have_score = false;
+  // (a resident lane's earlier walks may have stores reading the slab)
+  bool last = a.last, after = at0, pending = kResident && stored != 0, have_score = false;
   bool live_stored = false;
   i64 pushes = 0, occ_steps = 0, score = 0;
   // a row walking lane L-1 reports the sentinels' state results: lane L-1 as it was
-  const bool serve = a.serve && valid;
+  const bool serve = !kResident && a.serve && valid;
   i64 init[5] = {0, n, rf, lf, ovf};
   if (serve) init[0] = score_now();
   const i64* pvid = S.pvid;
@@ -886,6 +990,9 @@ __device__ RowOut walk_row(const Leaves& st, const Tables& tb, const Params& pr,
   const i64* sgn = S.w(F_S);
 
   bool active = walking;
+  const long long t_loop = stamps::now();
+  const long long inner0 =
+      stamps::sum(stamps::W_TAILS) + stamps::sum(stamps::W_SCORES) + stamps::sum(stamps::W_STORES);
   for (int t = 0; active && t < pr.limit; ++t) {
     const int el = t & 31;
     if (el == 0 && t > 0) {
@@ -905,14 +1012,18 @@ __device__ RowOut walk_row(const Leaves& st, const Tables& tb, const Params& pr,
     const bool success = !member && !ovf;
     if (success) {
       if (pending) {  // the last improvement's stores have read the slab
-        if (lane == 0) bulk_wait_read();
+        const long long t_wait = stamps::now();
+        if (kResident || lane == 0) bulk_wait_read();
+        stamps::add(stamps::W_WAITS, t_wait);
         __syncwarp();
         pending = false;
       }
       ovf = ovf || pn >= PC - 1;
       pn = wadd(pn, 1);
       if (!have_path_tail) {
+        const long long t_tail = stamps::now();
         warp0_wait(kPathTail);
+        stamps::add(stamps::W_TAILS, t_tail);
         t_path = sh.t_path;
         have_path_tail = true;
       }
@@ -937,6 +1048,7 @@ __device__ RowOut walk_row(const Leaves& st, const Tables& tb, const Params& pr,
       }
 
       // ---- the occurrence loop ----
+      const long long t_occ = stamps::now();
       for (i64 j = 0; j < occ_cnt && !ovf; ++j) {
         const int oe = static_cast<int>(j & 31);
         if (oe == 0 && (j > 0 || t > 0)) {
@@ -1041,7 +1153,9 @@ __device__ RowOut walk_row(const Leaves& st, const Tables& tb, const Params& pr,
           if (n < IC) {  // insert a new instance at the bound
             const i64 vals[kInst] = {cj, sj, ij, ij, dval, dval, ij, 0, 0, -1, next_ins};
             if (!have_inst_tail) {
+              const long long t_tail = stamps::now();
               warp0_wait(kInstTail);
+              stamps::add(stamps::W_TAILS, t_tail);
               t_inst = t_inst > sh.t_inst ? t_inst : sh.t_inst;
               have_inst_tail = true;
             }
@@ -1057,7 +1171,9 @@ __device__ RowOut walk_row(const Leaves& st, const Tables& tb, const Params& pr,
                 for (int f = 0; f < kInst; ++f) sh.vals[f] = vals[f];
               }
               call_block(tb, pr, S, sh, st, lane_in);
+              stamps::count(stamps::C_BLOCK_SHIFTS, 1);
             }
+            stamps::count(stamps::C_INSERTS, 1);
             const int tm = (t_inst > p ? t_inst : p) + 1;
             t_inst = tm < IC ? tm : IC;
             n = wadd(n, 1);
@@ -1068,6 +1184,7 @@ __device__ RowOut walk_row(const Leaves& st, const Tables& tb, const Params& pr,
         }
       }
 
+      stamps::add(stamps::W_OCC, t_occ);
       if (fwd) {
         rf = dval;
         rv = ev;
@@ -1075,7 +1192,7 @@ __device__ RowOut walk_row(const Leaves& st, const Tables& tb, const Params& pr,
         lf = dval;
         lv = eu;
       }
-      if (after || ovf || t + 1 == pr.limit) {  // the last push: the live lane is final
+      if (!kResident && (after || ovf || t + 1 == pr.limit)) {  // the last push: the live lane is final
         store_lane(1);
         live_stored = true;
       }
@@ -1095,9 +1212,24 @@ __device__ RowOut walk_row(const Leaves& st, const Tables& tb, const Params& pr,
     last = success;
     active = !after && !ovf;
   }
+  // the loop's time but its tail waits, scores and stores
+  stamps::add(stamps::W_PUSHES, t_loop + (stamps::sum(stamps::W_TAILS) +
+                                          stamps::sum(stamps::W_SCORES) +
+                                          stamps::sum(stamps::W_STORES) - inner0));
 
   if (!have_score) score = serve ? init[0] : score_now();  // the lane as it was
-  if (valid && pushes > 0) {
+  if constexpr (kResident) {  // the lane as the walk leaves it, beside its slab
+    if (lane == 0) {
+#pragma unroll
+      for (int q = 0; q < kRegs; ++q) keep->reg[q] = reg[q];
+      keep->best = best;
+      keep->has_snap = has_snap;
+      keep->t_inst = t_inst;
+      keep->t_path = t_path;
+      keep->stored = stored;
+      keep->alias = alias;
+    }
+  } else if (valid && pushes > 0) {
     if (!live_stored) store_lane(1);
     if (lane == 0) {
       static_cast<i64*>(st.p[3 * kLaneFields])[lane_in] = best;
@@ -1105,8 +1237,10 @@ __device__ RowOut walk_row(const Leaves& st, const Tables& tb, const Params& pr,
     }
   }
   if (walking) {  // each barrier the helpers arrived at is met once
+    const long long t_tail = stamps::now();
     if (!have_path_tail) warp0_wait(kPathTail);
     if (!have_inst_tail) warp0_wait(kInstTail);
+    stamps::add(stamps::W_TAILS, t_tail);
   }
   if (lane == 0) sh.job = J_DONE;
   __syncwarp();

@@ -23,7 +23,7 @@ Capacity policy (exactness is never traded):
     narrow slab overflows, is re-run from its seed at the next tier — the
     protocol is deterministic against the phase-frozen `used` snapshot, so
     a from-seed replay is exact.  Each call holds at most VOTE_BUDGET
-    vote elements (L*CAP*W);
+    vote elements (L*CAP*W) (the CPU route's; `lanes_a_call`);
   * lanes overflowing hard capacities (I_CAP instances, P_CAP path
     vertices, MAX_STEPS, the last tier's vote cap) go to the host oracle
     (`eng.process`).
@@ -64,6 +64,11 @@ A port of sibeliaz_tpu/lcb/fused.py.  How it differs:
     vote workspace (`fused_spilled_lanes`, the card's);
   * `run_fused` and `process_phase_fused` take the device ("cuda" unless
     the caller passes "cpu");
+  * on the card a tier's lanes go PHASE_LANES a call, whatever its CAP and
+    W (`lanes_a_call`): K7 holds no [L, CAP, W] vote tensors (each lane
+    votes in its block's shared memory, a spilling one in a slice of K6's
+    workspace, min(VOTE_POOL, L) slices whatever L), so VOTE_BUDGET, which
+    bounds the plain vote's tensors, bounds only the CPU route;
   * in place of `mesh=`, a `devices=` list (which may repeat a device):
     each call's lanes are padded to a multiple of the devices and cut into
     contiguous slices, one a device, seeded on the host at full width
@@ -315,6 +320,17 @@ def tiers_of(eng: LcbEngine, bundles: Sequence[Bundle], full_width: bool = False
     return tiers
 
 
+def lanes_a_call(CAP: int, W: int, on_card: bool, vote_budget: int) -> int:
+    """The lanes of one lcb_step call at a tier of vote cap CAP and window
+    W.  On the card (`on_card`) PHASE_LANES: K7's votes hold no [L, CAP, W]
+    tensors, and its spill workspace is VOTE_POOL slices at most whatever
+    L.  On the CPU the plain host loop's vote holds L * CAP * W elements,
+    `vote_budget` at most (8 lanes at least)."""
+    if on_card:
+        return PHASE_LANES
+    return max(8, min(PHASE_LANES, vote_budget // (CAP * W)))
+
+
 def _check_devices(devices) -> List[torch.device]:
     """The device list as torch devices ("cuda" as the current card), a
     device per slice, repeats allowed.  Raises for an empty list, a list
@@ -342,7 +358,8 @@ def process_phase_fused(eng: LcbEngine, bundles: Sequence[Bundle], vote_budget=N
 
     Tier ladder from `tiers_of` (full-width slabs over a device list); a
     lane whose vote overflows a cap re-runs from its seed at the next tier.
-    Calls are chunked so L*CAP*W stays under the vote budget; over a
+    Calls are chunked by `lanes_a_call` (on the CPU so that L*CAP*W stays
+    under the vote budget; on the card PHASE_LANES a call); over a
     device list each call's lanes are padded to a multiple of the devices.
     Hard-capacity lanes (I_CAP instances / P_CAP path / the step bound /
     the last tier's caps) go to the host oracle."""
@@ -362,9 +379,10 @@ def process_phase_fused(eng: LcbEngine, bundles: Sequence[Bundle], vote_budget=N
     work = list(range(nb))
     oracle: List[int] = []
     vb = vote_budget or VOTE_BUDGET
+    on_card = all(torch.device(d).type == "cuda" for d in (devices or [device]))
     for t, (CAP, W, IC, PC) in enumerate(tiers):
         last = t == len(tiers) - 1
-        chunk = max(8, min(PHASE_LANES, vb // (CAP * W)))
+        chunk = lanes_a_call(CAP, W, on_card, vb)
         escalate: List[int] = []
         t0 = time.time()
         for lo in range(0, len(work), chunk):
@@ -398,8 +416,8 @@ def process_phase_fused(eng: LcbEngine, bundles: Sequence[Bundle], vote_budget=N
 def run_fused(eng: LcbEngine, device="cuda", vote_budget=None, devices=None):
     """Full LCB run with fused-phase exploration on `device`, or with each
     phase's lanes over `devices` (process_phase_fused); vote_budget
-    (elements per call, see vote_budget_from_bytes) bounds device memory
-    from the CLI's -f flag."""
+    (elements per call, see vote_budget_from_bytes), from the CLI's -f
+    flag, bounds the CPU route's vote tensors (lanes_a_call)."""
     from sibeliaz_tpu_torch.lcb.device_bundles import make_bundles_device
 
     if devices is not None:

@@ -55,7 +55,12 @@ and the forward->backward rewind until the lane is done or the step limit
 (lcb/step.py's host loop, its plain version, on the CPU).  It writes the
 carry (the state and the 13 CARRY_REGISTERS) in place, so no two of its
 81 tensors may overlap, and its only allocation is its [4, L] per-lane
-results; it reads nothing of the card.
+results; it reads nothing of the card.  Each block keeps its lane's live
+slab and its vote's region in shared memory for the whole launch, so a
+tier whose slab and vote do not fit the 227 KB a block may opt in to is
+refused before the launch.  A build with STAMP_DEFINES (chip_smoke.py
+--step's) also writes each lane's split of its steps (STAMP_PARTS) where
+step_launch_into is given `stamps`.
 
 The wrappers check every tensor they pass to the card: its device, type,
 shape and contiguity (and K5 and K7 the state's overlaps).  The tables'
@@ -589,6 +594,7 @@ def lcb_step(CAP: int, W: int, slab_max: bool, tb: DeviceTables, carry, depth: i
     if CAP < 1 or W < 1 or walk_chunk < 0:
         raise ValueError(f"lcb_step takes CAP >= 1, W >= 1 and walk_chunk >= 0, got {CAP}, {W}, "
                          f"{walk_chunk}")
+    _step_words(cudabuild.load(), IC, PC, CAP, W)
     pair = overlapping(leaves + regs, list(tcheck.tables))
     if pair is not None:
         names = _leaf_names() + list(CARRY_REGISTERS) + [f"tables.{f}" for f in TABLE_FIELDS]
@@ -604,28 +610,57 @@ def lcb_step(CAP: int, W: int, slab_max: bool, tb: DeviceTables, carry, depth: i
 
 def step_launch_into(tb: DeviceTables, carry, CAP: int, W: int, slab_max: bool, depth: int,
                      m: int, b: int, flank: int, min_run: int, steps_limit: int,
-                     walk_chunk: int, out) -> None:
+                     walk_chunk: int, out, stamps=None) -> None:
     """Launches K7 on a carry lcb_step has checked, stepping it in place,
     into `out` ([4, L] int64, LaneSteps' per-lane rows).  A launch from the
     same carry writes the same values, so a timing loop restores the carry
-    before each launch (chip_smoke.py's K7 times)."""
+    before each launch (chip_smoke.py's K7 times).  With `stamps`
+    ([STAMP_PARTS, L] int64) the stamped build launches instead and writes
+    each lane's split of its steps there (csrc/step_stamps.cuh; only
+    chip_smoke.py --step builds it)."""
     _launch_step(_table_check(tb, True), carry, CAP, W, slab_max, tb.k, depth, m, b, flank,
-                 min_run, steps_limit, walk_chunk, out)
+                 min_run, steps_limit, walk_chunk, out, stamps)
+
+
+# csrc/step_stamps.cuh's parts of a step (cycles summed per lane), then its
+# counts, in the order of a stamped launch's rows
+STAMP_PARTS = ("vote_cols", "vote_windows", "vote_winner", "vote_retry", "walk_load",
+               "walk_tails", "walk_pushes", "walk_scores", "walk_stores", "registers",
+               "rewind", "total", "votes", "voters", "window_rounds", "retries", "walks",
+               "block_scores", "walk_waits", "walk_occ", "walk_issue", "inserts",
+               "block_shifts", "ns_start", "ns_end", "sm")
+STAMP_DEFINES = ("SZ_STEP_STAMPS",)
+
+
+def _step_words(lib, IC: int, PC: int, CAP: int, W: int) -> int:
+    """The vote workspace's words a slice of a K7 launch at these shapes
+    (csrc/lcb_step.cu's step_workspace_words); raises ValueError for a
+    shape the kernel does not take: a lane's slab and vote region past the
+    227 KB of shared memory a block may opt in to, or CAP or W past
+    4,096."""
+    words = lib.sz_lcb_step_workspace_words(IC, PC, CAP, W)
+    if words < 0:
+        raise ValueError(f"lcb_step keeps a lane's slab and vote in shared memory: IC {IC}, PC "
+                         f"{PC}, CAP {CAP}, W {W} take more than the 232,448 bytes a block may "
+                         "opt in to (or CAP or W is past 4,096)")
+    return words
 
 
 def _launch_step(tcheck: _TableCheck, carry, CAP: int, W: int, slab_max: bool, k: int,
                  depth: int, m: int, b: int, flank: int, min_run: int, steps_limit: int,
-                 walk_chunk: int, out) -> None:
+                 walk_chunk: int, out, stamps=None) -> None:
     """Launches K7 with the device's vote workspace where a vote can spill
-    (min(VOTE_POOL, L) slices, as K6's)."""
+    (min(VOTE_POOL, L) slices, as K6's); with `stamps`, the stamped
+    build's K7."""
     st = carry["st"]
     L, IC = st.ln.chr.shape
     PC = st.ln.pvid.shape[1]
-    lib = cudabuild.load()
-    words = lib.sz_lcb_vote_workspace_words(PC, min(CAP, IC), W)
-    if words < 0:
-        raise ValueError(f"lcb_step takes no call of CAP {CAP}, W {W}, PC {PC} (CAP and W at "
-                         "most 4,096, the vote's shared memory at most 227 KB)")
+    lib = cudabuild.load(STAMP_DEFINES if stamps is not None else ())
+    if stamps is not None:
+        if lib.sz_lcb_step_stamp_parts() != len(STAMP_PARTS):
+            raise RuntimeError("the stamped K7 build does not have STAMP_PARTS' rows")
+        _require(stamps, torch.int64, torch.Size((len(STAMP_PARTS), L)), "stamps")
+    words = _step_words(lib, IC, PC, CAP, W)
     dev = st.ln.chr.device
     pool = min(VOTE_POOL, L)
     ws = _vote_workspace(dev, words * pool) if words else None
@@ -637,18 +672,19 @@ def _launch_step(tcheck: _TableCheck, carry, CAP: int, W: int, slab_max: bool, k
         *(ctypes.cast(a, ctypes.c_void_p) for a in arrays), ctypes.c_void_p(out.data_ptr()),
         ctypes.c_void_p(0 if ws is None else ws.data_ptr()), pool, L, IC, PC, CAP, W, k,
         depth, m, b, flank, min_run, int(slab_max), carry["steps"], steps_limit, walk_chunk,
+        ctypes.c_void_p(0 if stamps is None else stamps.data_ptr()),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if status != 0:
         raise RuntimeError(f"lcb_step launch failed: CUDA error {status}")
     LAUNCHES["lcb_step"] += 1
 
 
-def step_blocks_per_sm(IC: int, PC: int, CAP: int, W: int, layout: int = 0, device="cuda"):
+def step_blocks_per_sm(IC: int, PC: int, CAP: int, W: int, layout: int = 1, device="cuda"):
     """(the step blocks an SM of `device` holds at once, the dynamic shared
     bytes a block takes) at IC, PC, CAP, W in shared-memory layout
-    `layout`: 0, the kernel's, the vote's region and the walk's slab taking
-    the same bytes in turn; 1, the slab resident beside the vote's
-    region."""
+    `layout`: 1, the kernel's, the slab resident beside the vote's region;
+    0, PR 20's, the vote's region and the walk's slab taking the same bytes
+    in turn."""
     smem = ctypes.c_longlong(0)
     with torch.cuda.device(device):
         got = cudabuild.load().sz_lcb_step_blocks_per_sm(

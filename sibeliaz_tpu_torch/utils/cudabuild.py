@@ -8,7 +8,10 @@ interface, which ctypes loads; nothing includes PyTorch's headers, so a
 build takes seconds.  The library lands in the package's gitignored
 `_build/` directory, named by a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one is reused.  The first kernel launch
-triggers the build; `build()` can also be called up front.
+triggers the build; `build()` can also be called up front.  A build with
+`defines` (K7's stamped build, `("SZ_STEP_STAMPS",)`, which only
+chip_smoke.py --step asks for) adds a -D flag each, so it hashes to a
+library of its own beside the default one.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_lib = None
+_libs = {}
 
 
 def _nvcc() -> str:
@@ -46,14 +49,16 @@ def _nvcc() -> str:
     return path
 
 
-def build() -> tuple[str, str]:
-    """Compile csrc/*.cu (with the csrc/*.cuh they include) if no library
-    for these sources exists yet.
+def build(defines=()) -> tuple[str, str]:
+    """Compile csrc/*.cu (with the csrc/*.cuh they include), each macro of
+    `defines` defined, if no library for these sources and flags exists
+    yet.
 
     Returns (library path, nvcc's `-Xptxas -v` report)."""
     sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
     headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
+    digest = hashlib.sha256(" ".join(flags).encode())
     for src in sources + headers:
         with open(src, "rb") as f:
             digest.update(f.read())
@@ -69,7 +74,7 @@ def build() -> tuple[str, str]:
         jobs = []
         for src in sources:
             obj = os.path.join(tmp_dir, os.path.basename(src) + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            cmd = [nvcc, *flags, "-c", "-o", obj, src]
             jobs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             )))
@@ -119,11 +124,13 @@ SIGNATURES = {
     "sz_lcb_vote_blocks_per_sm": [_i32, _i32, _i32],
     "sz_lcb_vote_probe": [_vp, _i32, _vp, _vp],
     "sz_lcb_step": ([_vp] * 6 + [_i32, _i64, _i32, _i32, _i64, _i32] + [_i64] * 6
-                    + [_i32, _i64, _i64, _i32, _vp]),
+                    + [_i32, _i64, _i64, _i32, _vp, _vp]),
     "sz_lcb_step_blocks_per_sm": [_i32] * 5 + [_vp],
+    "sz_lcb_step_stamp_parts": [],
+    "sz_lcb_step_workspace_words": [_i32] * 4,
 }
 _RESTYPES = {"sz_class_scratch_bytes": _i64, "sz_round_scratch_bytes": _i64,
-             "sz_lcb_vote_workspace_words": _i64}
+             "sz_lcb_vote_workspace_words": _i64, "sz_lcb_step_workspace_words": _i64}
 
 
 def bind(lib: ctypes.CDLL, names=None) -> ctypes.CDLL:
@@ -136,9 +143,10 @@ def bind(lib: ctypes.CDLL, names=None) -> ctypes.CDLL:
     return lib
 
 
-def load() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
-    global _lib
-    if _lib is None:
-        _lib = bind(ctypes.CDLL(build()[0]))
-    return _lib
+def load(defines=()) -> ctypes.CDLL:
+    """The loaded kernel library (built with `defines`), built on first
+    use."""
+    defines = tuple(defines)
+    if defines not in _libs:
+        _libs[defines] = bind(ctypes.CDLL(build(defines)[0]))
+    return _libs[defines]

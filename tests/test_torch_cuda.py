@@ -730,7 +730,7 @@ WALK_CASES = {
 }
 
 
-def walk_inputs(case, rows_given, again, widths=None):
+def walk_inputs(case, rows_given, again, widths=None, device="cuda"):
     """A K5 case on the card: (engine, tables, state, per-row arguments
     rows, c, i, s, fwd, tvid, active, last, limit).  Without `rows_given`
     the rows are every lane in order (the fused engine's form: lanes with
@@ -739,26 +739,26 @@ def walk_inputs(case, rows_given, again, widths=None):
     state is that after a first walk (rewind and result slabs apart from
     the live one, best scores set) and new walks start from it.  The state
     is seeded as the engines seed it, each of its tensors its own, at the
-    case's slab widths or at `widths`."""
+    case's slab widths or at `widths`, on `device`."""
     from sibeliaz_tpu_torch.lcb import kernels
     from sibeliaz_tpu_torch.lcb.batched_push_device import BIG
 
     kind, (IC, PC), limit = WALK_CASES[case]
     IC, PC = widths or (IC, PC)
     eng = walk_engine(kind)
-    tb, st, n_lanes = walk_lanes(eng, 32, IC, PC, "cuda", apart=True)
+    tb, st, n_lanes = walk_lanes(eng, 32, IC, PC, device, apart=True)
     rng = np.random.default_rng(11)
     args = walk_args(eng, st, n_lanes, rng)
     if again:
-        rows, c, i, s, fwd, tvid = walk_tensors(args, "cuda")
+        rows, c, i, s, fwd, tvid = walk_tensors(args, device)
         on = torch.ones_like(fwd)
         st = state_apart(kernels.lcb_walk_plain(tb, st, rows, c, i, s, fwd, tvid, on, ~on,
                                                 eng.m, eng.b, eng.flank, limit).st)
         args = walk_args(eng, st, n_lanes, np.random.default_rng(12))
     if rows_given:
-        rows, c, i, s, fwd, tvid = walk_tensors(with_sentinel_rows(args, 32, rng), "cuda")
+        rows, c, i, s, fwd, tvid = walk_tensors(with_sentinel_rows(args, 32, rng), device)
         active = torch.ones_like(fwd)
-        last = torch.from_numpy(rng.random(len(rows)) < 0.5).to("cuda")
+        last = torch.from_numpy(rng.random(len(rows)) < 0.5).to(device)
         return eng, tb, st, (rows, c, i, s, fwd, tvid, active, last), limit
     lane_args = [np.zeros(32, np.int64), np.zeros(32, np.int64), np.ones(32, np.int64),
                  np.zeros(32, bool), np.full(32, BIG, np.int64)]
@@ -766,9 +766,9 @@ def walk_inputs(case, rows_given, again, widths=None):
         lane_args[q][args[0]] = a
     active = np.zeros(32, bool)
     active[args[0]] = rng.random(len(args[0])) < 0.9
-    c, i, s, fwd, tvid = walk_tensors(lane_args, "cuda")
-    last = torch.from_numpy(rng.random(32) < 0.5).to("cuda")
-    return eng, tb, st, (None, c, i, s, fwd, tvid, torch.from_numpy(active).to("cuda"), last), \
+    c, i, s, fwd, tvid = walk_tensors(lane_args, device)
+    last = torch.from_numpy(rng.random(32) < 0.5).to(device)
+    return eng, tb, st, (None, c, i, s, fwd, tvid, torch.from_numpy(active).to(device), last), \
         limit
 
 
@@ -812,20 +812,21 @@ def walk_checked(eng, tb, st, args, limit):
     before = state_apart(st)
     want = kernels.lcb_walk_plain(tb, before, *args, eng.m, eng.b, eng.flank, limit)
     A = args[1].shape[0]
+    dev = st.ln.chr.device
     launches = kernels.LAUNCHES["lcb_walk"]
-    torch.cuda.synchronize()
-    allocated = torch.cuda.memory_allocated()
+    torch.cuda.synchronize(dev)
+    allocated = torch.cuda.memory_allocated(dev)
     got = kernels.lcb_walk(tb, st, *args, eng.m, eng.b, eng.flank, limit)
-    assert torch.cuda.memory_allocated() - allocated <= -(-10 * A * 8 // 512) * 512
-    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(dev) - allocated <= -(-10 * A * 8 // 512) * 512
+    torch.cuda.synchronize(dev)
     assert kernels.LAUNCHES["lcb_walk"] == launches + 1
     assert all(x is y for x, y in zip(_state_leaves(got.st), _state_leaves(st)))
     assert not state_diff(got._asdict(), want._asdict())
     L = st.ln.chr.shape[0]
-    rows = torch.arange(L, device="cuda") if args[0] is None else args[0]
+    rows = torch.arange(L, device=dev) if args[0] is None else args[0]
     walked = set(rows[got.pushes > 0].tolist())
     quiet = torch.tensor([q for q in range(L) if q not in walked], dtype=torch.int64,
-                         device="cuda")
+                         device=dev)
     for x, y in zip(_state_leaves(st), _state_leaves(before)):
         assert torch.equal(x[quiet], y[quiet])
     return got, before
@@ -889,6 +890,18 @@ def test_lcb_walk_at_other_widths(cuda, widths, offset):
             st = _state_from_leaves([shifted(x) for x in _state_leaves(st)])
             assert st.ln.chr.data_ptr() % 16 == 8
         got, _ = walk_checked(eng, tb, st, args, limit)
+        assert int(got.pushes.max()) >= 1
+
+
+def test_lcb_walk_on_the_tensors_device(cuda):
+    """K5 on cuda:1 while cuda:0 is current: the plain version's outputs
+    (walk_checked), rows given with sentinels and every lane in order."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    for rows_given in (True, False):
+        eng, tb, st, args, limit = walk_inputs("wide", rows_given, False, device="cuda:1")
+        with torch.cuda.device(0):
+            got, _ = walk_checked(eng, tb, st, args, limit)
         assert int(got.pushes.max()) >= 1
 
 
@@ -1183,7 +1196,7 @@ def step_checked(tb_cpu, carry_cpu, tb, carry, a):
     launches = dict(kernels.LAUNCHES)
     leaves = [carry[r] for r in kernels.CARRY_REGISTERS] + list(state_leaves(carry["st"]))
     got = kernels.lcb_step(*args, tb, carry, *rest)
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(carry["active"].device)
     assert {k: kernels.LAUNCHES[k] - launches[k] for k in launches} == {
         "lcb_walk": 0, "lcb_vote": 0, "lcb_step": 1}
     assert all(x is y for x, y in zip(
@@ -1235,7 +1248,9 @@ def test_lcb_step_hand_laid_cuda_matches_cpu(cuda, name):
     lane counts, and what each case is laid for: the spilling vote (the
     lane's spill flag), lanes retiered by the vote cap, lanes to hostfb by
     a slab overflow, walks of many chunks, lanes still active at a limit
-    of 3 steps."""
+    of 3 steps, lanes run to their end at the widest tier (CAP 512, W 256,
+    IC 512, PC 1024: the resident layout at its largest, two blocks an
+    SM)."""
     tb_cpu, carry_cpu, a = step_case(name, "cpu")
     tb, carry, _ = step_case(name, "cuda")
     got, _ = step_checked(tb_cpu, carry_cpu, tb, carry, a)
@@ -1248,13 +1263,33 @@ def test_lcb_step_hand_laid_cuda_matches_cpu(cuda, name):
         assert bool(c["hostfb"].any())
     elif name == "long_walks":
         assert int(got.pushes.max()) > 2 * a["walk_chunk"]
+    elif name == "wide":
+        from sibeliaz_tpu_torch.lcb import kernels
+
+        assert c["st"].ln.chr.shape[1] == 512 and not bool(c["active"].any())
+        assert kernels.step_blocks_per_sm(512, 1024, a["CAP"], a["W"])[0] == 2
     else:
         assert int(got.steps.max()) == 3 and bool(c["active"].any())
 
 
+def test_lcb_step_on_the_tensors_device(cuda):
+    """K7 on cuda:1 while cuda:0 is current: the plain version's carry and
+    lane counts (step_checked), at the narrow tier and at the widest."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    for name in ("long_walks", "wide"):
+        tb_cpu, carry_cpu, a = step_case(name, "cpu")
+        tb, carry, _ = step_case(name, "cuda:1")
+        with torch.cuda.device(0):
+            got, _ = step_checked(tb_cpu, carry_cpu, tb, carry, a)
+        assert int(got.pushes.sum()) > 0
+
+
 def test_lcb_step_refusals_on_the_card(cuda):
     """K7 steps the carry in place: a carry two of whose registers share
-    storage, or a register of the wrong type, raises before the launch."""
+    storage, or a register of the wrong type, raises before the launch; so
+    does a carry whose slabs (IC 2048, PC 2048) with the vote's region
+    pass the 227 KB of shared memory a block may opt in to."""
     from sibeliaz_tpu_torch.lcb import kernels
 
     tb, carry, a = step_case("step_limit", "cuda")
@@ -1266,4 +1301,14 @@ def test_lcb_step_refusals_on_the_card(cuda):
         kernels.lcb_step(*tier, dict(carry, retier=carry["hostfb"]), *rest)
     with pytest.raises(ValueError, match="stage"):
         kernels.lcb_step(*tier, dict(carry, stage=carry["stage"].int()), *rest)
+    from sibeliaz_tpu_torch.lcb import fused, resident
+
+    eng = fused_case()
+    tb_wide = resident._device_tables(eng, "cuda")
+    ln, _, _ = resident._seed_lanes_device(tb_wide, make_bundles_device(eng.t, "cpu")[:1], 8,
+                                           2048, 2048)
+    wide = fused._init_carry(resident.seed_state(ln), torch.ones(8, dtype=torch.bool,
+                                                                  device="cuda"), 8)
+    with pytest.raises(ValueError, match="a block may opt in to"):
+        kernels.lcb_step(512, 32, True, tb_wide, wide, *rest)
     assert kernels.LAUNCHES["lcb_step"] == launches

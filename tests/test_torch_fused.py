@@ -9,6 +9,7 @@ the JAX package's in test_torch_fused_parts.py.)"""
 import functools
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -134,6 +135,40 @@ def test_tpu_fused_gff_matches_native(seed, kwargs, k):
     got = pipeline.find_blocks(seqs, names, Config(k=k), engine="tpu-fused", device="cpu")
     want = pipeline.find_blocks(seqs, names, Config(k=k), device="cpu")
     assert got.gff == want.gff and got.blocks_found == want.blocks_found > 0
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+def test_lanes_a_call_by_route(monkeypatch, device):
+    """The chunk rule: on the card each tier's lanes go PHASE_LANES a
+    lcb_step call, at the wide windows too (K7 holds no [L, CAP, W] vote
+    tensors); on the CPU as many as keep L * CAP * W under VOTE_BUDGET, 8
+    at least.  process_phase_fused cuts 300 bundles so at every tier: a
+    stub of _run_tier records each call's lanes and sends them all to the
+    next tier (no card here; the stub stands for the card's runs)."""
+    eng, _ = related()
+    bundles = (make_bundles_device(eng.t, "cpu") * 300)[:300]
+    tiers = fused.tiers_of(eng, bundles)
+    assert (fused.I_CAP, fused.WIDE_W, fused.I_CAP, fused.P_CAP) in tiers
+    calls = []
+
+    def run_tier(eng_, tb, group, L, tier):
+        calls.append((tier, len(group)))
+        last = tier == tiers[-1]
+        flags = np.zeros(L, bool)
+        return [], flags, np.full(L, not last), flags, 0
+
+    monkeypatch.setattr(fused, "_device_tables", lambda eng_, dev: None)
+    monkeypatch.setattr(fused, "_run_tier", run_tier)
+    assert not any(fused.process_phase_fused(eng, bundles, device=device))
+    on_card = device == "cuda"
+    for CAP, W, IC, PC in tiers:
+        chunk = fused.lanes_a_call(CAP, W, on_card, fused.VOTE_BUDGET)
+        assert chunk == (fused.PHASE_LANES if on_card
+                         else max(8, min(fused.PHASE_LANES, fused.VOTE_BUDGET // (CAP * W))))
+        sizes = [n for tier, n in calls if tier == (CAP, W, IC, PC)]
+        assert sizes == [min(chunk, 300 - lo) for lo in range(0, 300, chunk)]
+    assert fused.lanes_a_call(fused.I_CAP, fused.WIDE_W, False, fused.VOTE_BUDGET) == 32
+    assert fused.lanes_a_call(fused.I_CAP, fused.WIDE_W, True, fused.VOTE_BUDGET) == 256
 
 
 def test_vote_budget_from_bytes_matches_jax():

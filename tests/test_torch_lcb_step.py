@@ -127,7 +127,8 @@ def test_hand_laid_cases_show_what_they_are_laid_for(monkeypatch, name):
     """Each hand-laid K7 case, through the plain version: lanes retiered
     by the vote cap, lanes to hostfb by a slab overflow, walks that span
     steps, lanes still active at the step limit, a lane whose first vote
-    meets more vertices than K6's shared table holds."""
+    meets more vertices than K6's shared table holds, lanes run to their
+    end at the widest tier."""
     tb, carry, a = step_case(name, "cpu")
     mid_walk = []
     real = step.phase_step
@@ -155,16 +156,24 @@ def test_hand_laid_cases_show_what_they_are_laid_for(monkeypatch, name):
         assert bool(c["hostfb"].any())
     elif name == "long_walks":
         assert sum(mid_walk) >= 5 and int(got.pushes.max()) > 2 * a["walk_chunk"]
+    elif name == "wide":
+        assert (a["CAP"], a["W"], carry["st"].ln.chr.shape[1]) == (512, 256, 512)
+        assert not bool(c["active"].any()) and int(got.pushes.sum()) > 0
+        assert int(got.steps.max()) > 20
     else:
         assert int(got.steps.max()) == 3 and bool(c["active"].any())
 
 
-def test_wrapper_refusals():
+def test_wrapper_refusals(monkeypatch):
     """lcb_step takes a carry of the fused engine's types and shapes on one
     device: a register of the wrong type or length, a slab of the wrong
     width, the meta device and tensors on two devices raise before any
     step; the overlap check the card's launch runs flags a carry whose
-    registers share storage and passes init_carry's."""
+    registers share storage and passes init_carry's.  On the card's route
+    (routed there by a stub, and the kernel library a stub: no card here),
+    a shape whose resident slab and vote region the library refuses (past
+    the 227 KB a block may opt in to) raises ValueError before the launch,
+    and nothing falls back to the plain version."""
     tb, carry, a = step_case("step_limit", "cpu")
     args = (a["depth"], a["m"], a["b"], a["flank"], a["min_run"], 3, a["walk_chunk"],
             a["compact_min"])
@@ -198,3 +207,25 @@ def test_wrapper_refusals():
     n = len(resident._state_leaves(carry["st"]))
     assert pair == (n + kernels.CARRY_REGISTERS.index("retier"),
                     n + kernels.CARRY_REGISTERS.index("hostfb"))
+
+    asked = []
+
+    class Library:  # the kernel library refusing the shape, as past the opt-in
+        def sz_lcb_step_workspace_words(self, *shape):
+            asked.append(shape)
+            return -1
+
+    def launched(*args):
+        raise AssertionError("launched")
+
+    real = kernels._routed
+    monkeypatch.setattr(kernels, "_routed",
+                        lambda tb_, tensors, specs: (torch.device("cuda"), real(tb_, tensors,
+                                                                                specs)[1]))
+    monkeypatch.setattr(kernels.cudabuild, "load", lambda defines=(): Library())
+    monkeypatch.setattr(kernels, "_launch_step", launched)
+    monkeypatch.setattr(step, "lcb_step_plain", launched)
+    with pytest.raises(ValueError, match="more than the 232,448 bytes a block may opt in to"):
+        call(carry)
+    assert asked == [(64, 128, a["CAP"], a["W"])]
+    assert kernels.LAUNCHES == before

@@ -1023,13 +1023,17 @@ def vote_case(name, device):
 # (walk_genomes), taken as the widest (to hostfb); "long_walks": the lanes
 # start mid-walk toward a vertex up to 40 junctions on (walk_args), in walk
 # chunks of 2 pushes (a walk spans many steps); "step_limit": a limit of 3
-# steps (lanes still active at it).
+# steps (lanes still active at it); "wide": the widest tier (CAP 512, W 256,
+# IC 512, PC 1024: the resident slab and the vote's region at their
+# largest, K7's vote table cut to 1,024 slots so that two blocks share an
+# SM), run to the phase's end.
 STEP_CASES = {
     "spill": ("spill", (64, 64, 64, 16), True, 16, 40),
     "cap_overflow": ("related", (3, 32, 64, 128), False, 16, 4096),
     "slab_overflow": ("overflow", (64, 32, 64, 128), True, 16, 4096),
     "long_walks": ("related", (64, 32, 64, 128), False, 2, 4096),
     "step_limit": ("related", (64, 32, 64, 128), False, 16, 3),
+    "wide": ("related", (512, 256, 512, 1024), True, 16, 4096),
 }
 
 
