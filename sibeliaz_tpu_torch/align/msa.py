@@ -1,8 +1,8 @@
 """Block MSA batching and MAF assembly.
 
-A copy of sibeliaz_tpu/align/msa.py, except that it compiles the JAX
-package's native POA engine (sibeliaz_tpu/align/native/poa.cpp) by file
-path into the port's build directory, runs the device engine of
+A copy of sibeliaz_tpu/align/msa.py, except that it compiles the port's
+own copy of the native POA engine (align/native/poa.cpp) into the port's
+build directory, runs the device engine of
 align/device_poa.py for engine="tpu", counts what the routing did in
 utils/metrics.GLOBAL, and leaves the budget at None (each engine's own
 default) unless the caller gives one.
@@ -37,10 +37,7 @@ from sibeliaz_tpu_torch.lcb.blocks import Block
 from sibeliaz_tpu_torch.utils.metrics import GLOBAL as metrics
 from sibeliaz_tpu_torch.utils.nativebuild import build_native
 
-_SRC = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "sibeliaz_tpu", "align", "native", "poa.cpp",
-)
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native", "poa.cpp")
 _lib = None
 
 

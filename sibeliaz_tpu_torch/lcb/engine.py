@@ -1,10 +1,11 @@
 """Native LCB engine binding.
 
-Compiles the JAX package's sibeliaz_tpu/lcb/native/engine.cpp by file path
-on first use (g++ -O3 -fopenmp, cached by mtime) and drives it through
-ctypes — the engine's interface is a handful of flat numpy buffers, so a C
-ABI is the natural boundary.  The C++ stays single-sourced: the port reads
-the file and never imports the JAX package.
+Compiles the port's own copy of the engine, lcb/native/engine.cpp, on
+first use (g++ -O3 -fopenmp, cached by a hash of its bytes, see
+utils/nativebuild.py) and drives it through ctypes — the engine's interface
+is a handful of flat numpy buffers, so a C ABI is the natural boundary.
+The copy is the JAX package's engine, byte for byte below its header; the
+CPU tests hold the two to the same output.
 """
 
 from __future__ import annotations
@@ -19,10 +20,7 @@ from sibeliaz_tpu_torch.junctions.table import JunctionTable
 from sibeliaz_tpu_torch.lcb.blocks import Block
 from sibeliaz_tpu_torch.utils.nativebuild import build_native
 
-_SRC = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "sibeliaz_tpu", "lcb", "native", "engine.cpp",
-)
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native", "engine.cpp")
 
 _lib = None
 

@@ -8,6 +8,7 @@ both imports fail."""
 import ast
 import glob
 import os
+import re
 import subprocess
 import sys
 
@@ -180,3 +181,54 @@ def test_no_module_imports_jax_or_the_jax_package():
             for m in mods:
                 top = m.split(".")[0]
                 assert top not in ("jax", "jaxlib", "sibeliaz_tpu"), (path, m)
+
+
+# A path component "sibeliaz_tpu" (not "sibeliaz_tpu_torch"): the JAX
+# package's directory.
+_JAX_PACKAGE_PATH = re.compile(r"(^|[/\\])sibeliaz_tpu($|[/\\])")
+
+
+def test_no_module_names_a_path_of_the_jax_package():
+    """No .py file of the port, nor chip_smoke.py, names a file or directory
+    under sibeliaz_tpu/: every string constant with a path component
+    "sibeliaz_tpu" fails, be it an os.path.join part ("sibeliaz_tpu"), a
+    path ("sibeliaz_tpu/lcb/native/engine.cpp") or an f-string's piece.
+    Two kinds of strings may still name the JAX package's files, since they
+    only point a reader at the counterpart: docstrings (comments are not in
+    the AST), and the value of a "replaces" key in a dict literal
+    (chip_smoke.py's kernels line, `"replaces": "file:line"`).  The port
+    builds its own copies of the two native engines, byte-equal to the
+    JAX package's below a header of comment lines."""
+    files = glob.glob(os.path.join(REPO, "sibeliaz_tpu_torch", "**", "*.py"),
+                      recursive=True)
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    labels = 0
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        allowed = set()
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                 ast.AsyncFunctionDef)):
+                first = node.body[0] if node.body else None
+                if isinstance(first, ast.Expr) and isinstance(first.value, ast.Constant):
+                    allowed.add(id(first.value))
+            elif isinstance(node, ast.Dict):
+                for key, value in zip(node.keys, node.values):
+                    if isinstance(key, ast.Constant) and key.value == "replaces":
+                        allowed.add(id(value))
+                        labels += isinstance(value, ast.Constant)
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and id(node) not in allowed):
+                assert not _JAX_PACKAGE_PATH.search(node.value), (path, node.lineno, node.value)
+    assert labels >= 7  # the kernels line still names what each kernel replaces
+    for copy, original in (("lcb/native/engine.cpp", "lcb/native/engine.cpp"),
+                           ("align/native/poa.cpp", "align/native/poa.cpp")):
+        with open(os.path.join(REPO, "sibeliaz_tpu_torch", copy), "rb") as f:
+            ours = f.read()
+        with open(os.path.join(REPO, "sibeliaz_tpu", original), "rb") as f:
+            theirs = f.read()
+        header = ours[:len(ours) - len(theirs)].splitlines()
+        assert ours.endswith(theirs) and 1 <= len(header) <= 2, copy
+        assert all(line.startswith(b"// ") for line in header), copy
