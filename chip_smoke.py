@@ -188,8 +188,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      runs phases 1, 2 and 18 alone, and adds the split of a step: the
      stamped build's K7 (csrc/step_stamps.cuh) on both runs, exact, with the
      longest lane's parts in microseconds a step; and, where OLDER_DIR holds
-     an older K7's sources (lcb_step.cu, lcb_vote.cu and the two headers of
-     the same C interface), that K7 built apart and timed beside this one
+     an older K7's sources (lcb_step.cu, lcb_vote.cu and the three headers
+     of the same C interface), that K7 built apart and timed beside this one
      on both runs, in turns.
 The last two lines are a JSON summary of the kernels (time, plain time,
 bound, launches per main path; K1's and K2's "ms" are their one-limb
@@ -310,8 +310,9 @@ K6_OPS_PER_SLOT, K6_OPS_PER_ENTRY = 70, 20
 
 # phase 18: what K7 moves besides the slabs and the tables its steps read,
 # bytes: a lane's 13 registers (seven int64, six bools), in and out, and
-# its four int64 results out
-K7_REGISTER_BYTES, K7_RESULT_BYTES = 7 * 8 + 6, 4 * 8
+# its eleven int64 results out (lcb_kernels.STEP_ROWS: its steps, pushes,
+# occurrence steps, spill flag and the work its steps did)
+K7_REGISTER_BYTES, K7_RESULT_BYTES = 7 * 8 + 6, 11 * 8
 
 
 def check(cond, msg):
@@ -2942,12 +2943,15 @@ class LoopTerms:
         return tuple(self.walk.tolist()), tuple(self.vote.tolist())
 
 
-def lane_steps_err(a, b):
+def lane_steps_err(a, b, rows=None):
     """The largest difference between two LaneSteps: every tensor of the
-    carry and the lanes' steps, pushes and occurrence steps."""
+    carry and the lanes' `rows` (by default every row but the spill flag,
+    which only the card has)."""
     from sibeliaz_tpu_torch.lcb import step
 
-    pairs = list(zip(step.leaves(a.carry), step.leaves(b.carry))) + list(zip(a[1:4], b[1:4]))
+    rows = rows or [r for r in a._fields[1:] if r != "spilled"]
+    pairs = list(zip(step.leaves(a.carry), step.leaves(b.carry))) + [
+        (getattr(a, r), getattr(b, r)) for r in rows]
     return max(int((x.long().cpu() - y.long().cpu()).abs().max()) if x.numel() else 0
                for x, y in pairs)
 
@@ -3013,7 +3017,8 @@ def k7_time(torch, lcb_kernels, args, reps=5):
     CAP, W, slab_max, tb, before, *rest = args
     work = step.carry_map(lambda x: x.clone(), before)
     restore = restorer(work, before)
-    out = torch.empty((4, before["active"].shape[0]), dtype=torch.int64, device="cuda")
+    out = torch.empty((lcb_kernels.STEP_ROWS, before["active"].shape[0]), dtype=torch.int64,
+                      device="cuda")
     ms = cuda_ms(torch, lambda: lcb_kernels.step_launch_into(tb, work, CAP, W, slab_max,
                                                              *rest[:-1], out),
                  reps, ahead=8, quiet=True, setup=restore)
@@ -3050,6 +3055,11 @@ def k7_vs_loop(torch, lcb_kernels, label, args, got, peak_ops, step_us):
     walk, vote = terms.totals()
     err = lane_steps_err(got, loop)
     check(err == 0, f"lcb_step differs from the host loop ({label}): max abs err {err}")
+    counted = tuple(int(getattr(got, r).sum()) for r in ("pushes", "occ_steps", "score_terms",
+                                                         "voters", "windows", "slots",
+                                                         "entries"))
+    check(counted == walk + vote, f"lcb_step's counts of its work ({label}) {counted} differ "
+          f"from the host loop's calls' {walk + vote}")
     ms, call_ms = k7_time(torch, lcb_kernels, args)
     bound, by, nbytes = k7_bound(args, got, walk, vote, peak_ops)
     floor, lane = k7_chain_floor(got, step_us)
@@ -3089,7 +3099,7 @@ def k7_split(torch, lcb_kernels, label, args, got):
     work = step.carry_map(lambda x: x.clone(), before)
     restore = restorer(work, before)
     L = before["active"].shape[0]
-    out = torch.empty((4, L), dtype=torch.int64, device="cuda")
+    out = torch.empty((lcb_kernels.STEP_ROWS, L), dtype=torch.int64, device="cuda")
     parts = lcb_kernels.STAMP_PARTS
     stamps = torch.zeros((len(parts), L), dtype=torch.int64, device="cuda")
     ms = cuda_ms(torch, lambda: lcb_kernels.step_launch_into(
@@ -3132,10 +3142,11 @@ def k7_split(torch, lcb_kernels, label, args, got):
 
 
 def build_older_k7(cudabuild, lcb_kernels, out_dir, older):
-    """An older K7 of PR 20's C interface (sz_lcb_step without the stamps
-    pointer), from the directory `older` holding its lcb_step.cu,
-    lcb_vote.cu, lcb_vote.cuh and lcb_walk.cuh, built alone with nvcc; its
-    -Xptxas -v report printed.  A function (tables, carry, CAP, W,
+    """An older K7 of the same C interface (sz_lcb_step with the stamps
+    pointer, given null) whose out rows are the first four of LaneSteps', from
+    the directory `older` holding its lcb_step.cu, lcb_vote.cu,
+    lcb_vote.cuh, lcb_walk.cuh and step_stamps.cuh, built alone with nvcc;
+    its -Xptxas -v report printed.  A function (tables, carry, CAP, W,
     slab_max, depth, m, b, flank, min_run, steps_limit, walk_chunk, out)
     that launches it on a carry lcb_step has checked."""
     lib = os.path.join(out_dir, "k7_older.so")
@@ -3146,12 +3157,12 @@ def build_older_k7(cudabuild, lcb_kernels, out_dir, older):
     print(f"K7 {older}:")
     print_ptxas(proc.stderr)
     cdll = ctypes.CDLL(lib)
-    fn, words_of = cdll.sz_lcb_step, cdll.sz_lcb_vote_workspace_words
+    fn, words_of = cdll.sz_lcb_step, cdll.sz_lcb_step_workspace_words
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     fn.argtypes = ([vp] * 6 + [i32, i64, i32, i32, i64, i32] + [i64] * 6
-                   + [i32, i64, i64, i32, vp])
+                   + [i32, i64, i64, i32, vp, vp])
     fn.restype = ctypes.c_int
-    words_of.argtypes, words_of.restype = [i32, i32, i32], i64
+    words_of.argtypes, words_of.restype = [i32] * 4, i64
 
     def launch(tb, carry, CAP, W, slab_max, depth, m, b, flank, min_run, steps_limit,
                walk_chunk, out):
@@ -3161,7 +3172,7 @@ def build_older_k7(cudabuild, lcb_kernels, out_dir, older):
         st = carry["st"]
         L, IC = st.ln.chr.shape
         PC = st.ln.pvid.shape[1]
-        words = words_of(PC, min(CAP, IC), W)
+        words = words_of(IC, PC, CAP, W)
         pool = min(lcb_kernels.VOTE_POOL, L)
         ws = lcb_kernels._vote_workspace(st.ln.chr.device, words * pool) if words else None
         tcheck = lcb_kernels._table_check(tb, True)
@@ -3173,7 +3184,7 @@ def build_older_k7(cudabuild, lcb_kernels, out_dir, older):
                     ctypes.c_void_p(out.data_ptr()),
                     ctypes.c_void_p(0 if ws is None else ws.data_ptr()), pool, L, IC, PC, CAP,
                     W, tb.k, depth, m, b, flank, min_run, int(slab_max), carry["steps"],
-                    steps_limit, walk_chunk,
+                    steps_limit, walk_chunk, ctypes.c_void_p(0),
                     ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
         check(status == 0, f"K7 {older}: CUDA error {status}")
 
@@ -3190,7 +3201,8 @@ def k7_older_vs_new(torch, lcb_kernels, label, args, got, older_launch, reps=5):
     CAP, W, slab_max, tb, before, *rest = args
     work = step.carry_map(lambda x: x.clone(), before)
     restore = restorer(work, before)
-    out = torch.empty((4, before["active"].shape[0]), dtype=torch.int64, device="cuda")
+    out = torch.empty((lcb_kernels.STEP_ROWS, before["active"].shape[0]), dtype=torch.int64,
+                      device="cuda")
     launches = {"new": lambda: lcb_kernels.step_launch_into(tb, work, CAP, W, slab_max,
                                                             *rest[:-1], out),
                 "older": lambda: older_launch(tb, work, CAP, W, slab_max, *rest[:-1], out)}
@@ -3198,7 +3210,9 @@ def k7_older_vs_new(torch, lcb_kernels, label, args, got, older_launch, reps=5):
     for who in ("older", "new", "new", "older"):
         times.setdefault(who, []).append(cuda_ms(torch, launches[who], reps, ahead=8, quiet=True,
                                                  setup=restore))
-        err = lane_steps_err(got, lcb_kernels.LaneSteps(work, *out))
+        # the older K7 writes the first four rows
+        err = lane_steps_err(got, lcb_kernels.LaneSteps(work, *out),
+                             ("steps", "pushes", "occ_steps"))
         check(err == 0, f"K7 ({who}) differs from the run ({label}): {err}")
     print(f"lcb_step {label}, older / this K7 in turns (older, this, this, older), exact: "
           + " | ".join(f"{who} " + " / ".join(f"{t:.4f}" for t in ts) + " ms"

@@ -122,7 +122,8 @@ def run(argv: Optional[List[str]] = None) -> int:
         )
 
     os.makedirs(cfg.out_dir, exist_ok=True)
-    records_in = fasta_io.read_many(args.fastas)
+    with metrics.stage("fasta_read"):
+        records_in = fasta_io.read_many(args.fastas)
     seqs = [r.seq for r in records_in]
     names = [r.name for r in records_in]
 
@@ -145,7 +146,8 @@ def run(argv: Optional[List[str]] = None) -> int:
         )
     t_graph = time.time()
     if args.dump_graph:
-        dbg_io.write_dbg(args.dump_graph, records)
+        with metrics.stage("graph_write"):
+            dbg_io.write_dbg(args.dump_graph, records)
 
     print("Analyzing the graph...")
     res = pipeline.find_blocks(
@@ -155,8 +157,9 @@ def run(argv: Optional[List[str]] = None) -> int:
     t_lcb = time.time()
 
     print("Generating the output...")
-    with open(os.path.join(cfg.out_dir, "blocks_coords.gff"), "w") as f:
-        f.write(res.gff)
+    with metrics.stage("gff_write"):
+        with open(os.path.join(cfg.out_dir, "blocks_coords.gff"), "w") as f:
+            f.write(res.gff)
     print(f"Blocks found: {res.blocks_found}")
     print(f"Coverage: {res.coverage:.2f}")
 

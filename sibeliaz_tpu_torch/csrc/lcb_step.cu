@@ -29,7 +29,13 @@
 //     sweep's end ends the lane.
 // The carry is written in place.  Per lane it also writes its steps, its
 // pushes, its occurrence steps (the pushed vertices' occurrence counts,
-// summed) and whether a vote took the spill workspace.
+// summed), whether a vote took the spill workspace, and the work its steps
+// did, counted in the block's shared memory as it is done: the walks'
+// score terms (a chunk's pushes times the lane's instances after it), the
+// votes' voting instances, windows, evaluated slots and alive entries
+// (vote_row's counts), and whether its best score rose, and rose above 0
+// (a rewind slab and a result slab written).  The host reads them with the
+// other results, in its one read of the run.
 //
 // What bounds it: the serial chain of a lane's steps.  Each step depends on
 // the one before (its vote reads the instances the last walk left), a vote
@@ -89,8 +95,12 @@ enum Register {
   R_STAGE, R_POSITIVE, R_PREV_LEN, R_SCORE, R_ACTIVE, R_RETIER, R_HOSTFB, R_IN_WALK, R_WC,
   R_WI, R_WS, R_WT, R_WLAST
 };
-// per-lane results, in order
-enum Result { S_STEPS, S_PUSHES, S_OCC, S_SPILLED };
+// per-lane results, in order (kernels.LaneSteps' rows)
+enum Result {
+  S_STEPS, S_PUSHES, S_OCC, S_SPILLED, S_TERMS, S_VOTERS, S_WINDOWS, S_SLOTS, S_ENTRIES, S_ROSE,
+  S_ROSE_POS, kResults
+};
+static_assert(S_ENTRIES - S_VOTERS + 1 == vote::kCounts, "a row for each of vote_row's counts");
 
 struct Carry {
   void* p[kRegisters];
@@ -111,6 +121,9 @@ struct Lane {
   i64 steps, pushes, occ;
   int spilled;
   bool go, votes, to_bwd;
+  i64 terms;                  // the walks' score terms
+  i64 counts[vote::kCounts];  // the votes' work (vote_row<true>'s counts)
+  i64 best0;                  // the best score the lane came in with
 };
 
 __device__ __forceinline__ i64 wsub(i64 a, i64 b) {
@@ -267,7 +280,8 @@ lcb_step_kernel(walk::Leaves st, walk::Tables wtb, walk::Params wpr, vote::Table
     R.ws = r64(R_WS);
     R.wt = r64(R_WT);
     R.wlast = r8(R_WLAST);
-    R.steps = R.pushes = R.occ = 0;
+    R.steps = R.pushes = R.occ = R.terms = 0;
+    for (int c = 0; c < vote::kCounts; ++c) R.counts[c] = 0;
     R.spilled = 0;
     R.go = R.active && sp.start < sp.limit;
     keep.t_inst = keep.t_path = 0;
@@ -280,7 +294,9 @@ lcb_step_kernel(walk::Leaves st, walk::Tables wtb, walk::Params wpr, vote::Table
   if (steps_any) {
     // ---- the lane in, once: its live slab, registers, best score, flag ----
     load_registers(st, 0, lane, keep);
-    if (tid == walk::kRegs) keep.best = static_cast<const i64*>(st.p[3 * walk::kLaneFields])[lane];
+    if (tid == walk::kRegs) {
+      keep.best = R.best0 = static_cast<const i64*>(st.p[3 * walk::kLaneFields])[lane];
+    }
     if (tid == walk::kRegs + 1) {
       keep.has_snap = static_cast<const uint8_t*>(st.p[3 * walk::kLaneFields + 1])[lane];
     }
@@ -311,8 +327,8 @@ lcb_step_kernel(walk::Leaves st, walk::Tables wtb, walk::Params wpr, vote::Table
     bool no_winner = false;  // thread 0's
     // ---- the step's vote, for a lane not mid-walk ----
     if (R.votes) {
-      const int spilled =
-          vote::vote_row<true>(vln, vtb, vpr, 0, lane, true, fwd, false, vregion, vsh, vo);
+      const int spilled = vote::vote_row<true>(vln, vtb, vpr, 0, lane, true, fwd, false, vregion,
+                                               vsh, vo, R.counts);
       if (tid == 0) {
         R.spilled |= spilled;
         if (vo[5] != 0) {  // a window alive at W: re-run at a wider tier
@@ -349,6 +365,7 @@ lcb_step_kernel(walk::Leaves st, walk::Tables wtb, walk::Params wpr, vote::Table
       if (tid == 0) {
         R.pushes += o.pushes;
         R.occ += o.occ_steps;
+        R.terms += o.pushes * o.n;
         R.wi = o.it;
         R.wlast = o.last;
         if (o.ovf) {  // a slab overflowed: a wider tier, or the host oracle
@@ -472,6 +489,11 @@ lcb_step_kernel(walk::Leaves st, walk::Tables wtb, walk::Params wpr, vote::Table
     out[S_PUSHES * L + lane] = R.pushes;
     out[S_OCC * L + lane] = R.occ;
     out[S_SPILLED * L + lane] = R.spilled;
+    out[S_TERMS * L + lane] = R.terms;
+    for (int c = 0; c < vote::kCounts; ++c) out[(S_VOTERS + c) * L + lane] = R.counts[c];
+    const bool rose = steps_any && keep.best > R.best0;
+    out[S_ROSE * L + lane] = rose;
+    out[S_ROSE_POS * L + lane] = rose && keep.best > 0;
     if (stamps::kOn && stamp_out != nullptr) {
       for (int p = 0; p < stamps::kParts; ++p) stamp_out[p * L + lane] = stamps::sum(p);
     }
@@ -539,8 +561,10 @@ cudaError_t set_step_attributes(long long smem) {
 // sz_lcb_walk's), walked in place, no two overlapping; registers: host
 // array of the 13 device pointers of fused.CARRY_REGISTERS ([L]; stage,
 // prev_len, score, wc, wi, ws, wt int64, the others bool), written in
-// place; tables, table_lens: as sz_lcb_walk's.  out: [4, L] int64 (per lane
-// its steps, pushes, occurrence steps, spilled).  ws: the vote's workspace
+// place; tables, table_lens: as sz_lcb_walk's.  out: [sz_lcb_step_result_rows(),
+// L] int64 (per lane its steps, pushes, occurrence steps, spilled, score
+// terms, voting instances, windows, evaluated slots, alive entries, best
+// score risen, risen above 0).  ws: the vote's workspace
 // (kMaxPool lock words, zero, then `pool` slices of
 // sz_lcb_step_workspace_words(IC, PC, CAP, W) words), or null where that is 0.
 // CAP: the tier's vote cap (the vote reads min(CAP, IC) columns); slab_max:
@@ -614,6 +638,9 @@ extern "C" int sz_lcb_step(const long long* leaves, const long long* registers,
 extern "C" long long sz_lcb_step_workspace_words(int IC, int PC, int CAP, int W) {
   return step_workspace_words(IC, PC, CAP < IC ? CAP : IC, W);
 }
+
+// The rows of a launch's per-lane results (kernels.LaneSteps' counts).
+extern "C" int sz_lcb_step_result_rows() { return kResults; }
 
 // The rows of a stamped launch's split (step_stamps.cuh's parts), 0 in the
 // default build.

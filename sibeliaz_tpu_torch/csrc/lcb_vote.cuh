@@ -38,6 +38,9 @@ constexpr int kLaneFields = 11;        // the lane fields the vote reads
 constexpr int kOut = 6;                // best_vid, best_cnt, ochr, oidx, ostr, overflow
 constexpr int kMaxPool = 64;           // workspace slices: lock words before the slices
 
+// vote_row<true>'s counts of a row's work, in order
+enum Count { C_VOTERS, C_WINDOWS, C_SLOTS, C_ENTRIES, kCounts };
+
 // the lane fields, in the order of the C interface
 enum LaneField { L_CHR, L_S, L_FI, L_BI, L_GOOD, L_INS, L_N, L_PVID, L_PN, L_RV, L_LV };
 
@@ -103,6 +106,7 @@ struct Cand {
 struct Shared {
   int n_good, n_voters, nofit, spill, claimed, ovf;
   int E;  // alive entries of the current vote
+  int S;  // its evaluated window slots (vote_row<true> alone)
   int slice;  // the workspace slice the row holds while it spills
   Cand red[kWarps];
 };
@@ -317,6 +321,7 @@ __device__ void vote(const Tables& tb, const Lanes& ln, const Params& pr, const 
     sh.claimed = 0;
     sh.ovf = 0;
     sh.E = 0;
+    sh.S = 0;
   }
   __syncthreads();
   const int limit = spill_limit(tab.slots);
@@ -343,6 +348,8 @@ __device__ void vote(const Tables& tb, const Lanes& ln, const Params& pr, const 
       cl.vlen[v] = len;
       if (len == pr.W) sh.ovf = 1;
       atomicAdd(&sh.E, len);
+      // the slots evaluated: the alive ones and the one that ends the window
+      if (kResident) atomicAdd(&sh.S, len < pr.W ? len + 1 : len);
     }
   }
   __syncthreads();
@@ -474,10 +481,16 @@ __device__ void clear_table(unsigned char* smem, int H) {
 // read them on return) and returns 1 where a vote took the workspace.
 // kResident (K7): ln's fields are the lane's slab rows and registers in
 // shared memory, read as lane 0 (`lane` 0), pvid the slab's own; smem
-// holds resident_smem_bytes(CAP, H), the table clear (clear_table).
+// holds resident_smem_bytes(CAP, H), the table clear (clear_table); and
+// thread 0 adds the row's work to `counts` (kCounts words in shared memory):
+// its voting instances, those at the lane's path end (a window each), the
+// window slots evaluated and the alive entries, the last two the retry's
+// where it retried (its windows are the longer: it also takes used
+// junctions).
 template <bool kResident>
 __device__ int vote_row(const Lanes& ln, const Tables& tb, const Params& pr, i64 lane, i64 row,
-                        bool valid, bool fwd, bool tu, unsigned char* smem, Shared& sh, i64* o) {
+                        bool valid, bool fwd, bool tu, unsigned char* smem, Shared& sh, i64* o,
+                        i64* counts = nullptr) {
   const int tid = threadIdx.x;
   const long long t_cols = stamps::now();
   const int H = pr.H, CAP = pr.CAP;
@@ -585,6 +598,12 @@ __device__ int vote_row(const Lanes& ln, const Tables& tb, const Params& pr, i64
     stamps::add(stamps::V_RETRY, t_retry);
     stamps::count(stamps::C_RETRIES, 1);
     spilled |= sh.spill;
+  }
+  if (kResident && tid == 0) {
+    counts[C_VOTERS] += use_good ? sh.n_good : n;  // n <= CAP: the caller retiers past it
+    counts[C_WINDOWS] += sh.n_voters;
+    counts[C_SLOTS] += sh.S;
+    counts[C_ENTRIES] += sh.E;
   }
   return spilled;
 }

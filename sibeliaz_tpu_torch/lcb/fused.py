@@ -53,15 +53,33 @@ A port of sibeliaz_tpu/lcb/fused.py.  How it differs:
     (COMPACT_MIN the CPU loop's; K7 needs no compaction, a finished lane's
     block ends), and what `SZ_FUSED_STATS` printed are `utils/metrics`
     counters (`fused_phases`, `fused_steps_tier<t>` (each run's largest
-    lane step count, summed), `fused_lanes_tier<t>`, `fused_tier<t>_s`,
-    `fused_compactions` (the CPU loop's), `fused_oracle_lanes`,
-    `fused_host_syncs`), with `fused_runs` (lcb_step calls),
-    `fused_step_s` (the host seconds of the runs' calls and reads), the
-    lanes' occurrence steps (`fused_lane_occ_steps`: the pushed vertices'
-    occurrence counts, summed over lanes), each run's longest lane's steps
-    and pushes (`fused_longest_steps`, `fused_longest_pushes`, summed over
-    runs: the runs' serial chains) and the lanes whose votes spilled to the
-    vote workspace (`fused_spilled_lanes`, the card's);
+    lane step count, summed), `fused_lanes_tier<t>`, `fused_compactions`
+    (the CPU loop's), `fused_oracle_lanes`, `fused_host_syncs`), with
+    `fused_runs` (lcb_step calls), `fused_step_s` (the host seconds of the
+    runs' calls and reads), `fused_sync_wait_s` (the host's seconds blocked
+    in the reads, step.fetch's and the decode's), the lanes' occurrence
+    steps (`fused_lane_occ_steps`: the pushed vertices' occurrence counts,
+    summed over lanes), each run's longest lane's steps, pushes and
+    occurrence steps (`fused_longest_steps`, `fused_longest_pushes`,
+    `fused_longest_occ_steps`, summed over runs: the runs' serial chains;
+    the longest lane is the one of the most steps, then pushes) and the
+    lanes whose votes spilled to the vote workspace (`fused_spilled_lanes`,
+    the card's); and, summed over the runs from the rows the one read
+    brings back (LaneSteps'), the work K7 did: `k7_pushes`,
+    `k7_score_terms`, `k7_voters`, `k7_windows`, `k7_slots`,
+    `k7_entries`, the lanes launched (`k7_lanes`) and those that stepped
+    (`k7_stepped_lanes`), and the lane slabs moved (each stepping lane's
+    live slab in and out, a rewind slab for each whose best score rose and
+    a result slab for each whose best score rose above 0) as a count
+    (`k7_slab_moves`) and weighted by the run's instance and path slab
+    widths (`k7_slab_ic`, `k7_slab_pc`);
+  * spans inside the caller's `lcb_engine`: the stage `lcb_bundles` (the
+    bundle list, once a run) and the summed spans (`utils/metrics`'s
+    `summed`: counters `<name>_s`) `lcb_seed_s` (a phase's table refresh,
+    and each lane set's seeding, its overflow read and its carry),
+    `lcb_decode_s` (result slabs to instances), `lcb_oracle_s` (the host
+    oracle's lanes); `LcbEngine.run` adds `lcb_commit_s`.  K7's launches
+    and reads are the counter `fused_step_s`, outside every span;
   * `run_fused` and `process_phase_fused` take the device ("cuda" unless
     the caller passes "cpu");
   * on the card a tier's lanes go PHASE_LANES a call, whatever its CAP and
@@ -154,9 +172,13 @@ def vote_budget_from_bytes(budget_bytes: int) -> int:
 
 def _decode_fetch(t: torch.Tensor) -> np.ndarray:
     """A result slab's compact fetch on the host: one read, counted apart
-    from the runs' (`fused_decode_reads`)."""
+    from the runs' (`fused_decode_reads`); its wait is counted as
+    step.fetch's (`fused_sync_wait_s`)."""
     metrics.count("fused_decode_reads")
-    return t.cpu().numpy()
+    t0 = time.perf_counter()
+    out = t.cpu().numpy()
+    metrics.count("fused_sync_wait_s", time.perf_counter() - t0)
+    return out
 
 
 def _phase_fused_seg(CAP: int, W: int, slab_max: bool, tb: DeviceTables, carry,
@@ -204,23 +226,36 @@ class _LaneRun:
 
     def read(self):
         """One fetch: has_snap, retier, hostfb (with the lanes still active
-        at MAX_STEPS: step-bound exhaustion) and each lane's steps, pushes,
-        occurrence steps and spill; the run's counters."""
+        at MAX_STEPS: step-bound exhaustion) and each lane's rows of the
+        LaneSteps (its steps, pushes, occurrence steps, spill and work);
+        the run's counters."""
         t0 = time.perf_counter()
         out, carry = self.out, self.out.carry
         h = _fetch(torch.stack([carry["st"].has_snap.long(), carry["retier"].long(),
-                                (carry["hostfb"] | carry["active"]).long(), out.steps,
-                                out.pushes, out.occ_steps, out.spilled]))
+                                (carry["hostfb"] | carry["active"]).long(), *out[1:]]))
         self.seconds += time.perf_counter() - t0
         self.has_snap, self.retier, self.hostfb = h[:3].astype(bool)
-        self.steps = carry["steps"] + int(h[3].max())
-        longest = int(np.lexsort((h[4], h[3]))[-1])  # the most steps, then pushes
+        lane = dict(zip(kernels.LaneSteps._fields[1:], h[3:]))
+        steps = lane["steps"]
+        self.steps = carry["steps"] + int(steps.max())
+        longest = int(np.lexsort((lane["pushes"], steps))[-1])  # the most steps, then pushes
         metrics.count("fused_runs")
         metrics.count("fused_step_s", self.seconds)
-        metrics.count("fused_lane_occ_steps", int(h[5].sum()))
-        metrics.count("fused_longest_steps", int(h[3][longest]))
-        metrics.count("fused_longest_pushes", int(h[4][longest]))
-        metrics.count("fused_spilled_lanes", int(h[6].sum()))
+        metrics.count("fused_lane_occ_steps", int(lane["occ_steps"].sum()))
+        metrics.count("fused_longest_steps", int(steps[longest]))
+        metrics.count("fused_longest_pushes", int(lane["pushes"][longest]))
+        metrics.count("fused_longest_occ_steps", int(lane["occ_steps"][longest]))
+        metrics.count("fused_spilled_lanes", int(lane["spilled"].sum()))
+        for name in ("pushes", "score_terms", "voters", "windows", "slots", "entries"):
+            metrics.count(f"k7_{name}", int(lane[name].sum()))
+        stepped = steps > 0
+        moves = int((2 * stepped + lane["rose"] + lane["rose_positive"]).sum())
+        L, IC = carry["st"].ln.chr.shape
+        metrics.count("k7_lanes", L)
+        metrics.count("k7_stepped_lanes", int(stepped.sum()))
+        metrics.count("k7_slab_moves", moves)
+        metrics.count("k7_slab_ic", moves * IC)
+        metrics.count("k7_slab_pc", moves * carry["st"].ln.pvid.shape[1])
 
 
 def _lockstep(runs: Sequence[_LaneRun]) -> None:
@@ -253,9 +288,10 @@ def _run_tier(eng: LcbEngine, tb: DeviceTables, bundles: Sequence[Bundle], L: in
     slabs as [(slab, its first lane, its lanes)]: the caller fetches a
     slab only for the lanes it decodes."""
     CAP, W, IC, PC = tier
-    ln, n_t, seed_ovf_t = _seed_lanes_device(tb, bundles, L, IC, PC)
-    seed_ovf = _fetch(seed_ovf_t).astype(bool)
-    run = _LaneRun(eng, tier, tb, ln, seed_ovf, len(bundles))
+    with metrics.summed("lcb_seed"):
+        ln, n_t, seed_ovf_t = _seed_lanes_device(tb, bundles, L, IC, PC)
+        seed_ovf = _fetch(seed_ovf_t).astype(bool)
+        run = _LaneRun(eng, tier, tb, ln, seed_ovf, len(bundles))
     _lockstep([run])
     sn, has_snap, retier, hostfb, steps = _finish(run, seed_ovf, IC >= I_CAP)
     return [(sn, 0, L)], has_snap, retier, hostfb, steps
@@ -271,12 +307,14 @@ def _run_tier_slices(eng: LcbEngine, tbs, devices, bundles: Sequence[Bundle], L:
     `steps` is the largest slice's count."""
     Ls = L // len(devices)
     runs = []
-    for s, dev in enumerate(devices):
-        sub = bundles[s * Ls:(s + 1) * Ls]
-        if not sub:
-            break
-        ln, _, seed_ovf = _seed_lanes(eng.t, sub, Ls, dev)
-        runs.append((s * Ls, seed_ovf, _LaneRun(eng, tier, tbs[dev], ln, seed_ovf, len(sub))))
+    with metrics.summed("lcb_seed"):
+        for s, dev in enumerate(devices):
+            sub = bundles[s * Ls:(s + 1) * Ls]
+            if not sub:
+                break
+            ln, _, seed_ovf = _seed_lanes(eng.t, sub, Ls, dev)
+            runs.append((s * Ls, seed_ovf,
+                         _LaneRun(eng, tier, tbs[dev], ln, seed_ovf, len(sub))))
     metrics.count("fused_slices", len(runs))
     _lockstep([run for _, _, run in runs])
     parts, steps = [], 0
@@ -366,13 +404,15 @@ def process_phase_fused(eng: LcbEngine, bundles: Sequence[Bundle], vote_budget=N
     nb = len(bundles)
     if nb == 0:
         return []
-    if devices is None:
-        run = functools.partial(_run_tier, eng, _device_tables(eng, device))
-    else:
+    if devices is not None:
         devices = _check_devices(devices)
-        # the tables go to every distinct device once a phase
-        tbs = {dev: _device_tables(eng, dev) for dev in dict.fromkeys(devices)}
-        run = functools.partial(_run_tier_slices, eng, tbs, devices)
+    with metrics.summed("lcb_seed"):
+        if devices is None:
+            run = functools.partial(_run_tier, eng, _device_tables(eng, device))
+        else:
+            # the tables go to every distinct device once a phase
+            tbs = {dev: _device_tables(eng, dev) for dev in dict.fromkeys(devices)}
+            run = functools.partial(_run_tier_slices, eng, tbs, devices)
     metrics.count("fused_phases")
     tiers = tiers_of(eng, bundles, full_width=devices is not None)
     results: List[List[Instance]] = [[] for _ in range(nb)]
@@ -384,7 +424,6 @@ def process_phase_fused(eng: LcbEngine, bundles: Sequence[Bundle], vote_budget=N
         last = t == len(tiers) - 1
         chunk = lanes_a_call(CAP, W, on_card, vb)
         escalate: List[int] = []
-        t0 = time.time()
         for lo in range(0, len(work), chunk):
             group = work[lo:lo + chunk]
             L = _pad_pow2(len(group), 8 if t else 32)
@@ -395,7 +434,8 @@ def process_phase_fused(eng: LcbEngine, bundles: Sequence[Bundle], vote_budget=N
             metrics.count(f"fused_steps_tier{t}", steps)
             metrics.count(f"fused_lanes_tier{t}", len(group))
             n = len(group)
-            decoded = decode(parts, snap[:n] & ~hostfb[:n] & ~retier[:n], _decode_fetch)
+            with metrics.summed("lcb_decode"):
+                decoded = decode(parts, snap[:n] & ~hostfb[:n] & ~retier[:n], _decode_fetch)
             for j, i in enumerate(group):
                 if hostfb[j] or (retier[j] and last):
                     oracle.append(i)
@@ -403,13 +443,12 @@ def process_phase_fused(eng: LcbEngine, bundles: Sequence[Bundle], vote_budget=N
                     escalate.append(i)
                 elif snap[j]:
                     results[i] = decoded[j]
-        if work:
-            metrics.count(f"fused_tier{t}_s", time.time() - t0)
         work = escalate
 
     metrics.count("fused_oracle_lanes", len(oracle))
-    for i in oracle:
-        results[i] = eng.process(bundles[i])
+    with metrics.summed("lcb_oracle"):
+        for i in oracle:
+            results[i] = eng.process(bundles[i])
     return results
 
 
@@ -424,10 +463,12 @@ def run_fused(eng: LcbEngine, device="cuda", vote_budget=None, devices=None):
         device = _check_devices(devices)[0]
     else:
         check_device(device, "run_fused")
+    with metrics.stage("lcb_bundles"):
+        bundles = make_bundles_device(eng.t, device)
     return eng.run(
         process_batch_fn=functools.partial(
             process_phase_fused, vote_budget=vote_budget, device=device, devices=devices),
-        bundles=make_bundles_device(eng.t, device),
+        bundles=bundles,
     )
 
 

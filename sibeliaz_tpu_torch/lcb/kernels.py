@@ -54,8 +54,9 @@ K6's vote (with the used-retry), a K5 walk chunk, the protocol registers
 and the forward->backward rewind until the lane is done or the step limit
 (lcb/step.py's host loop, its plain version, on the CPU).  It writes the
 carry (the state and the 13 CARRY_REGISTERS) in place, so no two of its
-81 tensors may overlap, and its only allocation is its [4, L] per-lane
-results; it reads nothing of the card.  Each block keeps its lane's live
+81 tensors may overlap, and its only allocation is its [STEP_ROWS, L]
+per-lane results (LaneSteps' counts: its steps and the work they did,
+counted in the block's shared memory); it reads nothing of the card.  Each block keeps its lane's live
 slab and its vote's region in shared memory for the whole launch, so a
 tier whose slab and vote do not fit the 227 KB a block may opt in to is
 refused before the launch.  A build with STAMP_DEFINES (chip_smoke.py
@@ -546,13 +547,31 @@ class LaneSteps(NamedTuple):
     and its "steps" as given (the run's step count is that plus the lanes'
     largest `steps`), and per lane [L] int64: the steps it took, its walk
     pushes, its occurrence steps (the pushed vertices' occurrence counts,
-    summed) and 1 where a vote took the spill workspace (the card only)."""
+    summed), 1 where a vote took the spill workspace (the card only); the
+    work of its steps: score terms (each walk chunk's pushes times the
+    lane's instance count after it), voting instances, those at the lane's
+    path end (a window each), evaluated window slots (a window's alive
+    slots and the one that ends it, W at most) and alive window entries,
+    each vote's (a retried vote's retry, whose windows are the longer);
+    and 1 where the lane stepped and its best score rose (a rewind slab
+    written), and rose above 0 (a result slab written)."""
 
     carry: dict
     steps: torch.Tensor
     pushes: torch.Tensor
     occ_steps: torch.Tensor
     spilled: torch.Tensor
+    score_terms: torch.Tensor
+    voters: torch.Tensor
+    windows: torch.Tensor
+    slots: torch.Tensor
+    entries: torch.Tensor
+    rose: torch.Tensor
+    rose_positive: torch.Tensor
+
+
+# the rows of K7's per-lane results, LaneSteps' after the carry
+STEP_ROWS = len(LaneSteps._fields) - 1
 
 
 def _step_specs(L: int, IC: int, PC: int) -> list:
@@ -602,7 +621,7 @@ def lcb_step(CAP: int, W: int, slab_max: bool, tb: DeviceTables, carry, depth: i
                          f"{names[pair[1]]} (give each of the carry's tensors its own storage, "
                          "as seed_state and init_carry do)")
     with torch.cuda.device(dev):
-        out = torch.empty((4, L), dtype=torch.int64, device=dev)
+        out = torch.empty((STEP_ROWS, L), dtype=torch.int64, device=dev)
         _launch_step(tcheck, carry, CAP, W, slab_max, tb.k, depth, m, b, flank, min_run,
                      steps_limit, walk_chunk, out)
     return LaneSteps(carry, *out)
@@ -612,7 +631,7 @@ def step_launch_into(tb: DeviceTables, carry, CAP: int, W: int, slab_max: bool, 
                      m: int, b: int, flank: int, min_run: int, steps_limit: int,
                      walk_chunk: int, out, stamps=None) -> None:
     """Launches K7 on a carry lcb_step has checked, stepping it in place,
-    into `out` ([4, L] int64, LaneSteps' per-lane rows).  A launch from the
+    into `out` ([STEP_ROWS, L] int64, LaneSteps' per-lane rows).  A launch from the
     same carry writes the same values, so a timing loop restores the carry
     before each launch (chip_smoke.py's K7 times).  With `stamps`
     ([STAMP_PARTS, L] int64) the stamped build launches instead and writes
@@ -656,6 +675,8 @@ def _launch_step(tcheck: _TableCheck, carry, CAP: int, W: int, slab_max: bool, k
     L, IC = st.ln.chr.shape
     PC = st.ln.pvid.shape[1]
     lib = cudabuild.load(STAMP_DEFINES if stamps is not None else ())
+    if lib.sz_lcb_step_result_rows() != STEP_ROWS:
+        raise RuntimeError("the K7 build does not write LaneSteps' rows")
     if stamps is not None:
         if lib.sz_lcb_step_stamp_parts() != len(STAMP_PARTS):
             raise RuntimeError("the stamped K7 build does not have STAMP_PARTS' rows")

@@ -31,16 +31,16 @@ sources):
   * scoring: sum of good-instance real lengths minus squared flank
     penalties, -INT32_MAX on flank overflow (path.h:604-628).
 
-A copy of sibeliaz_tpu/lcb/oracle.py; it differs only in its imports and
-in naming the reference's sources without a path.
+A copy of sibeliaz_tpu/lcb/oracle.py; it differs in its imports, in
+naming the reference's sources without a path, and in `run`: each phase's
+serial validate/commit loop is the summed span `lcb_commit` (counter
+`lcb_commit_s`, utils/metrics) and each bundle it re-runs counts
+`lcb_commit_redos`, and there is no `SZ_LCB_PROGRESS` printing.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
-import sys
-import time
 from bisect import bisect_right
 from typing import Dict, List, Optional, Tuple
 
@@ -48,6 +48,7 @@ from sibeliaz_tpu_torch.core.gxxsort import gxx_sort
 from sibeliaz_tpu_torch.junctions.table import JunctionTable
 from sibeliaz_tpu_torch.core.alphabet import _COMPLEMENT_TABLE
 from sibeliaz_tpu_torch.lcb.blocks import Block
+from sibeliaz_tpu_torch.utils.metrics import GLOBAL as metrics
 
 SIZE_MAX = 2**64 - 1
 _U64 = 2**64
@@ -647,42 +648,33 @@ class LcbEngine:
         make_bundles, enumerated on device)."""
         if bundles is None:
             bundles = self.make_bundles()
-        # SZ_LCB_PROGRESS=1: per-phase stderr timing, so a long (or killed)
-        # run still yields phase-rate data for the engine benchmarks
-        _prog = os.environ.get("SZ_LCB_PROGRESS")
-        _t0 = time.time()
+        metrics.count("lcb_commit_redos", 0)  # a run without re-runs reads 0
         phase = 0
         while phase < len(bundles):
             limit = min(phase + phase_size, len(bundles))
-            _tp = time.time()
             if process_batch_fn is None:
                 results = [self.process(bundles[i]) for i in range(phase, limit)]
             else:
                 results = process_batch_fn(self, bundles[phase:limit])
-            if _prog:
-                print(
-                    f"[lcb +{time.time() - _t0:7.1f}s] phase {phase}-{limit}"
-                    f"/{len(bundles)} explored in {time.time() - _tp:.2f}s",
-                    file=sys.stderr,
-                    flush=True,
-                )
-            invalid: set = set()
-            for idx in range(phase, limit):
-                instances = results[idx - phase]
-                if len(instances) > 1:
-                    is_good = True
-                    for inst in instances:
-                        if inst.c not in invalid:
-                            continue
-                        if self.range_is_used(inst):
-                            is_good = False
-                            break
-                    if is_good:
-                        self.finalize(instances, invalid)
-                    else:
-                        self.failures += 1
-                        instances = self.process(bundles[idx])
-                        if len(instances) > 1:
+            with metrics.summed("lcb_commit"):
+                invalid: set = set()
+                for idx in range(phase, limit):
+                    instances = results[idx - phase]
+                    if len(instances) > 1:
+                        is_good = True
+                        for inst in instances:
+                            if inst.c not in invalid:
+                                continue
+                            if self.range_is_used(inst):
+                                is_good = False
+                                break
+                        if is_good:
                             self.finalize(instances, invalid)
+                        else:
+                            self.failures += 1
+                            metrics.count("lcb_commit_redos")
+                            instances = self.process(bundles[idx])
+                            if len(instances) > 1:
+                                self.finalize(instances, invalid)
             phase = limit
         return self.blocks

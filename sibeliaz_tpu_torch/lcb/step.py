@@ -15,22 +15,28 @@ when no lane is active or the step limit is reached, and, given
 `compact_min`, gathers the active lanes into a smaller power-of-two lane
 bucket once they are half the lanes or fewer (lanes never talk to each
 other, so compaction is a permutation).  It keeps each lane's steps,
-pushes and occurrence steps.
+pushes and occurrence steps, and the work that K7 counts in its blocks:
+the walks' score terms (a chunk's pushes times the lane's instance count
+after it) and the votes' terms (vote.vote_terms), and whether the lane's
+best score rose, and rose above 0.
 
 The loop is device-agnostic: on CPU tensors K5's and K6's wrappers run
 their plain versions, and `lcb_step_plain` is K7's plain version, the spec
 the kernel is held to; on CUDA tensors they launch K5 and K6 once a step,
 which is the host-loop route the fused engine took before K7
 (`fused._phase_fused_seg`, chip_smoke.py's phases 16-18).  Every read of
-the device adds one to `fused_host_syncs`.
+the device adds one to `fused_host_syncs`, and the host's seconds blocked
+in it to `fused_sync_wait_s`.
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
-from sibeliaz_tpu_torch.lcb import kernels
+from sibeliaz_tpu_torch.lcb import kernels, vote
 from sibeliaz_tpu_torch.lcb.batched_push_device import (
     BIG,
     LANE_FIELDS,
@@ -44,9 +50,14 @@ from sibeliaz_tpu_torch.utils.metrics import GLOBAL as metrics
 
 
 def fetch(t: torch.Tensor) -> np.ndarray:
-    """A device tensor on the host: one counted host sync."""
+    """A device tensor on the host: one counted host sync, and the seconds
+    the host waits in it (`fused_sync_wait_s`: on the card, for the work
+    queued before the copy and the copy)."""
     metrics.count("fused_host_syncs")
-    return t.cpu().numpy()
+    t0 = time.perf_counter()
+    out = t.cpu().numpy()
+    metrics.count("fused_sync_wait_s", time.perf_counter() - t0)
+    return out
 
 
 def init_carry(st: ResidentState, active0, L: int):
@@ -74,8 +85,9 @@ def phase_step(CAP: int, W: int, slab_max: bool, tb, carry, depth: int, m: int, 
     mid-walk lane; the protocol registers (blocksfinder.h:252-306) advance
     for lanes whose extend attempt completed this step (the vote came back
     empty, or the walk reached its target).  `n_max` bounds the active
-    lanes' instance counts (the votes' columns).  Returns the new carry and
-    the walk chunk's Walk (its rows' pushes and occurrence steps)."""
+    lanes' instance counts (the votes' columns).  Returns the new carry,
+    the walk chunk's Walk (its rows' pushes, occurrence steps and instance
+    counts) and the vote's terms ([4, L], vote.vote_terms)."""
     st = carry["st"]
     stage, positive, prev_len = carry["stage"], carry["positive"], carry["prev_len"]
     score_reg, active, retier = carry["score"], carry["active"], carry["retier"]
@@ -90,9 +102,11 @@ def phase_step(CAP: int, W: int, slab_max: bool, tb, carry, depth: int, m: int, 
     voting = active & ~in_walk
     cap_ovf = voting & (st.ln.n > CAP)
     votable = voting & ~cap_ovf
+    no_used = torch.zeros_like(votable)
     bvid, _, ochr, oidx, ostr, wovf = kernels.lcb_vote(
-        CAP, W, tb, st.ln, rows, votable, fwd, torch.zeros_like(votable), depth, b, n_max,
-        retry=True)
+        CAP, W, tb, st.ln, rows, votable, fwd, no_used, depth, b, n_max, retry=True)
+    votes = vote.vote_terms(CAP, W, tb, st.ln, rows, votable, fwd, no_used, depth, b, n_max,
+                            retry=True)
     vote_ovf = cap_ovf | (votable & (wovf > 0))
     retier = retier | vote_ovf
     active = active & ~vote_ovf
@@ -147,7 +161,7 @@ def phase_step(CAP: int, W: int, slab_max: bool, tb, carry, depth: int, m: int, 
     prev_len = torch.where(to_bwd, st.ln.right_flank - st.ln.left_flank, prev_len)
     return dict(st=st, stage=stage, positive=positive, prev_len=prev_len, score=score_reg,
                 active=active, retier=retier, hostfb=hostfb, in_walk=in_walk, wc=wc, wi=wi,
-                ws=ws, wt=wt, wlast=wlast, steps=carry["steps"] + 1), w
+                ws=ws, wt=wt, wlast=wlast, steps=carry["steps"] + 1), w, votes
 
 
 def read(carry):
@@ -194,17 +208,21 @@ def run_steps(CAP: int, W: int, slab_max: bool, tb, carry, depth: int, m: int, b
     fold back at the end.  Returns (LaneSteps, reading, the step count):
     the LaneSteps' carry (in the original lane order) keeps the given
     `steps`; its counts are each lane's steps, pushes and occurrence steps,
-    and no spill (0)."""
+    no spill (0), and the work of its steps (the walks' score terms, the
+    votes' terms) and whether its best score rose, and rose above 0."""
     L = carry["active"].shape[0]
     dev = carry["active"].device
-    counts = torch.zeros((3, L), dtype=torch.int64, device=dev)
+    # steps, pushes, occurrence steps, score terms, then vote_terms' four
+    counts = torch.zeros((8, L), dtype=torch.int64, device=dev)
+    best0 = carry["st"].best_score.clone()  # K5 on the card walks the state in place
     reading = reading or read(carry)
     cur, stash, gmap = carry, None, None  # gmap: current row -> original lane
     while reading[0] and cur["steps"] < steps_limit:
         was = cur["active"]
-        cur, w = phase_step(CAP, W, slab_max, tb, cur, depth, m, b, flank, min_run, reading[1],
-                            walk_chunk)
-        add = torch.stack([was.long(), w.pushes, w.occ_steps])
+        cur, w, votes = phase_step(CAP, W, slab_max, tb, cur, depth, m, b, flank, min_run,
+                                   reading[1], walk_chunk)
+        add = torch.cat([torch.stack([was.long(), w.pushes, w.occ_steps, w.pushes * w.n]),
+                         votes])
         if gmap is None:
             counts = counts + add
         else:
@@ -234,7 +252,10 @@ def run_steps(CAP: int, W: int, slab_max: bool, tb, carry, depth: int, m: int, b
     if stash is not None:
         cur = carry_fold(stash, cur, gmap)
     out = dict(cur, steps=carry["steps"])
-    return LaneSteps(out, *counts, torch.zeros_like(counts[0])), reading, steps
+    best = out["st"].best_score
+    rose = (counts[0] > 0) & (best > best0)
+    return (LaneSteps(out, *counts[:3], torch.zeros_like(counts[0]), *counts[3:], rose.long(),
+                      (rose & (best > 0)).long()), reading, steps)
 
 
 def lcb_step_plain(CAP: int, W: int, slab_max: bool, tb, carry, depth: int, m: int, b: int,

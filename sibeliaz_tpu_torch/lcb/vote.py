@@ -19,7 +19,8 @@ A port of sibeliaz_tpu/lcb/resident.py::_vote_gathered.  How it differs:
     used-retry (sibeliaz_tpu/lcb/fused.py:241-260), two plain votes;
   * `window_lengths` reports each voting instance's alive window, and
     `searched_slots` the window slots whose path search the vote needs,
-    which chip_smoke.py counts K6's bound from.
+    which chip_smoke.py counts K6's bound from; `vote_terms` counts each
+    row's work as K7 counts it in its blocks (lcb/step.py's rows).
 """
 
 from __future__ import annotations
@@ -210,3 +211,27 @@ def searched_slots(CAP: int, W: int, tb: DeviceTables, ln: DeviceLanes, idx, val
     and within, and the vids searched there."""
     w = _windows(CAP, W, tb, ln, idx, valid, forward, try_used, depth, b, n_max)
     return w["vid"], w["searched"]
+
+
+def vote_terms(CAP: int, W: int, tb: DeviceTables, ln: DeviceLanes, idx, valid, forward,
+               try_used, depth: int, b: int, n_max=None, retry: bool = False) -> torch.Tensor:
+    """[4, A] int64: each row's voting instances, those at the lane's path
+    end (a window each), evaluated window slots (a window's alive slots and
+    the slot that ends it, W at most) and alive window entries.  With
+    `retry`, a row that retries (vote_retry_plain's rows: valid, forward,
+    no winner and no overflow) counts its retry's slots and entries: the
+    retry's windows are the longer, since they also take used junctions.
+    What K7 counts of a vote in its block."""
+    w = _windows(CAP, W, tb, ln, idx, valid, forward, try_used, depth, b, n_max)
+    alive = w["alive"]
+    if retry:
+        winner = (alive & (w["vid"] < BIG)).flatten(1).any(dim=1)
+        need = valid & forward & ~winner & ~alive[:, :, W - 1].any(dim=1)
+        if bool(need.any()):
+            again = _windows(CAP, W, tb, ln, idx, need, forward, need, depth, b, n_max)["alive"]
+            alive = torch.where(need[:, None, None], again, alive)
+    at_end = w["at_end"]
+    lens = torch.where(at_end, alive.sum(dim=2), 0)
+    return torch.stack([w["in_list"].sum(dim=1), at_end.sum(dim=1),
+                        torch.where(at_end, (lens + 1).clamp(max=W), 0).sum(dim=1),
+                        lens.sum(dim=1)])

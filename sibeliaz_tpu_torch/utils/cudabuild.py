@@ -126,6 +126,7 @@ SIGNATURES = {
     "sz_lcb_step": ([_vp] * 6 + [_i32, _i64, _i32, _i32, _i64, _i32] + [_i64] * 6
                     + [_i32, _i64, _i64, _i32, _vp, _vp]),
     "sz_lcb_step_blocks_per_sm": [_i32] * 5 + [_vp],
+    "sz_lcb_step_result_rows": [],
     "sz_lcb_step_stamp_parts": [],
     "sz_lcb_step_workspace_words": [_i32] * 4,
 }

@@ -18,6 +18,7 @@ from sibeliaz_tpu_torch.core import alphabet
 from sibeliaz_tpu_torch.dryrun import dryrun_inputs
 from sibeliaz_tpu_torch.graph import construct, kernels, oracle, streamed
 from sibeliaz_tpu_torch.lcb.device_bundles import make_bundles_device
+from sibeliaz_tpu_torch.lcb.kernels import LaneSteps
 from sibeliaz_tpu_torch.parallel import multihost, sharded
 from sibeliaz_tpu_torch.utils import cudabuild
 from sibeliaz_tpu_torch.utils.metrics import GLOBAL as metrics
@@ -1181,12 +1182,17 @@ def test_lcb_vote_engines_never_run_the_plain_vote_on_the_card(cuda, monkeypatch
 # ---- K7 lcb_step ----------------------------------------------------------------
 
 
+# LaneSteps' rows that the plain version gives (the spill flag is the card's)
+LANE_ROWS = [r for r in LaneSteps._fields[1:] if r != "spilled"]
+
+
 def step_checked(tb_cpu, carry_cpu, tb, carry, a):
     """One K7 call on the card against the plain version on the CPU from
     the same carry: the state's 68 tensors and the 13 registers in every
-    column, and each lane's steps, pushes and occurrence steps, exact; one
-    launch and no K5 or K6 launch; the carry stepped in place.  Returns
-    (the card's LaneSteps, the plain version's)."""
+    column, and each lane's steps, pushes, occurrence steps and the work
+    of its steps, exact; one launch and no K5 or K6 launch; the carry
+    stepped in place.  Returns (the card's LaneSteps, the plain
+    version's)."""
     from sibeliaz_tpu_torch.lcb import kernels
 
     args = (a["CAP"], a["W"], a["slab_max"])
@@ -1203,7 +1209,7 @@ def step_checked(tb_cpu, carry_cpu, tb, carry, a):
         [got.carry[r] for r in kernels.CARRY_REGISTERS] + list(state_leaves(got.carry["st"])),
         leaves))
     assert not state_diff(got.carry, want.carry)
-    for name in ("steps", "pushes", "occ_steps"):
+    for name in LANE_ROWS:
         assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
     return got, want
 
@@ -1270,6 +1276,66 @@ def test_lcb_step_hand_laid_cuda_matches_cpu(cuda, name):
         assert kernels.step_blocks_per_sm(512, 1024, a["CAP"], a["W"])[0] == 2
     else:
         assert int(got.steps.max()) == 3 and bool(c["active"].any())
+
+
+def test_lcb_step_counts_its_work_on_the_recorded_phase(cuda, monkeypatch):
+    """examples/' first phase (256 bundles, k=15) through the fused engine
+    on the card, its K7 runs recorded with their carries: on runs 1 and 2
+    (tiers 0 and 1) K7's rows equal the host loop's on the card (the plain
+    version, K6 and K5 a step) exactly; on run 2 the bytes that
+    portbench/lib/k7_bound.py counts from the counters the run's read
+    added equal chip_smoke.py's k7_bound's, which counts the host loop's
+    calls (LoopTerms); the run's read is one host sync."""
+    import os
+    import sys
+
+    from sibeliaz_tpu_torch.io import fasta
+    from sibeliaz_tpu_torch.lcb import fused, step
+    from sibeliaz_tpu_torch.lcb import kernels as lcb_kernels
+    from sibeliaz_tpu_torch.lcb.oracle import LcbEngine
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    import chip_smoke
+    from portbench.lib import k7_bound
+
+    recs = fasta.read_many([os.path.join(repo, "examples", f"genome{g}.fa") for g in (1, 2)])
+    cfg = Config(k=15)
+    table = pipeline.build_table([r.seq for r in recs], [r.name for r in recs], cfg,
+                                 device="cuda")
+    eng = LcbEngine(table, cfg.min_block_size, cfg.max_branch_size, cfg.flanking,
+                    cfg.looking_depth)
+    bundles = make_bundles_device(table, "cuda")[:256]
+    deltas = []
+    real_read = fused._LaneRun.read
+
+    def read(run):
+        before = dict(metrics.counters)
+        real_read(run)
+        deltas.append({k: v - before.get(k, 0) for k, v in metrics.counters.items()})
+
+    monkeypatch.setattr(fused._LaneRun, "read", read)
+    metrics.counters.clear()
+    with chip_smoke.StepRecorder(lcb_kernels) as rec:
+        fused.process_phase_fused(eng, bundles, device="cuda")
+    assert len(rec.calls) == len(deltas) >= 2
+    for q in (0, 1):
+        args, got = rec.calls[q]
+        CAP, W, slab_max, tb, before, *rest = args
+        with chip_smoke.LoopTerms(torch, lcb_kernels) as terms:
+            loop = step.lcb_step_plain(CAP, W, slab_max, tb,
+                                       step.carry_map(lambda x: x.clone(), before), *rest)
+        for name in LANE_ROWS:
+            assert torch.equal(getattr(got, name), getattr(loop, name)), (q, name)
+        assert deltas[q]["fused_host_syncs"] == 1
+        walk, vote = terms.totals()
+        w = k7_bound.work(deltas[q])
+        assert (w["k7_pushes"], w["fused_lane_occ_steps"], w["k7_score_terms"], w["k7_voters"],
+                w["k7_windows"], w["k7_slots"], w["k7_entries"]) == walk + vote
+        if q == 1:
+            assert before["st"].ln.chr.shape[1] == fused.I_CAP
+            _, _, want = chip_smoke.k7_bound(args, got, walk, vote, 16.7e12)
+            assert k7_bound.k7_bytes(w) == want > 0
 
 
 def test_lcb_step_on_the_tensors_device(cuda):

@@ -118,6 +118,53 @@ def test_run_fused_gff_matches_jax_and_native(k):
     assert got == native.gff and native.blocks_found > 0
 
 
+def test_a_pass_is_traced_inside_lcb_engine(monkeypatch):
+    """A `tpu-fused` pass through find_blocks on the CPU, under a CPU
+    torch.profiler: the stage `lcb_bundles` is a child of `lcb_engine`, and
+    every span of the engine's five (`lcb_bundles` and the summed
+    `lcb_seed`, `lcb_decode`, `lcb_oracle`, `lcb_commit`) is a profiler
+    event inside lcb_engine's; the summed spans' counters are their events'
+    seconds; with K7's runs (`fused_step_s`) they leave lcb_engine no
+    negative self time; the commit's re-runs are the engine's failures; the
+    reads' waits and the longest lanes' occurrence steps are counted."""
+    seqs, names = random_related_genomes(521, length=1200, mut=0.03, rearrange=True)
+    engines_seen = []
+    real = pipeline.run_fused
+
+    def run_fused(eng, **kw):
+        engines_seen.append(eng)
+        return real(eng, **kw)
+
+    monkeypatch.setattr(pipeline, "run_fused", run_fused)
+    monkeypatch.setattr(metrics, "timings", [])
+    monkeypatch.setattr(metrics, "counters", {})
+    children = ("lcb_bundles", "lcb_seed", "lcb_decode", "lcb_oracle", "lcb_commit")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        pipeline.find_blocks(seqs, names, Config(k=15), engine="tpu-fused", device="cpu")
+    (eng,) = engines_seen
+    events = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name() in children + ("lcb_engine",):
+            events.setdefault(e.name(), []).append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    (outer,) = events["lcb_engine"]
+    for name in children:
+        assert events[name], name
+        assert all(outer[0] <= a <= b <= outer[1] for a, b in events[name]), name
+    records = {t["stage"]: t for t in metrics.timings}
+    assert records["lcb_bundles"]["parent"] == "lcb_engine"
+    assert not set(children[1:]) & set(records)  # summed spans append no record
+    counters = metrics.counters
+    for name in children[1:]:
+        got = sum(b - a for a, b in events[name]) / 1e9
+        assert counters[f"{name}_s"] == pytest.approx(got, rel=0.05, abs=2e-3), name
+    inside = records["lcb_bundles"]["seconds"] + sum(counters[f"{c}_s"] for c in children[1:])
+    assert records["lcb_engine"]["seconds"] - inside - counters["fused_step_s"] >= 0
+    assert counters["lcb_commit_redos"] == eng.failures > 0
+    assert counters["fused_sync_wait_s"] > 0 and counters["fused_longest_occ_steps"] > 0
+    assert counters["k7_lanes"] >= counters["k7_stepped_lanes"] > 0
+    assert not any(k.startswith("fused_tier") and k.endswith("_s") for k in counters)
+
+
 @pytest.mark.parametrize("seed,kwargs", [
     (520, dict(length=1200, mut=0.03, rearrange=True)),
     (522, dict(length=1200, mut=0.03, rearrange=True)),

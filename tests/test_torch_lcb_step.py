@@ -60,40 +60,83 @@ def test_lcb_step_matches_jax(tier, start, steps):
         assert bool(got.carry["active"].any())
 
 
+def vote_lens(CAP, W, tb, ln, idx, valid, forward, try_used, depth, b, n_max, retry):
+    """A vote's window lengths (vote.window_lengths), a retried row's the
+    longer of its two votes', the retried rows found by the first vote's
+    plain version (as chip_smoke.py's vote_lens)."""
+    lens = vote.window_lengths(CAP, W, tb, ln, idx, valid, forward, try_used, depth, b, n_max)
+    if retry:
+        first = vote.vote_plain(CAP, W, tb, ln, idx, valid, forward, try_used, depth, b, n_max)
+        need = valid & forward & (first[0] == 0) & (first[5] == 0)
+        again = vote.window_lengths(CAP, W, tb, ln, idx, need, forward, need, depth, b, n_max)
+        lens = torch.where(need[:, None], lens.maximum(again), lens)
+    return lens
+
+
 @pytest.mark.parametrize("tier", [NARROW, WIDE])
 def test_lane_counts_match_the_host_loop(monkeypatch, tier):
     """Each lane's steps are the steps it was active in, its pushes and
     occurrence steps those of the walk chunks' rows, summed; their largest
-    step count is the host loop's, with compaction and without it."""
+    step count is the host loop's, with compaction and without it.  The
+    work rows are what the K5 and K6 calls give, counted as chip_smoke.py's
+    LoopTerms counts them: score terms a chunk's pushes times the row's
+    instance count; of the vote's window lengths, the voting instances,
+    the windows, the evaluated slots and the alive entries; and a lane
+    whose best score rose (above 0) stepped."""
     eng, jeng = related()
     begin, _ = jax_carry_after(eng, jeng, tier, 32, 0)
     tb = resident._device_tables(eng, "cpu")
-    chunks, actives = [], []
-    real_walk, real_step = kernels.lcb_walk, step.phase_step
+    chunks, actives, votes = [], [], []
+    real_walk, real_vote, real_step = kernels.lcb_walk, kernels.lcb_vote, step.phase_step
 
     def walk(*a):
         w = real_walk(*a)
-        chunks.append(torch.stack([w.pushes, w.occ_steps]))
+        chunks.append(torch.stack([w.pushes, w.occ_steps, w.pushes * w.n]))
         return w
+
+    def voted(CAP, W, tb_, ln, idx, valid, forward, try_used, depth, b, n_max=None,
+              retry=False, spilled=None):
+        lens = vote_lens(CAP, W, tb_, ln, idx, valid, forward, try_used, depth, b, n_max, retry)
+        windows = lens >= 0
+        row = torch.zeros((4, ln.n.shape[0]), dtype=torch.int64)
+        row[:, idx] = torch.stack([(lens != -1).sum(dim=1), windows.sum(dim=1),
+                                   torch.where(windows, (lens + 1).clamp(max=W), 0).sum(dim=1),
+                                   torch.where(windows, lens, 0).sum(dim=1)])
+        votes.append(row)
+        return real_vote(CAP, W, tb_, ln, idx, valid, forward, try_used, depth, b, n_max,
+                         retry=retry, spilled=spilled)
 
     def one_step(CAP, W, slab_max, tb_, carry, *rest):
         actives.append(carry["active"].clone())
         return real_step(CAP, W, slab_max, tb_, carry, *rest)
 
     monkeypatch.setattr(kernels, "lcb_walk", walk)
+    monkeypatch.setattr(kernels, "lcb_vote", voted)
     monkeypatch.setattr(step, "phase_step", one_step)
     loop, _ = fused._phase_fused_seg(tier[0], tier[1], tier[2] >= fused.I_CAP, tb,
                                      fused.carry_from_numpy(nested(begin), "cpu"), eng.depth,
                                      eng.m, eng.b, eng.flank, eng.b * 2, fused.MAX_STEPS)
     want = torch.stack(chunks).sum(dim=0)
+    want_votes = torch.stack(votes).sum(dim=0)
     steps = torch.stack(actives).long().sum(dim=0)
-    assert len(chunks) == loop["steps"] > 20
+    assert len(chunks) == len(votes) == loop["steps"] > 20
+    monkeypatch.setattr(kernels, "lcb_walk", real_walk)
+    monkeypatch.setattr(kernels, "lcb_vote", real_vote)
+    best0 = fused.carry_from_numpy(nested(begin), "cpu")["st"].best_score
     for compact_min in (8, 32):
         got = lcb_step(tier, tb, fused.carry_from_numpy(nested(begin), "cpu"), eng,
                        fused.MAX_STEPS, compact_min)
         assert int(got.steps.max()) == loop["steps"]
         assert torch.equal(got.steps, steps)
         assert torch.equal(got.pushes, want[0]) and torch.equal(got.occ_steps, want[1])
+        assert torch.equal(got.score_terms, want[2])
+        for r, name in enumerate(("voters", "windows", "slots", "entries")):
+            assert torch.equal(getattr(got, name), want_votes[r]), name
+        best = got.carry["st"].best_score
+        rose = (steps > 0) & (best > best0)
+        assert torch.equal(got.rose, rose.long())
+        assert torch.equal(got.rose_positive, (rose & (best > 0)).long())
+        assert int(got.rose_positive.sum()) > 0 and int(want_votes[3].sum()) > 0
         assert int(got.pushes.sum()) > 0 and not state_diff(dict(got.carry, steps=0),
                                                            dict(loop, steps=0))
 
@@ -134,9 +177,9 @@ def test_hand_laid_cases_show_what_they_are_laid_for(monkeypatch, name):
     real = step.phase_step
 
     def one_step(*args):
-        out, w = real(*args)
+        out, w, votes = real(*args)
         mid_walk.append(bool((out["in_walk"] & out["active"]).any()))
-        return out, w
+        return out, w, votes
 
     monkeypatch.setattr(step, "phase_step", one_step)
     # the spill lane's first vote: the vertices its windows search
