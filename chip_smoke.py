@@ -16,6 +16,7 @@
                                              # K5 wrapper timed beside), see vote_phase
     python3 chip_smoke.py --step [OLDER_DIR]  # phase 18 alone with the split of a step
                                              # (and an older K7 timed beside), see step_phase
+    python3 chip_smoke.py --seed             # K8 lcb_seed timed, see seed_phase
 
 Phases, in order; any failure raises and the exit code is non-zero:
   1. device: the card's name and power limit, and the peak rates the
@@ -108,8 +109,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
  13. the fused LCB engine (lcb/fused.py): (a) the CLI with --lcb-engine
      tpu-fused -n on examples/ (k=15), byte-equal to the golden GFF, a
      main-path run whose K1 and K2 launches count (once each) and whose
-     lanes step in K7 alone (one launch a run, no K5 or K6 launch, at most
-     two reads a run: the seeding's and the run's), with its lcb_engine
+     lanes step in K7 alone (one launch a run, no K5 or K6 launch, one
+     read a run, one K8 launch a run seeding it), with its lcb_engine
      seconds beside the native engine's, its runs, outer steps, reads a
      run and counters; (b) examples/' first phase (256 bundles)
      on the card equal to the same on the CPU and to eng.process, bundle by
@@ -191,6 +192,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
      an older K7's sources (lcb_step.cu, lcb_vote.cu and the three headers
      of the same C interface), that K7 built apart and timed beside this one
      on both runs, in turns.
+`--seed` runs phases 1 and 2, then K8 lcb_seed (lcb/kernels.py) on
+examples/large's first phase (k=25, 256 lanes) at the fused engine's two
+slab widths (IC 64, PC 128 and IC 512, PC 1024): equal to its plain version
+on the card, exact; its card time alone (CUDA events over many launches
+into buffers that together pass the L2 cache, the card spun ahead), its
+bound (bytes) and its share of it; the host wall of the seeding it
+replaced (the ops, the overflow read, the active flags' upload, seed_state
+and init_carry, synchronised) and of K8's copy, launch and wrapper (to its
+return, and synchronised).
 The last two lines are a JSON summary of the kernels (time, plain time,
 bound, launches per main path; K1's and K2's "ms" are their one-limb
 instances' and "by_limbs" holds both instances'; K4's "ms" is its shape on
@@ -207,6 +217,7 @@ imports neither jax nor sibeliaz_tpu.
 import contextlib
 import ctypes
 import functools
+import gc
 import hashlib
 import io
 import json
@@ -306,6 +317,14 @@ VOTE_KEEP = 4
 K6_ROW_BYTES, K6_REGISTER_BYTES, K6_COLUMN_BYTES = 8 + 3 + 6 * 8, 3 * 8, 6 * 8
 K6_END_BYTES, K6_WINDOW_BYTES, K6_SLOT_BYTES = 2 * 8, 4 * 8, 8 + 8 + 1
 K6_OPS_PER_SLOT, K6_OPS_PER_ENTRY = 70, 20
+
+
+# --seed: what K8 reads a lane (its origin's two occurrence offsets, its
+# two arguments) and an occurrence in its window (the occurrence's
+# chromosome and index, a chromosome offset, a junction id, a used flag and
+# an annotation char), bytes; the bytes its timed launches write in all
+# (their buffers, taken in turn, pass the 50 MB L2 cache)
+K8_LANE_BYTES, K8_OCC_BYTES, K8_TIMED_BYTES = 2 * 8 + 2 * 8, 4 * 8 + 2, 150_000_000
 
 
 # phase 18: what K7 moves besides the slabs and the tables its steps read,
@@ -1793,9 +1812,10 @@ def fused_phase(torch, mods, tmp_dir, large_fa, label):
     runs = counters["fused_runs"]
     check(launches["lcb_step"] == runs, f"{launches['lcb_step']} lcb_step launches for {runs} "
           "runs: a run went past K7")
-    check(counters["fused_host_syncs"] / runs <= 2,
-          f"{counters['fused_host_syncs'] / runs:.4f} reads a run, more than 2 (the seeding's "
-          "and the run's)")
+    check(counters["fused_host_syncs"] == runs == launches["lcb_seed"]
+          == metrics.counters["k8_launches"],
+          f"{counters['fused_host_syncs']} reads and {launches['lcb_seed']} K8 launches for "
+          f"{runs} runs: not one of each a run")
     print(f"examples/ --lcb-engine tpu-fused -n: GFF byte-equal to the golden | lcb_engine "
           f"{lcb_s['tpu-fused']:.4f} s (native {lcb_s['native']:.4f} s) | CLI wall {wall:.4f} s "
           f"| runs {runs} | outer steps (each run's longest lane) {steps} | reads a run "
@@ -3337,6 +3357,127 @@ def step_phase(torch, mods, peak_ops, label, split=False, older=None, out_dir=No
     return summary, err
 
 
+def seed_phase(torch, mods, peak_ops, label):
+    """`--seed`: K8 lcb_seed on examples/large's first phase (256 lanes,
+    k=25) at IC 64, PC 128 and IC 512, PC 1024: equal to its plain version
+    on the card; its card time alone, its bound and share; the host wall
+    of the seeding it replaced and of K8's whole call.  Returns {shape:
+    summary}."""
+    cases = mods[0]
+    from sibeliaz_tpu_torch.lcb import fused, resident, step
+    from sibeliaz_tpu_torch.lcb import kernels as lcb_kernels
+
+    phase(f"K8 lcb_seed on examples/large's first phase, 256 lanes {label}")
+    out = {}
+    for name in ("large_narrow", "large_wide"):
+        eng, bundles, L, IC, PC, seeds = cases.seed_case(name, "cuda")
+        tb = resident._device_tables(eng, "cuda")
+        nb = len(seeds)
+        carry, ovf = lcb_kernels.lcb_seed(tb, seeds, L, IC, PC)
+        lanes = torch.zeros((2, L), dtype=torch.int64)
+        lanes[:, :nb] = torch.from_numpy(seeds.T)
+        want, want_ovf = step.lcb_seed_plain(tb, lanes.cuda(), nb, IC, PC)
+        torch.cuda.synchronize()
+        diff = cases.state_diff(carry, want)
+        check(not diff and torch.equal(ovf, want_ovf),
+              f"lcb_seed differs from its plain version at IC {IC}: {diff[:4]}")
+        plan = lcb_kernels.seed_plan(L, IC, PC)
+        bufs = [lcb_kernels.SeedOutputs(L, IC, PC, "cuda")
+                for _ in range(max(2, -(-K8_TIMED_BYTES // plan.nbytes)))]
+        for buf in bufs:
+            buf.args.copy_(lanes.view(-1))
+        turn = iter(range(1 << 30))
+
+        def launch():
+            lcb_kernels.seed_launch_into(tb, bufs[next(turn) % len(bufs)], nb)
+
+        gc.disable()  # a full collection (the table's and bundles' objects) outlasts the spin
+        try:
+            ms = cuda_ms(torch, launch, 10 * len(bufs), ahead=2)
+        finally:
+            gc.enable()
+        count = np.diff(eng.t.occ_off)[np.abs(seeds[:, 0])]
+        span = int(np.minimum(count, IC).sum())
+        written = plan.nbytes - 16 * L
+        nbytes = written + L * K8_LANE_BYTES + span * K8_OCC_BYTES
+        bound, by = bound_ms(nbytes, 0, peak_ops)
+
+        def old():
+            ln, _, ovf_t = resident._seed_lanes_device(tb, bundles, L, IC, PC)
+            seed_ovf = ovf_t.cpu().numpy()
+            active0 = (np.arange(L) < nb) & ~seed_ovf
+            fused._init_carry(resident.seed_state(ln), torch.from_numpy(active0).cuda(), L)
+
+        def k8():
+            lcb_kernels.lcb_seed(tb, seeds, L, IC, PC)
+
+        def k8_kept():
+            lcb_kernels.lcb_seed(tb, seeds, L, IC, PC, into=bufs[0])
+
+        def outputs():
+            lcb_kernels.SeedOutputs(L, IC, PC, "cuda")
+
+        def refresh():
+            resident._device_tables(eng, "cuda")
+
+        host = {}
+        for traced in (False, True):
+            with seed_profiler(torch, traced):
+                for what, fn, sync in (("replaced", old, True), ("k8", k8, False),
+                                       ("k8_sync", k8, True), ("k8_kept", k8_kept, False),
+                                       ("k8_kept_sync", k8_kept, True),
+                                       ("outputs", outputs, False), ("refresh", refresh, True)):
+                    host[what + ("_traced" if traced else "")] = host_median(torch, fn, sync)
+        shape = f"IC {IC} PC {PC}"
+        out[shape] = dict(ms=ms, bound_ms=bound, share=bound / ms, bytes=nbytes,
+                          written=written, host_ms=host)
+        print(f"lcb_seed {shape}, {L} lanes ({nb} bundles, {int(ovf.sum())} past IC, "
+              f"{span} window occurrences): equal to the plain version | card "
+              f"{ms:.4f} ms ({len(bufs)} buffers in turn) | bound {bound:.4f} ms by {by} "
+              f"({nbytes:,} B: {written:,} written, {span * K8_OCC_BYTES + L * K8_LANE_BYTES:,} "
+              f"read) = {100 * bound / ms:.2f}% {label}")
+        print("  host ms, medians (untraced / under a torch.profiler of CPU and CUDA "
+              "activity, as portbench's traced runs): the seeding it replaced, synchronised "
+              f"{host['replaced']:.4f} / {host['replaced_traced']:.4f}; K8's copy, launch and "
+              f"wrapper into new outputs, to its return {host['k8']:.4f} / "
+              f"{host['k8_traced']:.4f}, synchronised {host['k8_sync']:.4f} / "
+              f"{host['k8_sync_traced']:.4f} (of it the outputs' allocation and views "
+              f"{host['outputs']:.4f} / {host['outputs_traced']:.4f}); into kept outputs (the "
+              f"engine's), to its return {host['k8_kept']:.4f} / {host['k8_kept_traced']:.4f}, "
+              f"synchronised {host['k8_kept_sync']:.4f} / {host['k8_kept_sync_traced']:.4f}; a "
+              f"phase's table refresh, synchronised {host['refresh']:.4f} / "
+              f"{host['refresh_traced']:.4f}")
+    return out
+
+
+@contextlib.contextmanager
+def seed_profiler(torch, on):
+    """A torch.profiler of CPU and CUDA activity where `on` (portbench's
+    traced runs' settings), else nothing."""
+    if not on:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        yield
+
+
+def host_median(torch, fn, sync, reps=41):
+    """The median host milliseconds of a call of `fn` (after a warm-up
+    call; the card idle before each), to its return or with `sync` to the
+    card's end of it too."""
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        if sync:
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sorted(times[1:])[reps // 2] * 1e3
+
+
 def joined_junction_positions(seqs, recs):
     """The records' junction positions in the joined genome (one N between
     chromosomes), and the sign of each position's id."""
@@ -3529,18 +3670,20 @@ def main(argv):
     walk_only = argv == ["--walk"]
     vote_args = argv[1:] if argv[:1] == ["--vote"] and len(argv) <= 2 else None
     step_args = argv[1:] if argv[:1] == ["--step"] and len(argv) <= 2 else None
+    seed_only = argv == ["--seed"]
     if argv[:1] == ["--k3-replay"] and len(argv) == 2:
         replay_dir = argv[1]
     elif argv[:1] == ["--k3-time"] and len(argv) == 2:
         time_kinds = argv[1].split(",")
     elif argv and not (k2_time or k1_time or sharded_only or fused_only or dryrun_only
-                       or resident_only or walk_only or step_args is not None
+                       or resident_only or walk_only or seed_only or step_args is not None
                        or k4_time_args is not None
                        or k5_time_args is not None or vote_args is not None):
         print("usage: python3 chip_smoke.py [--k3-replay DIR | --k3-time KIND[,KIND...] | "
               "--k2-time | --k1-time | --k4-time [OLDER_ROUND_APPEND.cu] | --sharded | "
               "--fused | --dryrun | --resident | --walk | --k5-time [OLDER_LCB_WALK.cu] | "
-              "--vote [OLDER_LCB_KERNELS.py] | --step [OLDER_K7_DIR]]", file=sys.stderr)
+              "--vote [OLDER_LCB_KERNELS.py] | --step [OLDER_K7_DIR] | --seed]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is visible", file=sys.stderr)
@@ -3652,6 +3795,11 @@ def main(argv):
         return 0
     if vote_args is not None:
         vote_phase(torch, mods, peak_ops, label, vote_args[0] if vote_args else None)
+        tmp.cleanup()
+        print(smi)
+        return 0
+    if seed_only:
+        print(json.dumps({"lcb_seed": seed_phase(torch, mods, peak_ops, label)}))
         tmp.cleanup()
         print(smi)
         return 0

@@ -38,12 +38,18 @@ A port of sibeliaz_tpu/lcb/fused.py.  How it differs:
     card one launch, a block a lane looping the vote (K6's algorithm, with
     the used-retry), a walk chunk (K5's), the protocol registers and the
     rewind, which writes the carry in place and reads nothing; then one
-    read of the card a run brings the flags and the lanes' counts back.
-    On the CPU the call runs K7's plain version, lcb/step.py's host loop
-    (one K6 and one K5 call a step, a read a step, with compaction).  The
-    tier's seeding (`seed_state`, `init_carry`) gives every tensor of the
-    carry its own storage.  Each read of a run or of the seeding adds one
-    to `fused_host_syncs`, a result slab's compact fetch to
+    read of the card a run brings the flags, the seed-overflow flags and
+    the lanes' counts back.  On the CPU the call runs K7's plain version,
+    lcb/step.py's host loop (one K6 and one K5 call a step, a read a step,
+    with compaction).  A lane set is seeded by one call of K8 `lcb_seed`
+    (lcb/kernels.py): on the card one copy of its lanes' [2, L] (origin
+    vid, out-char) arguments and one launch that writes the whole carry as
+    disjoint views of one allocation, with no read (the engine keeps one
+    allocation a shape, its views made once, until run_fused ends); on the
+    CPU its plain version (resident._seed_lanes_device_impl, `seed_state`,
+    `init_carry`), which gives every tensor of the carry its own storage.
+    The lanes' arguments are built once a phase.  Each read of a run adds
+    one to `fused_host_syncs`, a result slab's compact fetch to
     `fused_decode_reads`.  `_phase_fused_seg` (below) keeps the host loop,
     on the card one K6 and one K5 launch a step;
   * no segmented dispatch and no segment controller (the JAX package's
@@ -76,7 +82,7 @@ A port of sibeliaz_tpu/lcb/fused.py.  How it differs:
   * spans inside the caller's `lcb_engine`: the stage `lcb_bundles` (the
     bundle list, once a run) and the summed spans (`utils/metrics`'s
     `summed`: counters `<name>_s`) `lcb_seed_s` (a phase's table refresh,
-    and each lane set's seeding, its overflow read and its carry),
+    and each lane set's seeding: K8's call and the run's set-up),
     `lcb_decode_s` (result slabs to instances), `lcb_oracle_s` (the host
     oracle's lanes); `LcbEngine.run` adds `lcb_commit_s`.  K7's launches
     and reads are the counter `fused_step_s`, outside every span;
@@ -139,7 +145,6 @@ from sibeliaz_tpu_torch.lcb.resident import (
     _device_tables,
     _pad_pow2,
     _seed_lanes,
-    _seed_lanes_device,
     _tensor,
     check_device,
     decode,
@@ -203,18 +208,35 @@ class _LaneRun:
     `kernels.lcb_step` call over every lane to its end or MAX_STEPS (on the
     card one K7 launch, which reads nothing; on the CPU the plain host loop,
     with compaction down to COMPACT_MIN lanes); `read` then reads the card
-    once: the flags `_finish` needs and the lanes' counts."""
+    once: the flags `_finish` needs (with the seed-overflow flags where
+    they are still on the device) and the lanes' counts."""
 
     def __init__(self, eng: LcbEngine, tier, tb: DeviceTables, ln: DeviceLanes, seed_ovf,
                  n_bundles: int):
         """Lanes ln on tb's device (seed_ovf on the host): the first
         n_bundles active unless their seed overflowed."""
-        CAP, W, IC, _PC = tier
         L = len(seed_ovf)
         active0 = (np.arange(L) < n_bundles) & ~seed_ovf
+        self._begin(eng, tier, tb,
+                    _init_carry(seed_state(ln), torch.from_numpy(active0).to(tb.jid.device), L))
+        self.seed_ovf = seed_ovf
+
+    @classmethod
+    def seeded(cls, eng: LcbEngine, tier, tb: DeviceTables, carry, ovf) -> "_LaneRun":
+        """A run from K8's carry (kernels.lcb_seed); its seed-overflow row
+        `ovf` stays on the device until the run's read brings it back
+        (`seed_ovf`)."""
+        run = cls.__new__(cls)
+        run._begin(eng, tier, tb, carry)
+        run.ovf = ovf
+        return run
+
+    def _begin(self, eng: LcbEngine, tier, tb: DeviceTables, carry) -> None:
+        CAP, W, IC, _PC = tier
         self.tier = (CAP, W, IC >= I_CAP, tb)
         self.protocol = (eng.depth, eng.m, eng.b, eng.flank, eng.b * 2)
-        self.carry = _init_carry(seed_state(ln), torch.from_numpy(active0).to(tb.jid.device), L)
+        self.carry = carry
+        self.ovf = None
         self.out = None
         self.seconds = 0.0
 
@@ -226,16 +248,23 @@ class _LaneRun:
 
     def read(self):
         """One fetch: has_snap, retier, hostfb (with the lanes still active
-        at MAX_STEPS: step-bound exhaustion) and each lane's rows of the
-        LaneSteps (its steps, pushes, occurrence steps, spill and work);
-        the run's counters."""
+        at MAX_STEPS: step-bound exhaustion), the seed-overflow flags of a
+        run from K8's carry, and each lane's rows of the LaneSteps (its
+        steps, pushes, occurrence steps, spill and work); the run's
+        counters."""
         t0 = time.perf_counter()
         out, carry = self.out, self.out.carry
-        h = _fetch(torch.stack([carry["st"].has_snap.long(), carry["retier"].long(),
-                                (carry["hostfb"] | carry["active"]).long(), *out[1:]]))
+        flags = [carry["st"].has_snap.long(), carry["retier"].long(),
+                 (carry["hostfb"] | carry["active"]).long()]
+        if self.ovf is not None:
+            flags.append(self.ovf.long())
+        h = _fetch(torch.stack(flags + list(out[1:])))
         self.seconds += time.perf_counter() - t0
-        self.has_snap, self.retier, self.hostfb = h[:3].astype(bool)
-        lane = dict(zip(kernels.LaneSteps._fields[1:], h[3:]))
+        got = h[:len(flags)].astype(bool)
+        self.has_snap, self.retier, self.hostfb = got[:3]
+        if self.ovf is not None:
+            self.seed_ovf = got[3]
+        lane = dict(zip(kernels.LaneSteps._fields[1:], h[len(flags):]))
         steps = lane["steps"]
         self.steps = carry["steps"] + int(steps.max())
         longest = int(np.lexsort((lane["pushes"], steps))[-1])  # the most steps, then pushes
@@ -281,19 +310,33 @@ def _finish(run: _LaneRun, seed_ovf, slab_max: bool):
     return run.out.carry["st"].sn, run.has_snap, retier, hostfb, run.steps
 
 
-def _run_tier(eng: LcbEngine, tb: DeviceTables, bundles: Sequence[Bundle], L: int, tier):
+def _seeded(eng: LcbEngine, tb: DeviceTables, seeds: np.ndarray, L: int, IC: int, PC: int):
+    """kernels.lcb_seed of the lanes `seeds`: on the card into the engine's
+    K8 outputs of this shape (made at the shape's first lane set of a run,
+    their views made once, kept until run_fused ends: each lane set is
+    decoded before the next is seeded), on the CPU its plain version."""
+    if tb.jid.device.type != "cuda":
+        return kernels.lcb_seed(tb, seeds, L, IC, PC)
+    pool = eng.__dict__.setdefault("_fused_seed", {})
+    key = (tb.jid.device, L, IC, PC)
+    if key not in pool:
+        pool[key] = kernels.SeedOutputs(L, IC, PC, tb.jid.device)
+    return kernels.lcb_seed(tb, seeds, L, IC, PC, into=pool[key])
+
+
+def _run_tier(eng: LcbEngine, tb: DeviceTables, seeds: np.ndarray, L: int, tier):
     """Seed + run one tier ((vote cap, window, instance-slab width,
-    path-slab width)) on tb's device; returns (result slabs, has_snap,
-    retier, hostfb, steps), the three flag vectors on the host and the
-    slabs as [(slab, its first lane, its lanes)]: the caller fetches a
-    slab only for the lanes it decodes."""
+    path-slab width)) on tb's device, the lanes' (origin vid, out-char) the
+    rows of `seeds` ([n, 2], n <= L): one call of K8 `lcb_seed` and the
+    run, whose one read brings the seed-overflow flags back with its own.
+    Returns (result slabs, has_snap, retier, hostfb, steps), the three
+    flag vectors on the host and the slabs as [(slab, its first lane, its
+    lanes)]: the caller fetches a slab only for the lanes it decodes."""
     CAP, W, IC, PC = tier
     with metrics.summed("lcb_seed"):
-        ln, n_t, seed_ovf_t = _seed_lanes_device(tb, bundles, L, IC, PC)
-        seed_ovf = _fetch(seed_ovf_t).astype(bool)
-        run = _LaneRun(eng, tier, tb, ln, seed_ovf, len(bundles))
+        run = _LaneRun.seeded(eng, tier, tb, *_seeded(eng, tb, seeds, L, IC, PC))
     _lockstep([run])
-    sn, has_snap, retier, hostfb, steps = _finish(run, seed_ovf, IC >= I_CAP)
+    sn, has_snap, retier, hostfb, steps = _finish(run, run.seed_ovf, IC >= I_CAP)
     return [(sn, 0, L)], has_snap, retier, hostfb, steps
 
 
@@ -409,10 +452,18 @@ def process_phase_fused(eng: LcbEngine, bundles: Sequence[Bundle], vote_budget=N
     with metrics.summed("lcb_seed"):
         if devices is None:
             run = functools.partial(_run_tier, eng, _device_tables(eng, device))
+            # each lane's (origin vid, out-char), once a phase
+            seeds = np.array([(bd.vid, bd.ch) for bd in bundles], dtype=np.int64)
+
+            def lanes_of(group):
+                return seeds[group]
         else:
             # the tables go to every distinct device once a phase
             tbs = {dev: _device_tables(eng, dev) for dev in dict.fromkeys(devices)}
             run = functools.partial(_run_tier_slices, eng, tbs, devices)
+
+            def lanes_of(group):
+                return [bundles[i] for i in group]
     metrics.count("fused_phases")
     tiers = tiers_of(eng, bundles, full_width=devices is not None)
     results: List[List[Instance]] = [[] for _ in range(nb)]
@@ -429,8 +480,7 @@ def process_phase_fused(eng: LcbEngine, bundles: Sequence[Bundle], vote_budget=N
             L = _pad_pow2(len(group), 8 if t else 32)
             if devices is not None:  # the lanes split evenly over the devices
                 L = -(-L // len(devices)) * len(devices)
-            parts, snap, retier, hostfb, steps = run([bundles[i] for i in group], L,
-                                                     (CAP, W, IC, PC))
+            parts, snap, retier, hostfb, steps = run(lanes_of(group), L, (CAP, W, IC, PC))
             metrics.count(f"fused_steps_tier{t}", steps)
             metrics.count(f"fused_lanes_tier{t}", len(group))
             n = len(group)
@@ -465,11 +515,14 @@ def run_fused(eng: LcbEngine, device="cuda", vote_budget=None, devices=None):
         check_device(device, "run_fused")
     with metrics.stage("lcb_bundles"):
         bundles = make_bundles_device(eng.t, device)
-    return eng.run(
-        process_batch_fn=functools.partial(
-            process_phase_fused, vote_budget=vote_budget, device=device, devices=devices),
-        bundles=bundles,
-    )
+    try:
+        return eng.run(
+            process_batch_fn=functools.partial(
+                process_phase_fused, vote_budget=vote_budget, device=device, devices=devices),
+            bundles=bundles,
+        )
+    finally:
+        eng.__dict__.pop("_fused_seed", None)  # K8's outputs go with the run
 
 
 # --------------------------------------------------------------------------

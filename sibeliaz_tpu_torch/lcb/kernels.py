@@ -63,19 +63,39 @@ refused before the launch.  A build with STAMP_DEFINES (chip_smoke.py
 --step's) also writes each lane's split of its steps (STAMP_PARTS) where
 step_launch_into is given `stamps`.
 
+K8 `lcb_seed` (csrc/lcb_seed.cu) seeds one lane set of the fused engine
+in one launch: per lane, a block gathers the origin vertex's occurrence
+window, filters it (the used slots, the annotation char) and compacts the
+survivors, and writes K7's whole starting carry: the live, rewind and
+result slabs each the seeded lane, the best scores, the snapshot flags and
+the 13 registers, with `active` and the seed-overflow row computed on the
+card.  Its outputs are disjoint views of one allocation (which holds the
+lanes' [2, L] arguments too, uploaded from a pinned host buffer without a
+wait; `SeedOutputs`, which the fused engine keeps one a shape for a run
+and K8 writes again), so K7's overlap check passes them; nothing is read
+back.  Its plain version is lcb/step.py's `lcb_seed_plain`, the engine's
+seeding before K8 (resident._seed_lanes_device_impl, seed_state,
+init_carry).  It routes by the device of the tables, as K7 does.  Each
+launch adds one to LAUNCHES["lcb_seed"] and to utils/metrics' counter
+`k8_launches`.
+
 The wrappers check every tensor they pass to the card: its device, type,
 shape and contiguity (and K5 and K7 the state's overlaps).  The tables'
 checks run once per DeviceTables object, which the engines build once a
 phase (`_table_check`, kept on the object; a replaced table tensor is
 checked again); the lanes, the state and the arguments are checked every
-call.
+call.  K8's tables are checked once per DeviceTables object too
+(`_seed_tables`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from sibeliaz_tpu_torch.lcb.batched_push_device import (
@@ -94,8 +114,9 @@ from sibeliaz_tpu_torch.lcb.batched_push_device import (
 )
 from sibeliaz_tpu_torch.lcb.vote import vote_columns, vote_plain, vote_retry_plain
 from sibeliaz_tpu_torch.utils import cudabuild
+from sibeliaz_tpu_torch.utils.metrics import GLOBAL as metrics
 
-LAUNCHES = {"lcb_walk": 0, "lcb_vote": 0, "lcb_step": 0}
+LAUNCHES = {"lcb_walk": 0, "lcb_vote": 0, "lcb_step": 0, "lcb_seed": 0}
 
 # the tables the kernel reads, in the order of its C interface
 TABLE_FIELDS = ("chr_off", "chr_len", "jpos", "jid", "used_pfx", "used", "seq_off", "seq",
@@ -713,3 +734,220 @@ def step_blocks_per_sm(IC: int, PC: int, CAP: int, W: int, layout: int = 1, devi
     if got < 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {-got}")
     return got, smem.value
+
+
+# ---- K8 lcb_seed -------------------------------------------------------------
+
+# the tables K8 reads, in the order of its C interface
+SEED_TABLE_FIELDS = ("occ_off", "occ_chr", "occ_idx", "occ_ch", "occ_revch", "chr_off", "jid",
+                     "used")
+_SEED_BYTE_TABLES = ("occ_ch", "occ_revch", "used")
+# K8's allocation: every region starts on this many bytes
+_SEED_ALIGN = 256
+# a device's pinned host buffer of the lanes' arguments (and its numpy
+# view) and the event of its last upload
+_SEED_HOST = {}
+# a card's private memory pool for K8's outputs: freed at a run's end,
+# their blocks stay out of the card's common cache, where an allocation of
+# a later stage (the next pass's graph stage) could take one whole and
+# count its slack past the request as allocated
+_SEED_POOLS = {}
+
+
+class _SeedTables(NamedTuple):
+    """What a DeviceTables object's K8 checks found, kept on the object:
+    its SEED_TABLE_FIELDS tensors, their one device and, on a card, their
+    pointers and lengths for the C call."""
+
+    tables: tuple
+    device: torch.device
+    ptrs: Optional[ctypes.Array] = None
+    lens: Optional[ctypes.Array] = None
+
+
+def _seed_tables(tb: DeviceTables) -> _SeedTables:
+    """K8's checks of tb's SEED_TABLE_FIELDS, run once per DeviceTables
+    object (again only where one of its tensors was replaced): one device
+    (for routing), and on a card each table's type, 1-D contiguity and
+    length, the occurrence tables of one length."""
+    tables = tuple(getattr(tb, f) for f in SEED_TABLE_FIELDS)
+    got = tb.__dict__.get("_seed_tables")
+    if got is not None and all(a is b for a, b in zip(got.tables, tables)):
+        return got
+    devices = {t.device for t in tables}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+    got = _SeedTables(tables, devices.pop())
+    if got.device.type == "cuda":
+        for f, t in zip(SEED_TABLE_FIELDS, tables):
+            _require(t, torch.uint8 if f in _SEED_BYTE_TABLES else torch.int64, None, f"tables.{f}")
+            if not t.shape[0]:
+                raise ValueError(f"tables.{f} is empty")
+        if any(getattr(tb, f).shape != tb.occ_chr.shape
+               for f in ("occ_idx", "occ_ch", "occ_revch")):
+            raise ValueError("occ_chr, occ_idx, occ_ch and occ_revch must be of one length")
+        got = got._replace(ptrs=_array([t.data_ptr() for t in tables]),
+                           lens=_array([t.shape[0] for t in tables]))
+    elif got.device.type != "cpu":
+        raise ValueError(f"no kernel for device type {got.device.type!r}")
+    tb.__dict__["_seed_tables"] = got
+    return got
+
+
+class SeedPlan(NamedTuple):
+    """K8's one allocation at (L, IC, PC): `nbytes` in all; the lanes'
+    [2, L] int64 arguments at its start; its outputs (the carry's 81
+    tensors in _step_specs' order, then the [L] bool seed-overflow row)
+    grouped by type and shape into `regions` (byte offset, dtype, a
+    tensor's shape, the outputs' numbers), each on _SEED_ALIGN bytes; each
+    output's byte offset, in the C interface's order, in `offsets`."""
+
+    nbytes: int
+    regions: tuple
+    offsets: ctypes.Array
+
+
+@functools.lru_cache(maxsize=None)
+def seed_plan(L: int, IC: int, PC: int) -> SeedPlan:
+    """K8's allocation at (L, IC, PC), one layout a shape."""
+    specs = _step_specs(L, IC, PC) + [(torch.bool, torch.Size((L,)), "ovf")]
+    groups = {}
+    for q, (dtype, shape, _) in enumerate(specs):
+        groups.setdefault((dtype, shape), []).append(q)
+    offset, regions, offsets = 16 * L, [], [0] * len(specs)
+    for (dtype, shape), qs in groups.items():
+        offset = -(-offset // _SEED_ALIGN) * _SEED_ALIGN
+        size = shape.numel() * (1 if dtype == torch.bool else 8)
+        regions.append((offset, dtype, shape, tuple(qs)))
+        for k, q in enumerate(qs):
+            offsets[q] = offset + k * size
+        offset += size * len(qs)
+    return SeedPlan(offset, tuple(regions), _array(offsets))
+
+
+def _seed_pool(device: torch.device):
+    """Allocations into the card's private pool for K8's outputs (made at
+    its first use); on the CPU nothing."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    pool = _SEED_POOLS.get(device)
+    if pool is None:
+        pool = _SEED_POOLS[device] = torch.cuda.MemPool()
+    return torch.cuda.use_mem_pool(pool, device)
+
+
+class SeedOutputs:
+    """K8's one allocation at (L, IC, PC) on `device` (seed_plan's layout)
+    and its views, made once: the lanes' [2, L] int64 arguments (`args`),
+    the carry (`carry`, steps 0) and the seed-overflow row (`ovf`), a view
+    and an unbind a region.  lcb_seed makes one a call, or writes again
+    the one it is given: the fused engine keeps one a shape for a run.  On
+    a card the allocation comes from the card's private pool for K8
+    (`_SEED_POOLS`)."""
+
+    def __init__(self, L: int, IC: int, PC: int, device):
+        self.shape = (L, IC, PC)
+        self.plan = seed_plan(L, IC, PC)
+        device = torch.device(device)
+        with _seed_pool(device):
+            self.buf = torch.empty(self.plan.nbytes, dtype=torch.uint8, device=device)
+        self.args = self.buf[:16 * L].view(torch.int64)
+        outs = [None] * len(self.plan.offsets)
+        for offset, dtype, shape, qs in self.plan.regions:
+            size = shape.numel() * (1 if dtype == torch.bool else 8)
+            views = self.buf[offset:offset + size * len(qs)].view(dtype).view(len(qs), *shape)
+            for q, x in zip(qs, views.unbind(0)):
+                outs[q] = x
+        n = len(outs) - len(CARRY_REGISTERS) - 1
+        self.carry = dict(st=_state_from_leaves(outs[:n]),
+                          **dict(zip(CARRY_REGISTERS, outs[n:-1])), steps=0)
+        self.ovf = outs[-1]
+
+
+def _upload_seeds(args: torch.Tensor, seeds: np.ndarray, L: int) -> None:
+    """The lanes' [2, L] arguments (seeds' vids and out-chars, then zeros)
+    into `args`, by one copy from the device's pinned host buffer that the
+    host does not wait for.  The buffer is written again only once its
+    last copy is done (the engine reads the card between two seedings, so
+    it never waits here)."""
+    host = _SEED_HOST.get(args.device)
+    if host is None or host[0].numel() < 2 * L:
+        pinned = torch.empty(2 * max(L, 256), dtype=torch.int64, pin_memory=True)
+        host = _SEED_HOST[args.device] = (pinned, pinned.numpy(), torch.cuda.Event())
+    pinned, arr, done = host
+    if not done.query():
+        done.synchronize()
+    nb = len(seeds)
+    lanes = arr[:2 * L].reshape(2, L)
+    lanes[:, :nb] = seeds.T
+    lanes[:, nb:] = 0
+    args.copy_(pinned[:2 * L], non_blocking=True)
+    done.record()
+
+
+def lcb_seed(tb: DeviceTables, seeds, L: int, IC: int, PC: int,
+             into: Optional[SeedOutputs] = None):
+    """K8.  Seed L lanes at slab widths IC and PC: lane j < len(seeds) from
+    seeds[j] ((signed origin vid, out-char), an [nb, 2] int64 array on the
+    host), the others inert (vid 0).  Returns (carry, ovf): K7's starting
+    carry, init_carry's (the live, rewind and result slabs each the seeded
+    lanes, best scores 0, no snapshot, the 13 registers, steps 0) with the
+    first nb lanes active unless their origin's occurrence count passes IC,
+    and ovf ([L] bool) the lanes whose count passes it.  On CUDA tables one
+    copy of the [2, L] arguments and one launch, the carry's tensors and
+    ovf disjoint views of one allocation (SeedOutputs): a new one, or
+    `into`, one of this shape on the tables' card, which is written again
+    (whatever still reads its views sees the new lanes); nothing is read
+    back.  On CPU tables the plain version (step.lcb_seed_plain), which
+    takes no `into`.  The tables are checked once per DeviceTables
+    object."""
+    seeds = np.asarray(seeds, dtype=np.int64).reshape(-1, 2)
+    nb = len(seeds)
+    if not 0 <= nb <= L or IC < 1 or PC < 1:
+        raise ValueError(f"lcb_seed takes at most L seeds and IC, PC >= 1, got {nb} seeds, L {L}, "
+                         f"IC {IC}, PC {PC}")
+    got = _seed_tables(tb)
+    if got.device.type == "cpu":
+        if into is not None:
+            raise ValueError("lcb_seed's plain version writes no SeedOutputs")
+        from sibeliaz_tpu_torch.lcb import step
+
+        lanes = torch.zeros((2, L), dtype=torch.int64)
+        lanes[:, :nb] = torch.from_numpy(seeds.T)
+        return step.lcb_seed_plain(tb, lanes, nb, IC, PC)
+    if into is not None and (into.shape != (L, IC, PC) or into.buf.device != got.device):
+        raise ValueError(f"lcb_seed into outputs of shape {into.shape} on {into.buf.device}, "
+                         f"not ({L}, {IC}, {PC}) on {got.device}")
+    lib = cudabuild.load()
+    if lib.sz_lcb_seed_smem(IC) < 0:
+        raise ValueError(f"lcb_seed compacts a lane's window in shared memory: IC {IC} takes "
+                         "more than the 232,448 bytes a block may opt in to")
+    with torch.cuda.device(got.device):
+        if into is None:
+            into = SeedOutputs(L, IC, PC, got.device)
+        _upload_seeds(into.args, seeds, L)
+        _launch_seed(lib, got, into, nb)
+    return dict(into.carry), into.ovf
+
+
+def seed_launch_into(tb: DeviceTables, out: SeedOutputs, nb: int) -> None:
+    """Launches K8 into `out` (on the tables' card, the lanes' arguments
+    already in its `args`): chip_smoke.py's K8 times."""
+    _launch_seed(cudabuild.load(), _seed_tables(tb), out, nb)
+
+
+def _launch_seed(lib, got: _SeedTables, out: SeedOutputs, nb: int) -> None:
+    if lib.sz_lcb_seed_outputs() != len(out.plan.offsets):
+        raise RuntimeError("the K8 build does not write seed_plan's outputs")
+    L, IC, PC = out.shape
+    dev = out.buf.device
+    status = lib.sz_lcb_seed(
+        ctypes.c_void_p(out.buf.data_ptr()), ctypes.cast(out.plan.offsets, ctypes.c_void_p), nb,
+        L, IC, PC, ctypes.cast(got.ptrs, ctypes.c_void_p), ctypes.cast(got.lens, ctypes.c_void_p),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if status != 0:
+        raise RuntimeError(f"lcb_seed launch failed: CUDA error {status}")
+    LAUNCHES["lcb_seed"] += 1
+    metrics.count("k8_launches")

@@ -3,6 +3,9 @@ torch ops, below lcb/kernels.py (which routes a CPU call of `lcb_step`
 here) and above K6 `lcb_vote` and K5 `lcb_walk`, whose wrappers each step
 calls.
 
+It also holds K8 lcb_seed's plain version (`lcb_seed_plain`): a lane set
+seeded, and the carry `init_carry` makes of it.
+
 One outer step (`phase_step`, the JAX package's fused.py::_phase_step):
 one vote for every lane not mid-walk (with the forward-only used-retry,
 one K6 call with `retry`) and up to `walk_chunk` walk pushes for every
@@ -44,8 +47,10 @@ from sibeliaz_tpu_torch.lcb.batched_push_device import (
     _lanes_where,
     _state_from_leaves,
     _state_leaves,
+    seed_state,
 )
 from sibeliaz_tpu_torch.lcb.kernels import CARRY_REGISTERS, LaneSteps
+from sibeliaz_tpu_torch.lcb.resident import _seed_lanes_device_impl
 from sibeliaz_tpu_torch.utils.metrics import GLOBAL as metrics
 
 
@@ -76,6 +81,19 @@ def init_carry(st: ResidentState, active0, L: int):
         wt=torch.full((L,), BIG, dtype=torch.int64, device=dev), wlast=z(torch.bool),
         steps=0,
     )
+
+
+def lcb_seed_plain(tb, lanes, nb: int, IC: int, PC: int):
+    """Plain PyTorch K8: a lane set seeded as the fused engine seeded it
+    before K8, in torch ops on the device of `lanes` ([2, L] int64: the
+    signed origin vids, 0 for an inert lane, and the out-chars):
+    resident._seed_lanes_device_impl, seed_state and init_carry, the first
+    nb lanes active unless their origin's occurrence count passes IC.
+    Returns (carry, ovf [L] bool, the lanes whose count passes IC)."""
+    L = lanes.shape[1]
+    ln, _, ovf = _seed_lanes_device_impl(L, IC, PC, tb, lanes[0], lanes[1])
+    active = (torch.arange(L, device=lanes.device) < nb) & ~ovf
+    return init_carry(seed_state(ln), active, L), ovf
 
 
 def phase_step(CAP: int, W: int, slab_max: bool, tb, carry, depth: int, m: int, b: int,

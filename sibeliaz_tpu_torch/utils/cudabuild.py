@@ -129,9 +129,13 @@ SIGNATURES = {
     "sz_lcb_step_result_rows": [],
     "sz_lcb_step_stamp_parts": [],
     "sz_lcb_step_workspace_words": [_i32] * 4,
+    "sz_lcb_seed": [_vp, _vp, _i64, _i64, _i32, _i32, _vp, _vp, _vp],
+    "sz_lcb_seed_outputs": [],
+    "sz_lcb_seed_smem": [_i32],
 }
 _RESTYPES = {"sz_class_scratch_bytes": _i64, "sz_round_scratch_bytes": _i64,
-             "sz_lcb_vote_workspace_words": _i64, "sz_lcb_step_workspace_words": _i64}
+             "sz_lcb_vote_workspace_words": _i64, "sz_lcb_step_workspace_words": _i64,
+             "sz_lcb_seed_smem": _i64}
 
 
 def bind(lib: ctypes.CDLL, names=None) -> ctypes.CDLL:

@@ -24,12 +24,12 @@ from sibeliaz_tpu_torch.utils import cudabuild
 from sibeliaz_tpu_torch.utils.metrics import GLOBAL as metrics
 
 from torch_cases import (BUNDLE_CASES, CLASS_RUN_KINDS, K1_KINDS, LIMB_SPLITS, ROUND_ROW_KINDS,
-                         SHARD_EDGE_KINDS, STEP_CASES, VOTE_CASES, bundle_fields, class_case,
-                         class_runs, codes_with_n_runs, edge_band_round, k1_case, poa_case,
-                         poa_round, rand_block, related_genomes, repeat_genomes, round_rows,
-                         shard_edge_case, split_limbs, spread_slots, state_apart, state_diff,
-                         step_case, tied_table, vote_case, walk_args, walk_genomes, walk_lanes,
-                         walk_tensors, with_sentinel_rows)
+                         SEED_CASES, SHARD_EDGE_KINDS, STEP_CASES, VOTE_CASES, bundle_fields,
+                         class_case, class_runs, codes_with_n_runs, edge_band_round, k1_case,
+                         poa_case, poa_round, rand_block, related_genomes, repeat_genomes,
+                         round_rows, seed_case, shard_edge_case, split_limbs, spread_slots,
+                         state_apart, state_diff, step_case, tied_table, vote_case, walk_args,
+                         walk_genomes, walk_lanes, walk_tensors, with_sentinel_rows)
 
 pytestmark = pytest.mark.gpu
 
@@ -1204,7 +1204,7 @@ def step_checked(tb_cpu, carry_cpu, tb, carry, a):
     got = kernels.lcb_step(*args, tb, carry, *rest)
     torch.cuda.synchronize(carry["active"].device)
     assert {k: kernels.LAUNCHES[k] - launches[k] for k in launches} == {
-        "lcb_walk": 0, "lcb_vote": 0, "lcb_step": 1}
+        "lcb_walk": 0, "lcb_vote": 0, "lcb_step": 1, "lcb_seed": 0}
     assert all(x is y for x, y in zip(
         [got.carry[r] for r in kernels.CARRY_REGISTERS] + list(state_leaves(got.carry["st"])),
         leaves))
@@ -1378,3 +1378,141 @@ def test_lcb_step_refusals_on_the_card(cuda):
     with pytest.raises(ValueError, match="a block may opt in to"):
         kernels.lcb_step(512, 32, True, tb_wide, wide, *rest)
     assert kernels.LAUNCHES["lcb_step"] == launches
+
+
+# ---- K8 lcb_seed -------------------------------------------------------------
+
+
+def seeded_on_card(eng, seeds, L, IC, PC):
+    """K8 on the card (one launch, counted) into an allocation that held
+    0xA5 in every byte (a column K8 did not write would show): (carry,
+    ovf)."""
+    from sibeliaz_tpu_torch.lcb import kernels, resident
+
+    tb = resident._device_tables(eng, "cuda")
+    with kernels._seed_pool(torch.device("cuda")):  # K8's outputs come from its own pool
+        junk = torch.full((kernels.seed_plan(L, IC, PC).nbytes,), 0xA5, dtype=torch.uint8,
+                          device="cuda")
+    del junk  # the pool hands its block to K8's allocation
+    launches = dict(kernels.LAUNCHES)
+    got = kernels.lcb_seed(tb, seeds, L, IC, PC)
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - launches[k] for k in launches} == {
+        "lcb_walk": 0, "lcb_vote": 0, "lcb_step": 0, "lcb_seed": 1}
+    return got
+
+
+@pytest.mark.parametrize("name", sorted(SEED_CASES))
+def test_lcb_seed_matches_plain(cuda, name):
+    """K8 on the card against its plain version on the CPU from the same
+    lanes and tables (tests/torch_cases.py's SEED_CASES: examples/large's
+    first phase at IC 64 and 512, 8, 32, 200 and 256 lanes with padding,
+    origins past IC 64, used slots): the carry's 81 tensors and the
+    seed-overflow row bit for bit, in one launch; its outputs disjoint
+    views of one allocation, which kernels.overlapping (K7's check)
+    passes."""
+    from sibeliaz_tpu_torch.lcb import kernels, resident
+
+    eng, bundles, L, IC, PC, seeds = seed_case(name, "cuda")
+    want, want_ovf = kernels.lcb_seed(resident._device_tables(eng, "cpu"), seeds, L, IC, PC)
+    got, ovf = seeded_on_card(eng, seeds, L, IC, PC)
+    assert not state_diff(got, want)
+    assert torch.equal(ovf.cpu(), want_ovf)
+    outs = state_leaves(got["st"]) + [got[r] for r in kernels.CARRY_REGISTERS] + [ovf]
+    assert len({t.untyped_storage().data_ptr() for t in outs}) == 1
+    assert kernels.overlapping(outs) is None
+    if name in ("overflow", "lanes200"):
+        assert bool(ovf.any())
+
+
+def test_lcb_seed_into_kept_outputs(cuda):
+    """K8 into outputs it wrote before (the engine keeps one a shape for a
+    run), after K7 stepped that carry in place, for other lanes: the plain
+    version's carry and overflow row for the new lanes, bit for bit, in
+    the same tensors."""
+    from sibeliaz_tpu_torch.lcb import fused, kernels, resident, step
+
+    eng, bundles, L, IC, PC, seeds = seed_case("lanes32", "cuda")
+    tb = resident._device_tables(eng, "cuda")
+    kept = kernels.SeedOutputs(L, IC, PC, "cuda")
+    first, _ = kernels.lcb_seed(tb, seeds[::-1], L, IC, PC, into=kept)
+    ran = kernels.lcb_step(IC, 32, IC >= fused.I_CAP, tb, first, eng.depth, eng.m, eng.b,
+                           eng.flank, eng.b * 2, fused.MAX_STEPS, fused.WALK_CHUNK,
+                           fused.COMPACT_MIN)
+    assert int(ran.pushes.sum()) > 0
+    got, ovf = kernels.lcb_seed(tb, seeds[:12], L, IC, PC, into=kept)
+    want, want_ovf = kernels.lcb_seed(resident._device_tables(eng, "cpu"), seeds[:12], L, IC, PC)
+    torch.cuda.synchronize()
+    assert not state_diff(got, want) and torch.equal(ovf.cpu(), want_ovf)
+    assert all(x is y for x, y in zip(step.leaves(got), step.leaves(kept.carry)))
+    assert ovf is kept.ovf
+
+
+@pytest.mark.parametrize("name", ["large_narrow", "lanes32", "overflow"])
+def test_lcb_step_from_k8_carry(cuda, name):
+    """K7 run to its end from K8's carry and from the carry of the seeding
+    K8 replaced (resident._seed_lanes_device, seed_state, init_carry), on
+    the card, from the same lanes: the same carry and the same lane rows."""
+    from sibeliaz_tpu_torch.lcb import fused, kernels, resident
+
+    eng, bundles, L, IC, PC, seeds = seed_case(name, "cuda")
+    tb = resident._device_tables(eng, "cuda")
+    ln, _, ovf = resident._seed_lanes_device(tb, bundles, L, IC, PC)
+    active = (torch.arange(L, device="cuda") < len(bundles)) & ~ovf
+    old = fused._init_carry(resident.seed_state(ln), active, L)
+    new, _ = seeded_on_card(eng, seeds, L, IC, PC)
+    outs = [kernels.lcb_step(IC, 32, IC >= fused.I_CAP, tb, carry, eng.depth, eng.m, eng.b,
+                             eng.flank, eng.b * 2, fused.MAX_STEPS, fused.WALK_CHUNK,
+                             fused.COMPACT_MIN) for carry in (old, new)]
+    torch.cuda.synchronize()
+    assert not state_diff(outs[0].carry, outs[1].carry)
+    for row in LaneSteps._fields[1:]:
+        assert torch.equal(getattr(outs[0], row), getattr(outs[1], row)), row
+    assert int(outs[1].pushes.sum()) > 0
+
+
+def test_fused_seeding_is_one_copy_and_one_launch(cuda, monkeypatch):
+    """Every seeding of a fused phase on the card (examples/' related
+    genomes, the narrow tier overflowing into the wide one) queues one
+    copy from the host and one K8 launch and nothing else on the card, and
+    makes no host read (torch's sync debug mode raises on one); the
+    phase's instances are eng.process's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sibeliaz_tpu_torch.lcb import fused, kernels
+
+    monkeypatch.setattr(fused, "SMALL_CAP", 3)
+    eng = fused_case()
+    bundles = make_bundles_device(eng.t, "cpu")[:32]
+    real = kernels.lcb_seed
+    seen = []
+
+    def seed(*args, **kwargs):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = real(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+        seen.append([e.name() for e in prof.profiler.kineto_results.events()
+                     if str(e.device_type()).endswith("CUDA")
+                     and not getattr(e, "is_user_annotation", lambda: False)()])
+        return out
+
+    monkeypatch.setattr(kernels, "lcb_seed", seed)
+    metrics.counters.clear()
+    got = fused.process_phase_fused(eng, bundles, device="cuda")
+    assert len(seen) == metrics.counters["fused_runs"] >= 2
+    assert metrics.counters["fused_host_syncs"] == metrics.counters["fused_runs"]
+    for names in seen:
+        assert len(names) == 2, names
+        assert sum(n.startswith("Memcpy HtoD") for n in names) == 1, names
+        assert sum("lcb_seed_kernel" in n for n in names) == 1, names
+
+    def keys(results):
+        return [[(x.c, x.s, x.fi, x.bi, x.fdist, x.bdist, x.cmp, x.ffin, x.bfin) for x in insts]
+                for insts in results]
+
+    assert keys(got) == keys(eng.process(b) for b in bundles)

@@ -1083,3 +1083,76 @@ def step_case(name, device):
             carry[reg][at] = torch.from_numpy(vals).to(device)
         carry["in_walk"][at] = True
     return tb, carry, args
+
+
+# ---- K8 lcb_seed: lane sets of the fused engine ------------------------------
+
+# name: (engine, first bundle, bundles, lanes L, slab widths IC and PC).
+# "large": examples/large at k=25, its first phase; "related": two related
+# genomes with inversions (minus-strand occurrences); "repeat": 300 copies
+# of one unit (origins of 80-300 occurrences, past IC 64); "used": the
+# related genomes after LcbEngine.run committed their first 16 bundles
+# (used slots the seeding filters out).  Lanes past the bundles are inert.
+SEED_CASES = {
+    "large_narrow": ("large", 0, 256, 256, 64, 128),
+    "large_wide": ("large", 0, 256, 256, 512, 1024),
+    "lanes8": ("related", 0, 5, 8, 64, 128),
+    "lanes32": ("related", 10, 20, 32, 512, 1024),
+    "lanes256": ("repeat", 0, 200, 256, 512, 1024),
+    "lanes200": ("repeat", 0, 150, 200, 64, 128),
+    "overflow": ("repeat", 0, 32, 32, 64, 128),
+    "used": ("used", 0, 44, 64, 64, 128),
+}
+
+
+def large_example():
+    """examples/large's genomes (make_large_example.py's, seed 33), from
+    portbench's numpy generator of the same draws: (seqs, names)."""
+    import json
+    import os
+
+    from portbench.generators import chromosomes
+
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(here, "portbench", "traffic", "example-large.json")) as f:
+        params = json.load(f)
+    genomes = chromosomes.generate(np.random.default_rng(33), params, 33)
+    return ([seq for g in genomes for _, seq in g], [name for g in genomes for name, _ in g])
+
+
+@functools.lru_cache(maxsize=None)
+def seed_engine(kind, device="cpu"):
+    """The LCB engine and its bundle list of a SEED_CASES kind, its graph
+    stage on `device`."""
+    from sibeliaz_tpu_torch import pipeline
+    from sibeliaz_tpu_torch.config import Config
+    from sibeliaz_tpu_torch.lcb.device_bundles import make_bundles_device
+    from sibeliaz_tpu_torch.lcb.oracle import LcbEngine
+
+    cfg = Config(k=15)
+    if kind == "large":
+        seqs, names = large_example()
+        cfg = Config(k=25)
+    elif kind == "repeat":
+        seqs, names = repeat_genomes(3, 300)
+        cfg = Config(k=15, abundance_threshold=1000)
+    else:
+        seqs, names = related_genomes(520, length=1200, mut=0.03, rearrange=True)
+    table = pipeline.build_table(seqs, names, cfg, device=device)
+    eng = LcbEngine(table, cfg.min_block_size, cfg.max_branch_size, cfg.flanking,
+                    cfg.looking_depth)
+    bundles = make_bundles_device(table, "cpu")
+    if kind == "used":
+        eng.run(bundles=bundles[:16], phase_size=16)
+    return eng, bundles
+
+
+def seed_case(name, device="cpu"):
+    """A SEED_CASES lane set: (engine, its bundles, L, IC, PC, seeds), the
+    seeds the [n, 2] (origin vid, out-char) rows the fused engine gives
+    K8."""
+    kind, first, n, L, IC, PC = SEED_CASES[name]
+    eng, bundles = seed_engine(kind, device if kind == "large" else "cpu")
+    bundles = bundles[first:first + n]
+    seeds = np.array([(bd.vid, bd.ch) for bd in bundles], dtype=np.int64)
+    return eng, bundles, L, IC, PC, seeds
